@@ -1,0 +1,76 @@
+"""Conversions between the JAX package's parameter trees and caches (as
+numpy arrays) and the port's tensors.
+
+Both sides use the same tree: nested dicts with the same keys, stacked
+``[L, ...]`` layers, ``[K, N]`` kernels, int8 ``kernel_q8`` with float32
+scales. So a conversion is a copy leaf by leaf that keeps each dtype. numpy
+has no bfloat16 of its own: JAX hands out ``ml_dtypes.bfloat16`` arrays,
+which cross to torch through a ``uint16`` view of the same bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from block_transformer_tpu_torch.models import neox
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.name == "bfloat16"
+
+
+def tensor_from_numpy(a, device="cuda", dtype=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if _is_bf16(a):
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_numpy(tree, device="cuda", dtype=None):
+    """A JAX parameter tree (after ``jax.device_get``) -> the port's tree.
+    int8 stays int8; bf16 and f32 stay as they are unless ``dtype`` is given,
+    which then applies to every floating leaf."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device, dtype)
+
+
+def params_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tensor_to_numpy(tree)
+
+
+def cache_from_numpy(cache, device="cuda"):
+    """A JAX ``KVCache`` / ``QuantKVCache`` (any object with its fields,
+    arrays convertible by numpy) -> the port's cache."""
+    length = int(np.asarray(cache.length))
+    conv = lambda a: tensor_from_numpy(a, device)      # noqa: E731
+    if hasattr(cache, "k_scale"):
+        return neox.QuantKVCache(conv(cache.k), conv(cache.v),
+                                 conv(cache.k_scale), conv(cache.v_scale),
+                                 length)
+    return neox.KVCache(conv(cache.k), conv(cache.v), length)
+
+
+def cache_to_numpy(cache) -> dict:
+    """The port's cache -> a dict of numpy arrays under the JAX field names
+    (``length`` an int32 scalar), e.g. for ``QuantKVCache(**d)`` in JAX."""
+    out = {f: tensor_to_numpy(getattr(cache, f))
+           for f in cache._fields if f != "length"}
+    out["length"] = np.int32(cache.length)
+    return out

@@ -1,0 +1,250 @@
+"""Two-level autoregressive generation (port of
+``block_transformer_tpu/inference/generate.py``, main path).
+
+- The prompt's block embeddings go through the block decoder in one fresh
+  prefill pass that fills the global KV cache (bf16 or INT8).
+- The outer loop runs once per block: the token decoder decodes up to
+  ``block_length`` tokens against a small local cache made fresh for each
+  block, the new block is embedded, and the block decoder appends it to
+  the global cache.
+
+The JAX package compiles both loops into one program; here they are host
+loops, and the outer loop reads one flag back from the device per block to
+stop once every row has finished. EOS semantics are the JAX package's: a
+row finishes when a generated block holds EOS; the EOS and everything after
+it in the block come out as pad; finished rows emit pad blocks and zero
+block embeddings.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from block_transformer_tpu_torch.config import BlockTransformerConfig
+from block_transformer_tpu_torch.models import embedder as emb
+from block_transformer_tpu_torch.models import neox
+from block_transformer_tpu_torch.models import token_decoder as td
+from block_transformer_tpu_torch.ops import masks
+
+
+class GenerationResult(NamedTuple):
+    tokens: torch.Tensor     # [B, max_blocks, block_length] (prompt + generated)
+    n_blocks: int            # valid blocks in ``tokens``
+    unfinished: torch.Tensor  # [B] int32
+
+
+def filter_logits(logits: torch.Tensor, temperature: float = 1.0,
+                  top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+    """Temperature, then top-k and nucleus (top-p) filtering: filtered-out
+    entries become -inf. The top-1 token always survives top-p."""
+    logits = logits / temperature
+    if top_k and top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[..., -top_k][..., None]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        cutoff_idx = ((cum - probs) < top_p).sum(dim=-1) - 1
+        cutoff = sorted_logits.gather(-1, cutoff_idx[..., None])
+        logits = torch.where(logits < cutoff, float("-inf"), logits)
+    return logits
+
+
+def _sample(logits: torch.Tensor, greedy: bool, temperature: float,
+            generator: Optional[torch.Generator], top_k: int = 0,
+            top_p: float = 1.0) -> torch.Tensor:
+    if greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(filter_logits(logits, temperature, top_k, top_p),
+                          dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[..., 0].to(
+        torch.int32)
+
+
+def decode_block_tokens(params, cfg: BlockTransformerConfig, block_embeddings,
+                        *, greedy: bool = True, temperature: float = 1.0,
+                        generator: Optional[torch.Generator] = None,
+                        top_k: int = 0, top_p: float = 1.0):
+    """Inner loop: block_embeddings [B, n_emb, projection_hidden] -> (tokens
+    [B, L] with pad after EOS, alive [B] bool). The local KV cache is made
+    here and dropped on return."""
+    tcfg = cfg.token_decoder
+    L = cfg.block_length
+    B = block_embeddings.shape[0]
+    eos, pad = cfg.eos_token_id, cfg.pad_token_id
+
+    expanded = td.expand_block_embeddings(params["token_decoder"], tcfg,
+                                          block_embeddings, cfg.expansion_ratio)
+    cache = neox.KVCache.create(tcfg.neox, B, cfg.n_expanded_emb + L,
+                                dtype=expanded.dtype, device=expanded.device)
+    logits, cache = td.token_decoder_prefix_step(params["token_decoder"], tcfg,
+                                                 expanded, cache)
+    first = _sample(logits, greedy, temperature, generator, top_k, top_p)
+    alive = first != eos
+    tokens = torch.zeros((B, L), dtype=torch.int32, device=expanded.device)
+    tokens[:, 0] = torch.where(alive, first, pad)
+    for i in range(1, L):
+        # dead rows are fed pad; their outputs are ignored
+        prev = torch.where(alive, tokens[:, i - 1], pad)
+        logits, cache = td.token_decoder_token_step(
+            params["token_decoder"], tcfg, prev, cache)
+        nxt = _sample(logits, greedy, temperature, generator, top_k, top_p)
+        tokens[:, i] = torch.where(alive & (nxt != eos), nxt, pad)
+        alive = alive & (nxt != eos)
+    return tokens, alive
+
+
+def _block_decoder_step(params, cfg: BlockTransformerConfig, inputs_embeds,
+                        cache, kv_valid, new_valid):
+    """Append S = inputs_embeds.shape[1] positions to the global cache and run
+    the block decoder. ``kv_valid`` [B, capacity] is updated in place, before
+    the mask is built. Returns (hidden [B, S, ph], cache, kv_valid)."""
+    S = inputs_embeds.shape[1]
+    start = cache.length
+    kv_valid[:, start:start + S] = new_valid.to(kv_valid.dtype)
+    mask = masks.block_decode_mask(start, cache.k.shape[3], S, kv_valid,
+                                   cfg.n_embedding_tokens)
+    positions = start + torch.arange(S, dtype=torch.int32,
+                                     device=inputs_embeds.device)
+    hidden, cache = neox.neox_stack(params["block_decoder"], inputs_embeds,
+                                    cfg=cfg.block_decoder, mask=mask,
+                                    positions=positions, cache=cache)
+    return hidden, cache, kv_valid
+
+
+def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
+                   attention_mask, block_attention_mask, *, capacity: int,
+                   kv_cache: str = "bf16", prefill_chunk_blocks: int = 128):
+    """Embed the prompt blocks and run them through the block decoder in one
+    fresh pass (``neox_prefill_fresh``), attention tiled by
+    ``prefill_chunk_blocks`` blocks of queries. Returns (next_embeds
+    [B, n, ph] at the last prompt block, cache, kv_valid [B, capacity])."""
+    B, N, L = input_ids.shape
+    n = cfg.n_embedding_tokens
+    ph = cfg.embedder.projection_hidden_size
+    device = input_ids.device
+    block_embeds = emb.embed_blocks(params["embedder"], cfg.embedder,
+                                    cfg.block_length, input_ids,
+                                    attention_mask=attention_mask)
+    inputs_embeds = block_embeds.reshape(B, N * n, ph)
+    cache = neox.make_kv_cache(cfg.block_decoder, B, capacity, kv_cache,
+                               dtype=inputs_embeds.dtype, device=device)
+    kv_valid = torch.zeros((B, capacity), dtype=torch.int32, device=device)
+    prompt_valid = block_attention_mask.to(torch.int32).repeat_interleave(
+        n, dim=1)
+    S = N * n
+    mask = masks.block_decode_mask(0, S, S, prompt_valid, n)
+    positions = torch.arange(S, dtype=torch.int32, device=device)
+    hidden, cache = neox.neox_prefill_fresh(
+        params["block_decoder"], inputs_embeds, cfg=cfg.block_decoder,
+        mask=mask, positions=positions, cache=cache,
+        q_tile=max(1, prefill_chunk_blocks) * n)
+    kv_valid[:, :S] = prompt_valid
+    return hidden[:, -n:, :], cache, kv_valid
+
+
+def generate_blocks(params, cfg: BlockTransformerConfig, input_ids,
+                    attention_mask, block_attention_mask, *, max_blocks: int,
+                    greedy: bool = True, temperature: float = 1.0,
+                    top_k: int = 0, top_p: float = 1.0,
+                    generator: Optional[torch.Generator] = None,
+                    prefill_chunk_blocks: int = 128, kv_cache: str = "bf16",
+                    device="cuda") -> GenerationResult:
+    """Block-format generation: input_ids / attention_mask [B, N, L] and
+    block_attention_mask [B, N] (tensors or arrays, moved to ``device``);
+    generates until ``max_blocks`` blocks in all or every row finished."""
+    if cfg.block_decoder_cls != "gpt-neo-x":
+        raise NotImplementedError(f"block decoder {cfg.block_decoder_cls!r}")
+    input_ids = torch.as_tensor(input_ids, device=device).to(torch.int32)
+    attention_mask = torch.as_tensor(attention_mask, device=device)
+    block_attention_mask = torch.as_tensor(block_attention_mask, device=device)
+    B, N, L = input_ids.shape
+    n = cfg.n_embedding_tokens
+    ph = cfg.embedder.projection_hidden_size
+    # capacity rounded up to a multiple of 128 (extra slots stay invalid)
+    capacity = max_blocks * n
+    if capacity >= 128:
+        capacity = -(-capacity // 128) * 128
+
+    next_embeds, cache, kv_valid = prefill_blocks(
+        params, cfg, input_ids, attention_mask, block_attention_mask,
+        capacity=capacity, kv_cache=kv_cache,
+        prefill_chunk_blocks=prefill_chunk_blocks)
+
+    tokens = torch.zeros((B, max_blocks, L), dtype=torch.int32, device=device)
+    tokens[:, :N] = input_ids
+    unfinished = torch.ones(B, dtype=torch.int32, device=device)
+    n_blocks = N
+    while n_blocks < max_blocks and bool(unfinished.any()):
+        alive = unfinished.bool()
+        new_tokens, inner_alive = decode_block_tokens(
+            params, cfg, next_embeds.reshape(B, n, ph), greedy=greedy,
+            temperature=temperature, generator=generator, top_k=top_k,
+            top_p=top_p)
+        new_tokens = torch.where(alive[:, None], new_tokens, cfg.pad_token_id)
+        # finished if an EOS was emitted in this block
+        unfinished = unfinished * inner_alive.to(torch.int32)
+        tokens[:, n_blocks] = new_tokens
+        # re-embed the generated block; zero embeddings for finished rows
+        new_block_emb = emb.embed_blocks(params["embedder"], cfg.embedder,
+                                         cfg.block_length, new_tokens)
+        new_block_emb = new_block_emb.masked_fill(~alive[:, None, None], 0.0)
+        hidden, cache, kv_valid = _block_decoder_step(
+            params, cfg, new_block_emb.reshape(B, n, ph).to(next_embeds.dtype),
+            cache, kv_valid, unfinished[:, None].expand(B, n))
+        next_embeds = hidden[:, -n:, :]
+        n_blocks += 1
+    return GenerationResult(tokens, n_blocks, unfinished)
+
+
+# ---------------------------------------------------------------------------
+# Flat-token convenience wrapper
+# ---------------------------------------------------------------------------
+
+def preprocess_inputs(cfg: BlockTransformerConfig, input_ids,
+                      attention_mask=None):
+    """Flat [B, T] -> block format with LEFT pad to a block boundary.
+    Returns a dict of numpy arrays and the pad length added."""
+    ids = np.asarray(input_ids)
+    if ids.ndim == 1:
+        ids = ids[None]
+    if attention_mask is None:
+        att = (ids != cfg.pad_token_id).astype(np.int32)
+    else:
+        att = np.asarray(attention_mask).astype(np.int32).reshape(ids.shape)
+    B, T = ids.shape
+    L = cfg.block_length
+    pad_len = (-T) % L
+    if pad_len:
+        ids = np.pad(ids, ((0, 0), (pad_len, 0)),
+                     constant_values=cfg.pad_token_id)
+        att = np.pad(att, ((0, 0), (pad_len, 0)), constant_values=0)
+    N = ids.shape[1] // L
+    ids = ids.reshape(B, N, L)
+    att = att.reshape(B, N, L)
+    bam = att.any(axis=-1).astype(np.int32)
+    return {"input_ids": ids, "attention_mask": att,
+            "block_attention_mask": bam, "initial_block_padding": pad_len}
+
+
+def generate(params, cfg: BlockTransformerConfig, input_ids,
+             attention_mask=None, max_length: int = 100, greedy: bool = True,
+             temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+             generator: Optional[torch.Generator] = None,
+             device="cuda") -> np.ndarray:
+    """Flat token ids in, flat token ids out (prompt + generated, cut at
+    ``max_length``)."""
+    d = preprocess_inputs(cfg, input_ids, attention_mask)
+    B, N, L = d["input_ids"].shape
+    pad_len = d["initial_block_padding"]
+    max_blocks = N + max(0, -(-(max_length + pad_len - N * L) // L))
+    res = generate_blocks(params, cfg, d["input_ids"], d["attention_mask"],
+                          d["block_attention_mask"], max_blocks=max_blocks,
+                          greedy=greedy, temperature=temperature, top_k=top_k,
+                          top_p=top_p, generator=generator, device=device)
+    toks = res.tokens[:, :res.n_blocks].reshape(B, -1).cpu().numpy()
+    return toks[:, pad_len:][:, :max_length]

@@ -1,0 +1,337 @@
+"""GPT-NeoX (Pythia) stack in PyTorch (port of
+``block_transformer_tpu/models/neox.py``).
+
+Partial rotary embeddings (rotate-half on the first ``rotary_pct`` of each
+head), parallel attention + MLP residual, exact GeLU, float32 layer norm and
+softmax. Parameters keep the JAX tree's layout: layers stacked on a leading
+``[L, ...]`` axis, kernels ``[in, out]``, the fused QKV output ordered
+``(q|k|v, head, head_dim)``. The JAX layer ``scan`` becomes a loop over layer
+indices into the stacked tensors; ``layer_view`` hands each linear to
+``apply_linear`` as a ``StackedLinear``, so no weight slice is copied.
+
+KV caches are fixed-capacity ``[L, B, H, cap, D]`` buffers with a Python-int
+``length``. Unlike the JAX functions, which return new arrays, the cached
+forwards here write the new K/V into the given buffers in place and return
+a cache tuple that shares them.
+
+Cached attention: the INT8 cache sends decode-shaped queries (S <= 8) to K2
+(``kernels/decode_attention.py``); longer queries dequantize the layer and
+go through ``ops.attention.attention``, which sends Q >= 8 to K3.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from block_transformer_tpu_torch.config import NeoXConfig
+from block_transformer_tpu_torch.kernels import decode_attention
+from block_transformer_tpu_torch.ops import linear as linear_ops
+from block_transformer_tpu_torch.ops import masks as masks_lib
+from block_transformer_tpu_torch.ops.attention import attention
+from block_transformer_tpu_torch.ops.quant import quantize_kv
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+def init_neox_params(gen: torch.Generator, cfg: NeoXConfig, *,
+                     with_embed_in: bool = True, with_lm_head: bool = True,
+                     dtype=torch.float32, device="cuda"):
+    """Full stack parameters with layers stacked on axis 0; dense weights are
+    N(0, initializer_range) drawn from ``gen`` (a generator on ``device``)."""
+    L, h, m = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    std = cfg.initializer_range
+
+    def dense(*shape):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (std * w).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    params = {
+        "layers": {
+            "ln1": {"scale": ones(L, h), "bias": zeros(L, h)},
+            "ln2": {"scale": ones(L, h), "bias": zeros(L, h)},
+            "attn": {
+                "qkv": {"kernel": dense(L, h, 3 * h), "bias": zeros(L, 3 * h)},
+                "out": {"kernel": dense(L, h, h), "bias": zeros(L, h)},
+            },
+            "mlp": {
+                "up": {"kernel": dense(L, h, m), "bias": zeros(L, m)},
+                "down": {"kernel": dense(L, m, h), "bias": zeros(L, h)},
+            },
+        },
+        "final_ln": {"scale": ones(h), "bias": zeros(h)},
+    }
+    if with_embed_in:
+        params["embed_in"] = {"weight": dense(cfg.vocab_size, h)}
+    if with_lm_head:
+        params["embed_out"] = {"kernel": dense(h, cfg.vocab_size)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+def layer_norm(x: torch.Tensor, p, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_tables(rotary_dim: int, max_pos: int, theta: float, device: str):
+    ar = torch.arange(0, rotary_dim, 2, dtype=torch.float32, device=device)
+    inv_freq = 1.0 / (theta ** (ar / rotary_dim))
+    t = torch.arange(max_pos, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)                  # [max_pos, rotary_dim/2]
+    emb = torch.cat([freqs, freqs], dim=-1)           # [max_pos, rotary_dim]
+    return emb.cos(), emb.sin()
+
+
+def rope_tables(cfg: NeoXConfig, max_pos: Optional[int], device):
+    return _rope_tables(cfg.rotary_dim, max_pos or cfg.max_position_embeddings,
+                        cfg.rope_theta, str(torch.device(device)))
+
+
+def apply_rope(x: torch.Tensor, cos, sin, positions) -> torch.Tensor:
+    """Rotate the first ``rotary_dim`` dims of x [B, H, S, D] by position;
+    positions [S] or [B, S]."""
+    r = cos.shape[-1]
+    x_rot, x_pass = x[..., :r], x[..., r:]
+    c = cos[positions].float()
+    s = sin[positions].float()
+    if c.dim() == 2:            # [S, r] -> broadcast over batch and heads
+        c, s = c[None, None], s[None, None]
+    else:                       # [B, S, r] -> add the head axis
+        c, s = c[:, None], s[:, None]
+    xr = x_rot.float()
+    x1, x2 = xr.chunk(2, dim=-1)
+    rotated = torch.cat([-x2, x1], dim=-1)
+    x_rot = (xr * c + rotated * s).to(x.dtype)
+    return torch.cat([x_rot, x_pass], dim=-1)
+
+
+class KVCache(NamedTuple):
+    """Fixed-capacity cache: k, v [L, B, H, cap, D]; length: valid slots."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+    @staticmethod
+    def create(cfg: NeoXConfig, batch: int, capacity: int,
+               dtype=torch.bfloat16, device="cuda"):
+        shape = (cfg.num_layers, batch, cfg.num_heads, capacity, cfg.head_dim)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+class QuantKVCache(NamedTuple):
+    """INT8 cache: values int8 [L, B, H, cap, D] with one float32 scale per
+    (layer, batch, head, slot) [L, B, H, cap]."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    length: int
+
+    @staticmethod
+    def create(cfg: NeoXConfig, batch: int, capacity: int, device="cuda"):
+        shape = (cfg.num_layers, batch, cfg.num_heads, capacity, cfg.head_dim)
+        i8 = dict(dtype=torch.int8, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        return QuantKVCache(torch.zeros(shape, **i8), torch.zeros(shape, **i8),
+                            torch.zeros(shape[:-1], **f32),
+                            torch.zeros(shape[:-1], **f32), 0)
+
+
+def make_kv_cache(cfg: NeoXConfig, batch: int, capacity: int, kind: str,
+                  dtype=torch.bfloat16, device="cuda"):
+    """kind: 'bf16' (a cache in ``dtype``) or 'int8'."""
+    if kind == "int8":
+        return QuantKVCache.create(cfg, batch, capacity, device=device)
+    if kind != "bf16":
+        raise ValueError(f"unknown kv cache kind {kind!r} (the port has "
+                         "bf16 and int8)")
+    return KVCache.create(cfg, batch, capacity, dtype=dtype, device=device)
+
+
+def _check_room(cache, S: int, start: int) -> None:
+    cap = cache.k.shape[3]
+    if start + S > cap:
+        raise ValueError(f"cache write [{start}, {start + S}) past capacity "
+                         f"{cap}")
+
+
+def _write_layer(cache, i: int, start: int, k, v) -> None:
+    """Write one layer's new K/V [B, H, S, D] at slot ``start`` in place
+    (quantized per slot for a QuantKVCache)."""
+    sl = slice(start, start + k.shape[2])
+    if isinstance(cache, QuantKVCache):
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        cache.k[i, :, :, sl] = kq
+        cache.v[i, :, :, sl] = vq
+        cache.k_scale[i, :, :, sl] = ks
+        cache.v_scale[i, :, :, sl] = vs
+    else:
+        cache.k[i, :, :, sl] = k.to(cache.k.dtype)
+        cache.v[i, :, :, sl] = v.to(cache.v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def layer_qkv(p, x, *, cfg: NeoXConfig, cos, sin, positions):
+    """LN1 + fused QKV + RoPE. Returns (q, k, v), each [B, H, S, D]."""
+    B, S, H, D = x.shape[0], x.shape[1], cfg.num_heads, cfg.head_dim
+    attn_in = layer_norm(x, p["ln1"], cfg.layer_norm_eps)
+    qkv = linear_ops.apply_linear(attn_in, p["attn"]["qkv"])     # [B, S, 3h]
+    qkv = qkv.reshape(B, S, 3, H, D).permute(2, 0, 3, 1, 4)      # [3, B, H, S, D]
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    q = apply_rope(q, cos, sin, positions)
+    k = apply_rope(k, cos, sin, positions)
+    return q, k, v
+
+
+def layer_finish(p, x, attn_heads, *, cfg: NeoXConfig):
+    """Output projection + MLP + residual(s). attn_heads: [B, H, S, D]."""
+    B, S = x.shape[0], x.shape[1]
+    dense = linear_ops.apply_linear
+
+    def mlp(h):
+        up = F.gelu(dense(layer_norm(h, p["ln2"], cfg.layer_norm_eps),
+                          p["mlp"]["up"]), approximate="none")
+        return dense(up, p["mlp"]["down"])
+
+    attn_out = dense(attn_heads.transpose(1, 2).reshape(B, S, -1),
+                     p["attn"]["out"])
+    if cfg.use_parallel_residual:
+        return x + attn_out + mlp(x)
+    x = x + attn_out
+    return x + mlp(x)
+
+
+def layer_view(layers, i: int):
+    """Per-layer view of the stacked ``layers`` tree: linear nodes become
+    ``StackedLinear(node, i)``, other leaves the view ``leaf[i]``."""
+    def walk(node):
+        if isinstance(node, dict):
+            if any(k.startswith("kernel") for k in node):
+                return linear_ops.StackedLinear(node, i)
+            return {k: walk(v) for k, v in node.items()}
+        return node[i]
+
+    return walk(layers)
+
+
+def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
+               mask: masks_lib.AttnMask, positions: torch.Tensor,
+               cache=None):
+    """Run the stack over hidden states x [B, S, h]; with a cache, the new
+    K/V are written at ``cache.length``. Returns (final-normed hidden
+    states, updated cache or None)."""
+    max_pos = cfg.max_position_embeddings
+    if cache is not None:
+        max_pos = max(max_pos, cache.k.shape[3])
+        _check_room(cache, x.shape[1], cache.length)
+    cos, sin = rope_tables(cfg, max_pos, x.device)
+    layers = params["layers"]
+    S = x.shape[1]
+    h = x
+    for i in range(cfg.num_layers):
+        p = layer_view(layers, i)
+        q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
+                            positions=positions)
+        if cache is None:
+            attn = attention(q, k, v, mask)
+        elif isinstance(cache, QuantKVCache):
+            _write_layer(cache, i, cache.length, k, v)
+            if S <= decode_attention.MAX_S:
+                attn = decode_attention.decode_attention_int8_stacked(
+                    q.contiguous(), cache.k, cache.k_scale, cache.v,
+                    cache.v_scale, i, mask)
+            else:
+                k_all = (cache.k[i].float()
+                         * cache.k_scale[i][..., None]).to(q.dtype)
+                v_all = (cache.v[i].float()
+                         * cache.v_scale[i][..., None]).to(q.dtype)
+                attn = attention(q, k_all, v_all, mask)
+        else:
+            _write_layer(cache, i, cache.length, k, v)
+            attn = attention(q, cache.k[i].to(q.dtype),
+                             cache.v[i].to(q.dtype), mask)
+        h = layer_finish(p, h, attn, cfg=cfg)
+    if cache is not None:
+        cache = cache._replace(length=cache.length + S)
+    return layer_norm(h, params["final_ln"], cfg.layer_norm_eps), cache
+
+
+def fresh_attn_tiles(mask: masks_lib.AttnMask, S: int, q_tile: int):
+    """Attention for the fresh prefill: ``q_tile`` query rows at a time
+    against the full fresh K/V. The last tile may be shorter (the kernels
+    take any Q), so no padding rows are made."""
+    if mask.q_idx.dim() != 1:
+        raise ValueError("fresh prefill expects an unbatched q_idx")
+    tq = min(q_tile, S)
+
+    def attn_tiles(q, k, v):
+        if tq == S:
+            return attention(q, k, v, mask)
+        out = torch.empty_like(q)
+        for t0 in range(0, S, tq):
+            sl = slice(t0, min(S, t0 + tq))
+            m_t = masks_lib.AttnMask(mask.q_idx[sl], mask.kv_idx,
+                                     mask.kv_valid)
+            out[:, :, sl] = attention(q[:, :, sl], k, v, m_t)
+        return out
+
+    return attn_tiles
+
+
+def neox_prefill_fresh(params, x: torch.Tensor, *, cfg: NeoXConfig,
+                       mask: masks_lib.AttnMask, positions: torch.Tensor,
+                       cache, q_tile: int = 512):
+    """Prefill an EMPTY cache in one pass: each layer's attention reads the
+    K/V it just computed, unquantized, while the cache (bf16 or INT8) is
+    only written. ``mask`` covers the whole [S, S] prompt. Returns (hidden
+    [B, S, h] final-normed, the cache with length = S)."""
+    B, S, _ = x.shape
+    _check_room(cache, S, 0)
+    cos, sin = rope_tables(cfg, max(cfg.max_position_embeddings,
+                                    cache.k.shape[3]), x.device)
+    layers = params["layers"]
+    attn_tiles = fresh_attn_tiles(mask, S, q_tile)
+    h = x
+    for i in range(cfg.num_layers):
+        p = layer_view(layers, i)
+        q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
+                            positions=positions)
+        _write_layer(cache, i, 0, k, v)
+        h = layer_finish(p, h, attn_tiles(q, k, v), cfg=cfg)
+    h = layer_norm(h, params["final_ln"], cfg.layer_norm_eps)
+    return h, cache._replace(length=S)
+
+
+def embed_tokens(params, input_ids: torch.Tensor) -> torch.Tensor:
+    return params["embed_in"]["weight"][input_ids]
+
+
+def lm_logits(params, hidden: torch.Tensor) -> torch.Tensor:
+    """Untied LM head: [.., h] -> [.., vocab], computed in hidden's dtype,
+    then cast to float32."""
+    return linear_ops.apply_linear(hidden, params["embed_out"]).float()

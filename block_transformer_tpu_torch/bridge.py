@@ -56,10 +56,14 @@ def params_to_numpy(tree):
 
 
 def cache_from_numpy(cache, device="cuda"):
-    """A JAX ``KVCache`` / ``QuantKVCache`` (any object with its fields,
-    arrays convertible by numpy) -> the port's cache."""
+    """A JAX ``KVCache`` / ``QuantKVCache`` / ``PagedKVCache`` (any object
+    with its fields, arrays convertible by numpy) -> the port's cache."""
     length = int(np.asarray(cache.length))
     conv = lambda a: tensor_from_numpy(a, device)      # noqa: E731
+    if hasattr(cache, "page_table"):
+        return neox.PagedKVCache(conv(cache.k), conv(cache.v),
+                                 conv(cache.k_scale), conv(cache.v_scale),
+                                 conv(cache.page_table), length)
     if hasattr(cache, "k_scale"):
         return neox.QuantKVCache(conv(cache.k), conv(cache.v),
                                  conv(cache.k_scale), conv(cache.v_scale),
@@ -69,7 +73,8 @@ def cache_from_numpy(cache, device="cuda"):
 
 def cache_to_numpy(cache) -> dict:
     """The port's cache -> a dict of numpy arrays under the JAX field names
-    (``length`` an int32 scalar), e.g. for ``QuantKVCache(**d)`` in JAX."""
+    (``length`` an int32 scalar), e.g. for ``QuantKVCache(**d)`` or
+    ``PagedKVCache(**d)`` in JAX."""
     out = {f: tensor_to_numpy(getattr(cache, f))
            for f in cache._fields if f != "length"}
     out["length"] = np.int32(cache.length)

@@ -10,13 +10,23 @@ indices into the stacked tensors; ``layer_view`` hands each linear to
 ``apply_linear`` as a ``StackedLinear``, so no weight slice is copied.
 
 KV caches are fixed-capacity ``[L, B, H, cap, D]`` buffers with a Python-int
-``length``. Unlike the JAX functions, which return new arrays, the cached
-forwards here write the new K/V into the given buffers in place and return
-a cache tuple that shares them.
+``length``, or the serving engine's paged INT8 pool (``PagedKVCache``).
+Unlike the JAX functions, which return new arrays, the cached forwards here
+write the new K/V into the given buffers in place and return a cache tuple
+that shares them.
+
+Cache writes go at ``write_pos``: by default ``cache.length`` for every row,
+or a ``[B]`` int32 tensor of per-row offsets (the engine's slot frontiers).
+A per-row write whose position falls outside the cache is dropped; the JAX
+reference clamps it instead, which only ever touches a finished slot.
 
 Cached attention: the INT8 cache sends decode-shaped queries (S <= 8) to K2
-(``kernels/decode_attention.py``); longer queries dequantize the layer and
-go through ``ops.attention.attention``, which sends Q >= 8 to K3.
+(``kernels/decode_attention.py``), and writes a per-row single position
+through K5 (``kernels/paged_attention.py``, the cache viewed as a pool with
+one page per row); longer queries dequantize the layer and go through
+``ops.attention.attention``, which sends Q >= 8 to K3. The paged pool
+attends through K6 and, for single-position decode steps, defers the write
+of every layer to one K7 launch after the layer loop.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 
 from block_transformer_tpu_torch.config import NeoXConfig
 from block_transformer_tpu_torch.kernels import decode_attention
+from block_transformer_tpu_torch.kernels import paged_attention
 from block_transformer_tpu_torch.ops import linear as linear_ops
 from block_transformer_tpu_torch.ops import masks as masks_lib
 from block_transformer_tpu_torch.ops.attention import attention
@@ -158,6 +169,43 @@ class QuantKVCache(NamedTuple):
                             torch.zeros(shape[:-1], **f32), 0)
 
 
+class PagedKVCache(NamedTuple):
+    """INT8 paged KV pool: values int8 [L, P, H, page_size, D] and float32
+    scales [L, P, H, page_size] shared by every row; ``page_table``
+    [B, n_virt] int32 maps each row's virtual pages to pool pages. Page 0
+    is the null page: unallocated virtual pages point there and are masked
+    by kv_valid. ``length`` is kept for the cache interface only (the
+    engine tracks each row's length itself)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    page_table: torch.Tensor
+    length: int
+
+    @staticmethod
+    def create(cfg: NeoXConfig, batch: int, capacity: int, *, n_pages: int,
+               page_size: int = 256, bits: int = 8, device="cuda"):
+        if bits != 8:
+            raise NotImplementedError("the port's paged pool is INT8 only")
+        if capacity % page_size:
+            raise ValueError(f"capacity {capacity} is not a multiple of the "
+                             f"page size {page_size}")
+        shape = (cfg.num_layers, n_pages, cfg.num_heads, page_size,
+                 cfg.head_dim)
+        i8 = dict(dtype=torch.int8, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        return PagedKVCache(
+            torch.zeros(shape, **i8), torch.zeros(shape, **i8),
+            torch.zeros(shape[:-1], **f32), torch.zeros(shape[:-1], **f32),
+            torch.zeros((batch, capacity // page_size), dtype=torch.int32,
+                        device=device), 0)
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[3]
+
+
 def make_kv_cache(cfg: NeoXConfig, batch: int, capacity: int, kind: str,
                   dtype=torch.bfloat16, device="cuda"):
     """kind: 'bf16' (a cache in ``dtype``) or 'int8'."""
@@ -176,20 +224,57 @@ def _check_room(cache, S: int, start: int) -> None:
                          f"{cap}")
 
 
-def _write_layer(cache, i: int, start: int, k, v) -> None:
-    """Write one layer's new K/V [B, H, S, D] at slot ``start`` in place
-    (quantized per slot for a QuantKVCache)."""
-    sl = slice(start, start + k.shape[2])
+def _write_rows(buf: torch.Tensor, i: int, new: torch.Tensor,
+                write_pos: torch.Tensor) -> None:
+    """Write ``new`` ([B, H, S(, D)]) into ``buf[i]`` ([B, H, cap(, D)]) at
+    each row's own offset ``write_pos[b]``, in place, with no host sync.
+    Positions outside [0, cap) are dropped: such an entry is aimed at the
+    nearest in-range slot and carries the value this call writes there (or
+    the value already there), so every duplicate target gets one value."""
+    layer = buf[i]
+    B, H, S = new.shape[:3]
+    cap = layer.shape[2]
+    wp = write_pos.to(torch.long)[:, None]
+    tgt = (wp + torch.arange(S, device=new.device)).clamp(0, cap - 1)  # [B, S]
+    src = tgt - wp                      # the new position written at tgt
+    from_new = (src >= 0) & (src < S)
+    tail = new.shape[3:]
+
+    def spread(idx):                    # [B, S] -> the gather index of new
+        idx = idx[:, None, :].expand(B, H, S)
+        return idx.reshape(B, H, S, *(1,) * len(tail)).expand(new.shape)
+
+    vals = torch.where(
+        spread(from_new),
+        new.to(layer.dtype).gather(2, spread(src.clamp(0, S - 1))),
+        layer.gather(2, spread(tgt)))
+    layer.scatter_(2, spread(tgt), vals)
+
+
+def _write_layer(cache, i: int, write_pos, k, v, rows=None) -> None:
+    """Write one layer's new K/V [B, H, S, D] in place at ``write_pos``: an
+    int (every row) or a [B] int32 tensor (per row; quantized per slot for
+    a QuantKVCache). A per-row single-position write into the INT8 cache
+    goes through K5, with ``rows = arange(B)`` as its page ids."""
     if isinstance(cache, QuantKVCache):
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
-        cache.k[i, :, :, sl] = kq
-        cache.v[i, :, :, sl] = vq
-        cache.k_scale[i, :, :, sl] = ks
-        cache.v_scale[i, :, :, sl] = vs
+        new = ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks),
+               (cache.v_scale, vs))
     else:
-        cache.k[i, :, :, sl] = k.to(cache.k.dtype)
-        cache.v[i, :, :, sl] = v.to(cache.v.dtype)
+        new = ((cache.k, k), (cache.v, v))
+    if isinstance(write_pos, int):
+        sl = slice(write_pos, write_pos + k.shape[2])
+        for buf, val in new:
+            buf[i, :, :, sl] = val.to(buf.dtype)
+    elif isinstance(cache, QuantKVCache) and k.shape[2] == 1:
+        paged_attention.paged_write_int8(
+            cache.k, cache.k_scale, cache.v, cache.v_scale, i, rows,
+            write_pos, kq[:, :, 0].contiguous(), ks[:, :, 0].contiguous(),
+            vq[:, :, 0].contiguous(), vs[:, :, 0].contiguous())
+    else:
+        for buf, val in new:
+            _write_rows(buf, i, val, write_pos)
 
 
 # ---------------------------------------------------------------------------
@@ -241,17 +326,30 @@ def layer_view(layers, i: int):
 
 def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
                mask: masks_lib.AttnMask, positions: torch.Tensor,
-               cache=None):
+               cache=None, write_pos=None):
     """Run the stack over hidden states x [B, S, h]; with a cache, the new
-    K/V are written at ``cache.length``. Returns (final-normed hidden
+    K/V are written at ``write_pos``: ``cache.length`` by default, an int,
+    or a [B] int32 tensor of per-row offsets. Returns (final-normed hidden
     states, updated cache or None)."""
     max_pos = cfg.max_position_embeddings
     if cache is not None:
-        max_pos = max(max_pos, cache.k.shape[3])
-        _check_room(cache, x.shape[1], cache.length)
+        cap = cache.k.shape[3]
+        if isinstance(cache, PagedKVCache):     # a row's virtual capacity
+            cap *= cache.page_table.shape[1]
+        max_pos = max(max_pos, cap)
+        if write_pos is None:
+            write_pos = cache.length
     cos, sin = rope_tables(cfg, max_pos, x.device)
+    if isinstance(cache, PagedKVCache):
+        return _paged_stack(params, x, cfg=cfg, mask=mask, positions=positions,
+                            cache=cache, write_pos=write_pos, cos=cos,
+                            sin=sin)
+    if isinstance(write_pos, int):
+        _check_room(cache, x.shape[1], write_pos)
     layers = params["layers"]
-    S = x.shape[1]
+    B, S = x.shape[:2]
+    rows = (torch.arange(B, dtype=torch.int32, device=x.device)
+            if torch.is_tensor(write_pos) else None)
     h = x
     for i in range(cfg.num_layers):
         p = layer_view(layers, i)
@@ -260,7 +358,7 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
         if cache is None:
             attn = attention(q, k, v, mask)
         elif isinstance(cache, QuantKVCache):
-            _write_layer(cache, i, cache.length, k, v)
+            _write_layer(cache, i, write_pos, k, v, rows)
             if S <= decode_attention.MAX_S:
                 attn = decode_attention.decode_attention_int8_stacked(
                     q.contiguous(), cache.k, cache.k_scale, cache.v,
@@ -272,12 +370,88 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
                          * cache.v_scale[i][..., None]).to(q.dtype)
                 attn = attention(q, k_all, v_all, mask)
         else:
-            _write_layer(cache, i, cache.length, k, v)
+            _write_layer(cache, i, write_pos, k, v)
             attn = attention(q, cache.k[i].to(q.dtype),
                              cache.v[i].to(q.dtype), mask)
         h = layer_finish(p, h, attn, cfg=cfg)
     if cache is not None:
         cache = cache._replace(length=cache.length + S)
+    return layer_norm(h, params["final_ln"], cfg.layer_norm_eps), cache
+
+
+def _paged_stack(params, x, *, cfg: NeoXConfig, mask, positions,
+                 cache: PagedKVCache, write_pos, cos, sin):
+    """The stack over the paged INT8 pool. Position ``write_pos[b] + s`` of
+    row b goes to page ``page_table[b, pos // ps]`` at ``pos % ps`` (page -1,
+    dropped by the writes, past the row's virtual pages).
+
+    A single-position step (the engine's decode) writes nothing inside the
+    layer loop: each layer attends through K6 to the pool, whose stale
+    frontier slot ``mask.q_idx - 1`` masks, plus its own just-quantized K/V
+    dequantized as the ``fresh`` term, and one K7 launch after the loop
+    writes every layer's K/V. Longer steps write each layer first with a
+    plain indexed write, then attend through K6."""
+    B, S = x.shape[:2]
+    ps, pt = cache.page_size, cache.page_table
+    n_virt = pt.shape[1]
+    if isinstance(write_pos, int):
+        write_pos = torch.full((B,), write_pos, dtype=torch.int32,
+                               device=x.device)
+    vp = write_pos[:, None] + torch.arange(S, dtype=torch.int32,
+                                           device=x.device)      # [B, S]
+    vpage = torch.div(vp, ps, rounding_mode="floor")
+    in_table = (vpage >= 0) & (vpage < n_virt)
+    page = torch.where(in_table, pt.gather(1, vpage.clamp(0, n_virt - 1)),
+                       -1).to(torch.int32)
+    off = (vp - vpage * ps).to(torch.int32)
+    layers = params["layers"]
+    pools = (cache.k, cache.k_scale, cache.v, cache.v_scale)
+    h = x
+    if S == 1:
+        L, H, D = cfg.num_layers, cfg.num_heads, cfg.head_dim
+        step_q = torch.empty((2, L, B, H, D), dtype=torch.int8,
+                             device=x.device)
+        step_s = torch.empty((2, L, B, H), dtype=torch.float32,
+                             device=x.device)
+        mask_d = mask._replace(q_idx=mask.q_idx - 1)
+        for i in range(L):
+            p = layer_view(layers, i)
+            q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
+                                positions=positions)
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            step_q[0, i], step_s[0, i] = kq[:, :, 0], ks[:, :, 0]
+            step_q[1, i], step_s[1, i] = vq[:, :, 0], vs[:, :, 0]
+            # the fresh pair is dequantized, so it carries the quantization
+            # error a pool read would
+            kf = step_q[0, i].float() * step_s[0, i][..., None]
+            vf = step_q[1, i].float() * step_s[1, i][..., None]
+            attn = paged_attention.paged_decode_attention_int8(
+                q.contiguous(), cache.k, cache.k_scale, cache.v,
+                cache.v_scale, i, pt, mask_d, fresh=(kf, vf)).to(q.dtype)
+            h = layer_finish(p, h, attn, cfg=cfg)
+        paged_attention.paged_write_layers_int8(
+            *pools, page[:, 0].contiguous(), off[:, 0].contiguous(),
+            step_q[0], step_s[0], step_q[1], step_s[1])
+    else:
+        ok = (page >= 0) & (off < ps)
+        pg, of = page[ok].long(), off[ok].long()
+        for i in range(cfg.num_layers):
+            p = layer_view(layers, i)
+            q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
+                                positions=positions)
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            # [B, H, S(, D)] -> the (b, s) pairs in range, [n, H(, D)]
+            cache.k[i, pg, :, of] = kq.transpose(1, 2)[ok]
+            cache.v[i, pg, :, of] = vq.transpose(1, 2)[ok]
+            cache.k_scale[i, pg, :, of] = ks.transpose(1, 2)[ok]
+            cache.v_scale[i, pg, :, of] = vs.transpose(1, 2)[ok]
+            attn = paged_attention.paged_decode_attention_int8(
+                q.contiguous(), cache.k, cache.k_scale, cache.v,
+                cache.v_scale, i, pt, mask).to(q.dtype)
+            h = layer_finish(p, h, attn, cfg=cfg)
+    cache = cache._replace(length=cache.length + S)
     return layer_norm(h, params["final_ln"], cfg.layer_norm_eps), cache
 
 

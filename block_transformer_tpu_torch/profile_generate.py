@@ -1,20 +1,29 @@
-"""Time and trace the port's main path on one NVIDIA GPU.
+"""Time and trace the port's main paths on one NVIDIA GPU.
 
     python -m block_transformer_tpu_torch.profile_generate [--runs 5]
+    python -m block_transformer_tpu_torch.profile_generate --engine int8|paged
 
 Builds ``block_main_b4_1.2b`` at full width (random bf16 weights from a seed,
-INT8 weights, INT8 global KV cache) and generates greedily for B=8 ragged
-prompts of 2048 tokens plus 128 new tokens, as ``chip_smoke.py`` does. After
-one warm-up run it reports, on the host clock with the device synchronized:
+INT8 weights), as ``chip_smoke.py`` does. Without ``--engine`` it generates
+greedily with an INT8 global KV cache for B=8 ragged prompts of 2048 tokens
+plus 128 new tokens; after one warm-up run it reports, on the host clock
+with the device synchronized:
 
 - ``--runs`` timed ``generate_blocks`` runs: median and quartiles of the
   seconds and of the generated tokens per second (prefill included);
 - ``--runs`` timed ``prefill_blocks`` runs alone (the decode loop is the
-  difference);
+  difference).
 
-then one run under ``torch.profiler`` (CPU and CUDA activity): device time
-and launches per kernel name, the device's busy time (union of kernel
-intervals) and its idle share of the median untraced run.
+With ``--engine`` it serves the smoke's engine traffic instead (16 slots,
+24 requests: 8 of 512 prompt tokens and 32 new ones, then 16 of 2048 and
+128) through ``ContinuousBatchingEngine`` with the contiguous INT8 cache
+(``int8``) or the paged INT8 pool (``paged``): after one warm-up, ``--runs``
+timed ``run()`` calls (seconds, generated tokens per second, dispatches).
+
+Either way it then traces one more run under ``torch.profiler`` (CPU and
+CUDA activity): device time and launches per kernel name, the device's busy
+time (union of kernel intervals) and its idle share of the median untraced
+run.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from block_transformer_tpu_torch import config
+from block_transformer_tpu_torch.inference import engine as engine_lib
 from block_transformer_tpu_torch.inference import generate as gen
 from block_transformer_tpu_torch.models import block_transformer as bt
 from block_transformer_tpu_torch.ops import quant
@@ -57,6 +67,64 @@ def ragged_prompts(cfg, batch: int = BATCH, prompt_tokens: int = PROMPT_TOKENS,
     for b in range(batch):
         ids[b, :4 * b], att[b, :4 * b] = 0, 0
     return ids, att, att.any(-1).astype(np.int32)
+
+
+# the engine's traffic: (requests, prompt tokens, new tokens), submitted
+# together in this order; 16 slots, so the short requests finish early and
+# the last long ones are admitted mid-flight into reused slots
+ENGINE_TRAFFIC = ((8, 512, 32), (16, 2048, 128))
+ENGINE_SLOTS, ENGINE_MAX_BLOCKS = 16, 546
+ENGINE_BUCKET_BLOCKS, ENGINE_SYNC_BLOCKS, ENGINE_PAGE_SIZE = 128, 8, 256
+
+
+def engine_requests(cfg, traffic=ENGINE_TRAFFIC, seed: int = 0):
+    """[(prompt token ids, max_new_tokens)] with random tokens in
+    [1, vocab)."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(1, cfg.vocab_size, prompt).astype(np.int32), new)
+            for count, prompt, new in traffic for _ in range(count)]
+
+
+def make_engine(params, cfg, kv_cache: str, *, n_slots: int = ENGINE_SLOTS,
+                max_blocks: int = ENGINE_MAX_BLOCKS,
+                bucket_blocks: int = ENGINE_BUCKET_BLOCKS,
+                page_size: int = ENGINE_PAGE_SIZE, device="cuda"):
+    """The smoke's engine. A paged pool holds n_slots * n_virt + 1 pages,
+    enough for every slot at full length (as ``bench.py`` sizes it)."""
+    cap = max_blocks * cfg.n_embedding_tokens
+    cap = -(-cap // 128) * 128 if cap >= 128 else cap
+    ps = min(page_size, cap)
+    n_virt = -(-cap // ps)
+    return engine_lib.ContinuousBatchingEngine(
+        params, cfg, n_slots=n_slots, max_blocks=max_blocks,
+        kv_cache=kv_cache, bucket_blocks=bucket_blocks,
+        sync_blocks=ENGINE_SYNC_BLOCKS, page_size=page_size,
+        pool_pages=n_slots * n_virt + 1, device=device)
+
+
+def serve(engine, requests) -> dict:
+    """Submit ``requests`` together and run the engine until they are done,
+    on the host clock with the device synchronized. Returns the requests,
+    the seconds, the seconds of the first admission (the batched prefill of
+    the first slots) and the engine's counters and latencies for this run."""
+    done0, steps0 = len(engine.completed), engine.stats.steps
+    tokens0 = engine.stats.tokens_generated
+    for prompt, new in requests:
+        engine.submit(prompt, new)
+    reqs = list(engine.waiting)
+    sync = (torch.cuda.synchronize if engine.device.type == "cuda"
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    engine._admit()
+    sync()
+    admit_s = time.perf_counter() - t0
+    engine.run()
+    sync()
+    return {"requests": reqs, "seconds": time.perf_counter() - t0,
+            "admit_s": admit_s, "dispatches": engine.stats.steps - steps0,
+            "tokens": engine.stats.tokens_generated - tokens0,
+            "latency": engine.latency_metrics(skip=done0)}
 
 
 def quartiles(xs):
@@ -106,14 +174,59 @@ def device_breakdown(fn):
     return dict(per), _busy_us(spans)
 
 
+# the kernels of csrc/*.cu, as the profiler names them
+OWN_KERNELS = ("int8_matmul_kernel", "splitk_reduce_kernel",
+               "decode_attn_int8_kernel", "flash_attn_kernel",
+               "paged_write_kernel", "page_copy_kernel", "paged_attn_kernel")
+
+
+def print_breakdown(per) -> None:
+    """The 25 largest kernel names by device time, then the port's own
+    kernels that fell below."""
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][0])
+    own = [kv for kv in ranked[25:]
+           if any(f"(anonymous namespace)::{k}" in kv[0]
+                  for k in OWN_KERNELS)]
+    print(f"{'device us':>12} {'launches':>9}  kernel")
+    for name, (us, n) in ranked[:25] + own:
+        print(f"{us:12.1f} {n:9d}  {name[:110]}")
+
+
+def profile_engine(kind: str, cfg, params, runs: int, seed: int) -> None:
+    eng = make_engine(params, cfg, kind)
+    requests = engine_requests(cfg, seed=seed)
+    serve(eng, requests)                           # warm-up
+    out = [serve(eng, requests) for _ in range(runs)]
+    secs = [r["seconds"] for r in out]
+    per, busy_us = device_breakdown(lambda: serve(eng, requests))
+    wall = statistics.median(secs)
+    print(json.dumps({
+        "model": MODEL, "engine": kind, "n_slots": ENGINE_SLOTS,
+        "traffic": ENGINE_TRAFFIC, "max_blocks": ENGINE_MAX_BLOCKS,
+        "generated_tokens": [r["tokens"] for r in out],
+        "run_s": quartiles(secs),
+        "tok_per_s": quartiles([r["tokens"] / r["seconds"] for r in out]),
+        "admit_s": quartiles([r["admit_s"] for r in out]),
+        "dispatches": [r["dispatches"] for r in out],
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall}))
+    print_breakdown(per)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", choices=("int8", "paged"), default=None,
+                    help="serve the engine traffic with this cache instead "
+                         "of generate_blocks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate: no CUDA device")
     cfg, params = main_path_model(args.seed)
+    if args.engine:
+        profile_engine(args.engine, cfg, params, args.runs, args.seed)
+        return
     ids, att, bam = ragged_prompts(cfg, seed=args.seed)
     N = ids.shape[1]
     max_blocks = N + NEW_TOKENS // cfg.block_length
@@ -142,9 +255,7 @@ def main() -> None:
         "prefill_s": quartiles(pre),
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall}))
-    print(f"{'device us':>12} {'launches':>9}  kernel")
-    for name, (us, n) in sorted(per.items(), key=lambda kv: -kv[1][0])[:25]:
-        print(f"{us:12.1f} {n:9d}  {name[:110]}")
+    print_breakdown(per)
 
 
 if __name__ == "__main__":

@@ -7,25 +7,34 @@ Needs one CUDA card; exits non-zero, printing no result, without one. In
 one process it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the CUDA kernels K1-K3 from ``block_transformer_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel) and prints ptxas's register and
-   spill lines;
+2. builds the CUDA kernels K1-K3 and K5-K8 from
+   ``block_transformer_tpu_torch/csrc`` (one ``nvcc`` per source, in
+   parallel) and prints ptxas's register and spill lines;
 3. holds each kernel against its plain PyTorch version on the card at the
-   shapes generation with ``block_main_b4_1.2b`` at B=8, prompt 2048 tokens
-   and 128 new tokens gives it, in bf16, and times kernel, plain version,
+   shapes its main path gives it, in bf16, and times kernel, plain version,
    one PyTorch library call computing the same function (a yardstick only:
-   the port never calls it) and the bound from the shapes;
+   the port never calls it) and the bound from the data: K1-K3 at
+   generation with ``block_main_b4_1.2b`` at B=8, prompt 2048 tokens and
+   128 new tokens; K5-K8 at the serving engine's shapes (16 slots, 12
+   layers, 16 heads of 128, capacity 640 contiguous, 3 pages of 256 paged);
 4. checks the port on the card against the same port on the CPU (plain
-   versions) at a small configuration in float32: forward logits, and
-   greedy tokens of INT8-weight, INT8-KV generation;
+   versions) at a small configuration in float32: forward logits, greedy
+   tokens of INT8-weight, INT8-KV generation, and greedy tokens of the
+   serving engine with the contiguous INT8 cache and the paged INT8 pool;
 5. generates with ``block_main_b4_1.2b`` at full width (random weights from
    a seed, bf16, INT8 weights, INT8 global KV cache), greedy, B=8,
    p2048/d128: one warm-up run, then a timed run between launch-count
-   resets, and asserts every kernel ran in it.
+   resets, and asserts every kernel of the path ran in it;
+6. serves with ``ContinuousBatchingEngine`` at the same width, 16 slots,
+   24 requests submitted together (8 of 512 prompt tokens and 32 new ones,
+   then 16 of 2048 and 128), once with the contiguous INT8 cache and once
+   with the paged INT8 pool: a short warm-up, then a timed ``run()``
+   between launch-count resets; asserts every request is served and every
+   kernel of the path ran.
 
-The second-to-last line is a JSON object listing each kernel's launches,
-error and times; the last line is ``{"ok": true, "device": {...}}``. Any
-failure raises.
+The second-to-last line is a JSON object listing each kernel's launches
+(from the run of step 5 or 6 that uses it), error and times; the last line
+is ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from block_transformer_tpu_torch.kernels import build  # noqa: E402
 from block_transformer_tpu_torch.kernels import decode_attention as k2  # noqa: E402
 from block_transformer_tpu_torch.kernels import dequant_matmul as k1  # noqa: E402
 from block_transformer_tpu_torch.kernels import flash_attention as k3  # noqa: E402
+from block_transformer_tpu_torch.kernels import paged_attention as kp  # noqa: E402
 from block_transformer_tpu_torch.models import block_transformer as bt  # noqa: E402
 from block_transformer_tpu_torch.ops import masks  # noqa: E402
 from block_transformer_tpu_torch.ops import quant  # noqa: E402
@@ -60,15 +70,31 @@ TOL = 2e-2      # max |kernel - plain| / max |plain| in bf16 (~2^-8 rounding
 
 MODEL, BATCH = pg.MODEL, pg.BATCH
 PROMPT_TOKENS, NEW_TOKENS = pg.PROMPT_TOKENS, pg.NEW_TOKENS
+PAGED_CU = "block_transformer_tpu_torch/csrc/paged_attention.cu"
+PAGED_PY = "block_transformer_tpu/ops/paged_attention.py"
+# (wrapper, tag, source, TPU kernel replaced, the run whose launches count)
 KERNELS = [
     (k1.int8_matmul_stacked, "K1", "block_transformer_tpu_torch/csrc/dequant_matmul.cu",
-     "block_transformer_tpu/ops/dequant_matmul.py:86"),
+     "block_transformer_tpu/ops/dequant_matmul.py:86", "generation"),
     (k2.decode_attention_int8_stacked, "K2",
      "block_transformer_tpu_torch/csrc/decode_attention.cu",
-     "block_transformer_tpu/ops/decode_attention.py:143"),
+     "block_transformer_tpu/ops/decode_attention.py:143", "generation"),
     (k3.flash_attention, "K3", "block_transformer_tpu_torch/csrc/flash_attention.cu",
-     "block_transformer_tpu/ops/flash_attention.py:83"),
+     "block_transformer_tpu/ops/flash_attention.py:83", "generation"),
+    (kp.paged_write_int8, "K5", PAGED_CU, f"{PAGED_PY}:428", "engine int8"),
+    (kp.paged_decode_attention_int8, "K6", PAGED_CU, f"{PAGED_PY}:221",
+     "engine paged"),
+    (kp.paged_write_layers_int8, "K7", PAGED_CU, f"{PAGED_PY}:549",
+     "engine paged"),
+    (kp.paged_page_copy_int8, "K8", PAGED_CU, f"{PAGED_PY}:646",
+     "engine paged"),
 ]
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "generation": ("K1", "K2", "K3"),
+    "engine int8": ("K1", "K2", "K3", "K5"),
+    "engine paged": ("K1", "K3", "K6", "K7", "K8"),
+}
 
 
 def log(msg: str) -> None:
@@ -122,7 +148,7 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def record(rows, kernel, label, err, ms, plain_ms, library_ms, nbytes, flops):
-    fn, tag, source, replaces = next(k for k in KERNELS if k[0] is kernel)
+    fn, tag, source, replaces, _ = next(k for k in KERNELS if k[0] is kernel)
     bound_ms, bound_by = bound(nbytes, flops)
     rows.append({"name": f"{tag} {fn.__name__} [{label}]", "route": "cuda",
                  "source": source, "replaces": replaces, "launches": None,
@@ -251,14 +277,262 @@ def phase_k3(rows, cfg):
            plain_ms, lib_ms, nbytes, ops)
 
 
+ENGINE_L, ENGINE_B = 12, pg.ENGINE_SLOTS   # block decoder layers, slots
+
+
+def random_pools(g, L, P, H, ps, D):
+    """int8 [L, P, H, ps, D] values and f32 [L, P, H, ps] scales, as
+    (k, k_scale, v, v_scale)."""
+    def i8():
+        return torch.randint(-127, 128, (L, P, H, ps, D), generator=g,
+                             device="cuda", dtype=torch.int8)
+
+    def f32():
+        return 0.01 + 0.02 * torch.rand((L, P, H, ps), generator=g,
+                                        device="cuda")
+
+    return [i8(), f32(), i8(), f32()]
+
+
+def random_step(g, lead, H, D):
+    """One decode step's quantized K/V: (kq, ks, vq, vs)."""
+    return (torch.randint(-127, 128, (*lead, H, D), generator=g,
+                          device="cuda", dtype=torch.int8),
+            torch.rand((*lead, H), generator=g, device="cuda"),
+            torch.randint(-127, 128, (*lead, H, D), generator=g,
+                          device="cuda", dtype=torch.int8),
+            torch.rand((*lead, H), generator=g, device="cuda"))
+
+
+def exact(name: str, got, want, skip_page0: bool) -> float:
+    """Pools must be equal bit for bit (outside page 0 if asked)."""
+    for a, b in zip(got, want):
+        if skip_page0:
+            a, b = a[:, 1:], b[:, 1:]
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: kernel and plain pools differ")
+    return 0.0
+
+
+def clones(ts):
+    return [t.clone() for t in ts]
+
+
+def phase_k5(rows, cfg):
+    """K5 at the contiguous INT8 engine cache's decode write: the cache
+    [12, 16, 16, 640, 128] as a pool with one page per slot, 16 rows at
+    their frontiers, one finished row at off == cap (dropped)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    L, B = ENGINE_L, ENGINE_B
+    H, D, cap = cfg.block_decoder.num_heads, cfg.block_decoder.head_dim, 640
+    pools = random_pools(g, L, B, H, cap, D)
+    page = torch.arange(B, dtype=torch.int32, device="cuda")
+    off = torch.randint(0, cap, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    off[3] = cap
+    step = random_step(g, (B,), H, D)
+    want = kp.paged_write_int8_plain(*clones(pools), L // 2, page, off, *step)
+    got = kp.paged_write_int8(*clones(pools), L // 2, page, off, *step)
+    err = exact("K5", got, want, skip_page0=False)
+    for a, b in zip(got, pools):
+        if not torch.equal(a[:, 3], b[:, 3]):
+            raise AssertionError("K5: the row at off == cap was written")
+    it = iter(range(10 ** 9))
+    nxt = lambda: next(it) % L                 # noqa: E731
+    ms = time_ms(lambda: kp.paged_write_int8(*pools, nxt(), page, off, *step),
+                 200)
+    plain_ms = time_ms(lambda: kp.paged_write_int8_plain(
+        *pools, nxt(), page, off, *step), 50)
+    ok = off < cap
+    pg_, of_ = page[ok].long(), off[ok].long()
+    new = [t[ok] for t in step]
+
+    def library():
+        layer = nxt()
+        for pool, val in zip(pools, new):      # [P, ps, H(, D)] views
+            pool[layer].transpose(1, 2).index_put_((pg_, of_), val)
+
+    lib_ms = time_ms(library, 200)
+    n = int(ok.sum())
+    nbytes = 2 * 2 * n * H * (D + 4) + 2 * B * 4     # read + write, page/off
+    record(rows, kp.paged_write_int8, "B=16 H=16 D=128 pool [12,16,16,640]",
+           err, ms, plain_ms, lib_ms, nbytes, 0)
+
+
+def engine_pool_case(g, cfg):
+    """The paged engine's pool [12, 49, 16, 256, 128], 16 rows of 3 virtual
+    pages on distinct pages; row 0 holds one page, its tail on page 0."""
+    L, B = ENGINE_L, ENGINE_B
+    H, D = cfg.block_decoder.num_heads, cfg.block_decoder.head_dim
+    ps, n_virt = 256, 3
+    P = B * n_virt + 1
+    pools = random_pools(g, L, P, H, ps, D)
+    pt = (1 + torch.randperm(B * n_virt, generator=g, device="cuda")).reshape(
+        B, n_virt).to(torch.int32)
+    pt[0, 1:] = 0
+    return pools, pt, (L, B, H, D, ps, n_virt, P)
+
+
+def phase_k6(rows, cfg):
+    """K6 at the paged engine's deferred decode step: 16 rows, ragged
+    lengths (row 0 within its one page), S=1, the fresh pair on, mask
+    q_idx - 1."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    bf16 = torch.bfloat16
+    pools, pt, (L, B, H, D, ps, n_virt, P) = engine_pool_case(g, cfg)
+    K = ps * n_virt
+    frontier = torch.randint(130, K, (B,), generator=g, device="cuda")
+    frontier[0] = 200
+    valid = (torch.arange(K, device="cuda")[None]
+             <= frontier[:, None]).to(torch.int32)
+    for b in range(B):
+        valid[b, :8 * b] = 0                   # left pad
+    mask = masks.AttnMask((frontier - 1)[:, None].to(torch.int32),
+                          torch.arange(K, dtype=torch.int32, device="cuda"),
+                          valid)
+    q = torch.randn((B, H, 1, D), generator=g, device="cuda", dtype=bf16)
+    fresh = tuple(0.3 * torch.randn((B, H, D), generator=g, device="cuda")
+                  for _ in range(2))
+    got = kp.paged_decode_attention_int8(q, *pools, L // 2, pt, mask,
+                                         fresh=fresh)
+    want = kp.paged_decode_attention_int8_plain(q, *pools, L // 2, pt, mask,
+                                                fresh=fresh)
+    err = compare("K6", got, want)
+    it = iter(range(10 ** 9))
+    nxt = lambda: next(it) % L                 # noqa: E731
+    ms = time_ms(lambda: kp.paged_decode_attention_int8(
+        q, *pools, nxt(), pt, mask, fresh=fresh), 100)
+    plain_ms = time_ms(lambda: kp.paged_decode_attention_int8_plain(
+        q, *pools, nxt(), pt, mask, fresh=fresh), 20)
+    ptl = pt.long()
+
+    def deq(vals, scale, extra):               # pages + fresh column, bf16
+        x = (vals[ptl].float() * scale[ptl][..., None]).permute(
+            0, 2, 1, 3, 4).reshape(B, H, K, D)
+        return torch.cat([x, extra[:, :, None]], dim=2).to(bf16)
+
+    k_deq = [deq(pools[0][i], pools[1][i], fresh[0]) for i in range(L)]
+    v_deq = [deq(pools[2][i], pools[3][i], fresh[1]) for i in range(L)]
+    allowed = torch.cat([mask.allowed(), torch.ones(
+        (B, 1, 1), dtype=torch.bool, device="cuda")], dim=2)[:, None]
+
+    def library():
+        i = nxt()
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k_deq[i], v_deq[i], attn_mask=allowed)
+
+    lib_ms = time_ms(library, 100)
+    k_rows, v_rows, ops = attention_need(mask, H, D)
+    if bool((~mask.allowed().any(-1)).any()):
+        raise AssertionError("K6 case: every row should see a pool key")
+    nbytes = ((k_rows + v_rows) * (D + 4) + 2 * B * H * D * (2 + 4)
+              + (B + K + B * K + B * n_virt) * 4)
+    record(rows, kp.paged_decode_attention_int8,
+           "B=16 H=16 S=1 D=128 pool [12,49,16,256] n_virt=3 fresh", err,
+           ms, plain_ms, lib_ms, nbytes, ops + 4 * B * H * D)
+    del k_deq, v_deq
+
+
+def phase_k7(rows, cfg):
+    """K7 after the paged engine's layer loop: kq [12, 16, 16, 128] into the
+    pool [12, 49, 16, 256, 128]; row 0 is finished (page 0)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    pools, pt, (L, B, H, D, ps, n_virt, P) = engine_pool_case(g, cfg)
+    vp = torch.randint(0, n_virt, (B,), generator=g, device="cuda")
+    vp[0] = 0
+    page = pt.gather(1, vp[:, None])[:, 0].contiguous()
+    page[0] = 0
+    off = torch.randint(0, ps, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    step = random_step(g, (L, B), H, D)
+    want = kp.paged_write_layers_int8_plain(*clones(pools), page, off, *step)
+    got = kp.paged_write_layers_int8(*clones(pools), page, off, *step)
+    err = exact("K7", got, want, skip_page0=True)
+    ms = time_ms(lambda: kp.paged_write_layers_int8(*pools, page, off, *step),
+                 200)
+    plain_ms = time_ms(lambda: kp.paged_write_layers_int8_plain(
+        *pools, page, off, *step), 50)
+    lidx = torch.arange(L, device="cuda")[:, None]
+    pg_, of_ = page.long()[None], off.long()[None]
+
+    def library():
+        for pool, val in zip(pools, step):     # [L, P, ps, H(, D)] views
+            pool.transpose(2, 3).index_put_((lidx, pg_, of_), val)
+
+    lib_ms = time_ms(library, 200)
+    nbytes = 2 * 2 * L * B * H * (D + 4) + 2 * B * 4
+    record(rows, kp.paged_write_layers_int8,
+           "L=12 B=16 H=16 D=128 pool [12,49,16,256]", err, ms, plain_ms,
+           lib_ms, nbytes, 0)
+
+
+def phase_k8(rows, cfg):
+    """K8 at the paged engine's admission of 16 rows: rows
+    [12, 16, 16, 768, 128] into the pool [12, 49, 16, 256, 128], 3 pages a
+    row (row 0's tail on page 0)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    pools, pt, (L, B, H, D, ps, n_virt, P) = engine_pool_case(g, cfg)
+    src = random_pools(g, L, B, H, n_virt * ps, D)
+    want = kp.paged_page_copy_int8_plain(*clones(pools), pt, *src)
+    got = kp.paged_page_copy_int8(*clones(pools), pt, *src)
+    err = exact("K8", got, want, skip_page0=True)
+    ms = time_ms(lambda: kp.paged_page_copy_int8(*pools, pt, *src), 20)
+    plain_ms = time_ms(lambda: kp.paged_page_copy_int8_plain(
+        *pools, pt, *src), 5)
+    ptl = pt.long()
+    pages = [kp._pages(t, n_virt) for t in src]   # strided views
+
+    def library():
+        for pool, val in zip(pools, pages):
+            pool[:, ptl] = val
+
+    lib_ms = time_ms(library, 5)
+    nbytes = 2 * 2 * L * B * n_virt * H * ps * (D + 4) + B * n_virt * 4
+    record(rows, kp.paged_page_copy_int8,
+           "L=12 G=16 nv=3 ps=256 H=16 D=128", err, ms, plain_ms, lib_ms,
+           nbytes, 0)
+    del src, pages
+
+
+def small_config():
+    cfg = config.make_block_config("smoke", 128, 2, vocab_size=512)
+    params = bt.init_block_transformer_params(0, cfg, device="cpu")
+    return cfg, quant.quantize_block_transformer(params, bits=8)
+
+
+def to_card(tree):
+    if isinstance(tree, dict):
+        return {k: to_card(v) for k, v in tree.items()}
+    return tree.cuda()
+
+
+def phase_small_engine():
+    """The serving engine on the card (kernels) against the same engine on
+    the CPU (plain versions): small configuration, float32, INT8 weights,
+    3 slots, 5 requests of uneven prompts and budgets; contiguous INT8
+    cache and paged INT8 pool (page size 4)."""
+    cfg, qparams = small_config()
+    traffic = ((1, 37, 9), (1, 12, 30), (1, 64, 5), (1, 5, 17), (1, 26, 12))
+    requests = pg.engine_requests(cfg, traffic, seed=3)
+    for kind in ("int8", "paged"):
+        out = []
+        for params, dev in ((qparams, "cpu"), (to_card(qparams), "cuda")):
+            eng = pg.make_engine(params, cfg, kind, n_slots=3, max_blocks=40,
+                                 bucket_blocks=4, page_size=4, device=dev)
+            res = pg.serve(eng, requests)
+            out.append([r.generated for r in res["requests"]])
+        if out[0] != out[1] or not all(out[0]):
+            raise AssertionError(f"small engine {kind}: card and CPU tokens "
+                                 f"differ:\n{out[0]}\n{out[1]}")
+        log(f"small engine {kind}: greedy tokens equal on the card and the "
+            f"CPU ({sum(map(len, out[0]))} tokens, 5 requests, 3 slots)")
+
+
 def phase_small_reference():
     """The port on the card (kernels) against the port on the CPU (plain
     versions), small configuration, float32."""
-    cfg = config.make_block_config("smoke", 128, 2, vocab_size=512)
-    params = bt.init_block_transformer_params(0, cfg, device="cpu")
-    qparams = quant.quantize_block_transformer(params, bits=8)
-    to_dev = lambda t: ({k: to_dev(v) for k, v in t.items()}  # noqa: E731
-                        if isinstance(t, dict) else t.cuda())
+    cfg, qparams = small_config()
+    to_dev = to_card
     rng = np.random.default_rng(0)
     B, N, L = 2, 12, cfg.block_length
     ids = rng.integers(1, cfg.vocab_size, (B, N, L)).astype(np.int32)
@@ -287,13 +561,19 @@ def reset_launches():
         fn.launches = 0
 
 
-def phase_generation():
+def read_launches(path: str) -> dict:
+    """{tag: launches} since the last reset; fails if a kernel of ``path``
+    did not run."""
+    launches = {tag: fn.launches for fn, tag, *_ in KERNELS}
+    log(f"launches in the timed {path} run: {json.dumps(launches)}")
+    for tag in PATH_KERNELS[path]:
+        if launches[tag] <= 0:
+            raise AssertionError(f"{tag} was not launched on the {path} path")
+    return launches
+
+
+def phase_generation(cfg, params):
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cfg, params = pg.main_path_model(seed=0)
-    torch.cuda.synchronize()
-    log(f"{MODEL}: random init + INT8 quantization on the card "
-        f"{time.perf_counter() - t0:.2f} s")
     ids, att, bam = pg.ragged_prompts(cfg, BATCH, PROMPT_TOKENS, seed=0)
     L, N = cfg.block_length, ids.shape[1]
     max_blocks = N + NEW_TOKENS // L
@@ -312,7 +592,7 @@ def phase_generation():
     res = run()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn, *_ in KERNELS}
+    launches = read_launches("generation")
 
     toks = res.tokens
     if tuple(toks.shape) != (BATCH, max_blocks, L):
@@ -327,11 +607,48 @@ def phase_generation():
         f"run {warm_s:.2f} s; timed run {secs:.3f} s = "
         f"{generated / secs:.1f} tok/s (prefill included); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"launches in the timed run: {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
     return launches
+
+
+def phase_engine(kind: str, cfg, params):
+    """Serve the engine traffic at full width with the ``kind`` cache: a
+    short warm-up, then one timed run between launch-count resets."""
+    eng = pg.make_engine(params, cfg, kind)
+    t0 = time.perf_counter()
+    warm = pg.serve(eng, pg.engine_requests(cfg, ((2, 512, 8),), seed=1))
+    log(f"engine {kind}: warm-up ({len(warm['requests'])} short requests) "
+        f"{time.perf_counter() - t0:.2f} s")
+    requests = pg.engine_requests(cfg, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = pg.serve(eng, requests)
+    launches = read_launches(f"engine {kind}")
+    reqs = res["requests"]
+    early = 0
+    for r, (_, budget) in zip(reqs, requests):
+        if r.error or not r.done or not 1 <= len(r.generated) <= budget:
+            raise AssertionError(f"engine {kind}: request {r.uid} served "
+                                 f"{len(r.generated)} of {budget} tokens "
+                                 f"(error {r.error!r})")
+        if min(r.generated) < 0 or max(r.generated) >= cfg.vocab_size:
+            raise AssertionError(f"engine {kind}: tokens out of [0, vocab)")
+        early += len(r.generated) < budget      # ended at an EOS
+    if kind == "paged" and (
+            sorted(eng._free_pages) != list(range(1, eng.pool_pages))
+            or bool(eng.cache.page_table.any())):
+        raise AssertionError("engine paged: pages were not all freed")
+    lat = res["latency"]
+    log(f"{MODEL} engine kv_cache={kind}: {len(reqs)} requests, 16 slots, "
+        f"{res['tokens']} tokens in {res['seconds']:.3f} s = "
+        f"{res['tokens'] / res['seconds']:.1f} tok/s (admission included); "
+        f"engine_admit_s {res['admit_s']:.4f}; dispatches "
+        f"{res['dispatches']}; {early} requests ended at an EOS; TTFT mean "
+        f"{lat['ttft_s_mean']:.3f} s p50 {lat['ttft_s_p50']:.3f} s p95 "
+        f"{lat['ttft_s_p95']:.3f} s; TPOT mean {lat['tpot_s_mean'] * 1e3:.2f} "
+        f"ms p95 {lat['tpot_s_p95'] * 1e3:.2f} ms; queue wait mean "
+        f"{lat['queue_wait_s_mean']:.3f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, [r.generated for r in reqs]
 
 
 def main() -> None:
@@ -349,7 +666,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     took = build.build_all(["dequant_matmul", "decode_attention",
-                            "flash_attention"])
+                            "flash_attention", "paged_attention"])
     log(f"kernel build {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
     for name, text in build.build_logs.items():
@@ -362,10 +679,36 @@ def main() -> None:
     phase_k1(rows, cfg)
     phase_k2(rows, cfg)
     phase_k3(rows, cfg)
+    phase_k5(rows, cfg)
+    phase_k6(rows, cfg)
+    phase_k7(rows, cfg)
+    phase_k8(rows, cfg)
     phase_small_reference()
-    launches = phase_generation()
+    phase_small_engine()
+    t0 = time.perf_counter()
+    cfg, params = pg.main_path_model(seed=0)
+    torch.cuda.synchronize()
+    log(f"{MODEL}: random init + INT8 quantization on the card "
+        f"{time.perf_counter() - t0:.2f} s")
+    launches = {"generation": phase_generation(cfg, params)}
+    tokens = {}
+    for kind in ("int8", "paged"):
+        launches[f"engine {kind}"], tokens[kind] = phase_engine(kind, cfg,
+                                                                params)
+    pairs = [(a, b) for x, y in zip(tokens["int8"], tokens["paged"])
+             for a, b in zip(x, y)]
+    prefix = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                   min(len(x), len(y)))
+              for x, y in zip(tokens["int8"], tokens["paged"])]
+    log(f"engine: the two pools agree on {sum(a == b for a, b in pairs)} of "
+        f"{len(pairs)} tokens (bf16 near-ties may differ); common prefix per "
+        f"request: min {min(prefix)}, mean {np.mean(prefix):.1f} tokens, "
+        f"{sum(p == len(x) for p, x in zip(prefix, tokens['int8']))} of "
+        f"{len(prefix)} requests equal")
     for row in rows:
-        row["launches"] = launches[row["name"].split()[1]]
+        fn, tag, *_, path = next(k for k in KERNELS
+                                 if row["name"].startswith(k[1] + " "))
+        row["launches"] = launches[path][tag]
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

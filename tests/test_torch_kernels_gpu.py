@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1-K3 against their plain PyTorch versions, on the
-card, at small and ragged shapes; and the launch counters.
+"""The port's CUDA kernels K1-K8 (K4 not ported) against their plain
+PyTorch versions, on the card, at small and ragged shapes; and the launch
+counters.
 
 Marked ``gpu``: each test skips, from inside its body, when no CUDA device
 is present. This file imports torch and the port only (no JAX), so on a
@@ -10,7 +11,8 @@ machine with a card it runs on its own:
 Tolerances: float32 kernel vs float32 plain version differ only in the
 order of float32 sums, so 1e-4 (abs and rel); bf16 outputs carry one bf16
 rounding (2^-8 relative) on each side, so 1e-2 of the output's largest
-magnitude.
+magnitude. The pool writes and page copies (K5, K7, K8) are compared bit
+for bit, outside page 0 where dead rows may collide.
 """
 
 import pytest
@@ -19,6 +21,7 @@ import torch
 from block_transformer_tpu_torch.kernels import decode_attention as k2
 from block_transformer_tpu_torch.kernels import dequant_matmul as k1
 from block_transformer_tpu_torch.kernels import flash_attention as k3
+from block_transformer_tpu_torch.kernels import paged_attention as kp
 from block_transformer_tpu_torch.ops import masks
 from block_transformer_tpu_torch.ops import quant
 
@@ -138,3 +141,155 @@ def test_launch_counters_move_on_the_card_only():
     k3.flash_attention(qf.cpu(), qf.cpu(), qf.cpu(),
                        masks.causal_mask(pos.cpu(), pos.cpu()))
     assert k3.flash_attention.launches == before + 1
+
+
+def _pools(g, L, P, H, ps, D):
+    """Random int8 pools and positive f32 scales, as the four K5-K8 pools."""
+    def i8(shape):
+        return torch.randint(-127, 128, shape, generator=g, device="cuda",
+                             dtype=torch.int8)
+
+    def f32(shape):
+        return 0.01 + 0.02 * torch.rand(shape, generator=g, device="cuda")
+
+    return [i8((L, P, H, ps, D)), f32((L, P, H, ps)), i8((L, P, H, ps, D)),
+            f32((L, P, H, ps))]
+
+
+def _step(g, lead, H, D):
+    return (torch.randint(-127, 128, (*lead, H, D), generator=g,
+                          device="cuda", dtype=torch.int8),
+            torch.rand((*lead, H), generator=g, device="cuda"),
+            torch.randint(-127, 128, (*lead, H, D), generator=g,
+                          device="cuda", dtype=torch.int8),
+            torch.rand((*lead, H), generator=g, device="cuda"))
+
+
+def _i32(values):
+    return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+
+def _same_pools(got, want, skip_page0=True):
+    for a, b in zip(got, want):
+        if skip_page0:
+            a, b = a[:, 1:], b[:, 1:]
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L,P,H,ps,D,page,off", [
+    # distinct pages, one row with off == ps and one with page == P
+    (3, 9, 4, 16, 128, [1, 2, 3, 4, 5], [0, 15, 16, 7, 3]),
+    (2, 7, 3, 10, 32, [6, 1, 7, 2], [9, 0, 1, 4]),          # ps = 10
+    # the contiguous cache as a pool: ps = cap = 640, page = row, one row
+    # finished at off == cap
+    (2, 4, 2, 640, 64, [0, 1, 2, 3], [639, 0, 640, 300]),
+    (1, 5, 2, 12, 40, [1, 2, -1], [11, 5, 2]),               # D % 16 != 0
+])
+def test_k5_k7_match_plain(L, P, H, ps, D, page, off):
+    g = _card()
+    page, off = _i32(page), _i32(off)
+    B = page.shape[0]
+    pools = _pools(g, L, P, H, ps, D)
+    step = _step(g, (L, B), H, D)
+    for layer in range(L):
+        want = kp.paged_write_int8_plain(*[t.clone() for t in pools], layer,
+                                         page, off, *(t[layer] for t in step))
+        got = kp.paged_write_int8(*[t.clone() for t in pools], layer, page,
+                                  off, *(t[layer].contiguous() for t in step))
+        _same_pools(got, want, skip_page0=False)
+    want = kp.paged_write_layers_int8_plain(*[t.clone() for t in pools], page,
+                                            off, *step)
+    got = kp.paged_write_layers_int8(*[t.clone() for t in pools], page, off,
+                                     *step)
+    _same_pools(got, want, skip_page0=False)
+    ok = (page >= 0) & (page < P) & (off >= 0) & (off < ps)
+    untouched = torch.ones((L, P, H, ps), dtype=torch.bool, device="cuda")
+    untouched[:, page[ok].long(), :, off[ok].long()] = False
+    assert torch.equal(got[1][untouched], pools[1][untouched])
+
+
+@pytest.mark.parametrize("G,nv,P,H,ps,D,pt", [
+    (3, 2, 9, 4, 16, 128, [[1, 2], [3, 4], [5, 0]]),
+    (4, 3, 12, 2, 10, 32, [[1, 2, 3], [4, 5, 0], [4, 5, 0], [6, 12, -1]]),
+    (2, 1, 4, 2, 6, 40, [[3], [1]]),                        # D % 16 != 0
+])
+def test_k8_matches_plain(G, nv, P, H, ps, D, pt):
+    g = _card()
+    L = 2
+    pools = _pools(g, L, P, H, ps, D)
+    rows = _pools(g, L, G, H, nv * ps, D)
+    pt = _i32(pt)
+    for g0 in range(G):                   # a padded duplicate row repeats
+        for g1 in range(g0):              # its original
+            if torch.equal(pt[g0], pt[g1]):
+                for t in rows:
+                    t[:, g0] = t[:, g1]
+    want = kp.paged_page_copy_int8_plain(*[t.clone() for t in pools], pt,
+                                         *rows)
+    got = kp.paged_page_copy_int8(*[t.clone() for t in pools], pt, *rows)
+    _same_pools(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,D,ps,n_virt,fresh", [
+    (3, 2, 1, 128, 16, 3, True),
+    (3, 2, 1, 128, 16, 3, False),
+    (2, 3, 4, 64, 10, 4, False),       # ps = 10: tiles cross pages
+    (4, 2, 1, 32, 48, 2, True),
+    (1, 2, 8, 128, 256, 3, False),     # S = 8, several tiles per warp
+])
+def test_k6_matches_plain(B, H, S, D, ps, n_virt, fresh, dtype):
+    g = _card()
+    L = 2
+    cap = ps * n_virt
+    P = B * n_virt + 1
+    pools = _pools(g, L, P, H, ps, D)
+    pt = (1 + torch.randperm(B * n_virt, generator=g, device="cuda")).reshape(
+        B, n_virt).to(torch.int32)
+    pt[0, 1:] = 0                          # row 0's tail on the null page
+    lengths = torch.randint(S + 1, cap, (B,), generator=g, device="cuda")
+    lengths[0] = min(ps, cap) - 1
+    valid = (torch.arange(cap, device="cuda")[None]
+             < lengths[:, None]).to(torch.int32)
+    valid[-1, :3] = 0                      # left pad
+    if B > 2:
+        valid[1] = 0                       # a row with no allowed pool key
+    q_idx = (lengths[:, None] - S + torch.arange(S, device="cuda")[None])
+    if fresh:
+        q_idx = q_idx - 1                  # the deferred write's mask
+    mask = masks.AttnMask(q_idx.to(torch.int32),
+                          torch.arange(cap, dtype=torch.int32, device="cuda"),
+                          valid)
+    q = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
+    pair = None
+    if fresh:
+        pair = tuple(torch.randn((B, H, D), generator=g, device="cuda") * 0.1
+                     for _ in range(2))
+    got = kp.paged_decode_attention_int8(q, *pools, L - 1, pt, mask,
+                                         fresh=pair)
+    want = kp.paged_decode_attention_int8_plain(q, *pools, L - 1, pt, mask,
+                                                fresh=pair)
+    _close(got, want, dtype)
+
+
+def test_k5_to_k8_launch_counters():
+    g = _card()
+    pools = _pools(g, 2, 4, 2, 8, 32)
+    page, off = _i32([1, 2]), _i32([0, 8])
+    step = _step(g, (2, 2), 2, 32)
+    before = (kp.paged_write_int8.launches, kp.paged_write_layers_int8.launches,
+              kp.paged_page_copy_int8.launches,
+              kp.paged_decode_attention_int8.launches)
+    kp.paged_write_int8(*pools, 1, page, off, *(t[1] for t in step))
+    kp.paged_write_layers_int8(*pools, page, off, *step)
+    kp.paged_page_copy_int8(*pools, _i32([[3]]), *_pools(g, 2, 1, 2, 8, 32))
+    mask = masks.decode_mask(3, 16, 1, device="cuda")
+    kp.paged_decode_attention_int8(torch.randn((2, 2, 1, 32), device="cuda"),
+                                   *pools, 0, _i32([[1, 2], [3, 0]]), mask)
+    cpu = [t.cpu() for t in pools]
+    kp.paged_write_int8(*cpu, 1, page.cpu(), off.cpu(),
+                        *(t[1].cpu() for t in step))
+    after = (kp.paged_write_int8.launches, kp.paged_write_layers_int8.launches,
+             kp.paged_page_copy_int8.launches,
+             kp.paged_decode_attention_int8.launches)
+    assert after == tuple(n + 1 for n in before)

@@ -3,9 +3,11 @@ numpy arrays) and the port's tensors.
 
 Both sides use the same tree: nested dicts with the same keys, stacked
 ``[L, ...]`` layers, ``[K, N]`` kernels, int8 ``kernel_q8`` with float32
-scales. So a conversion is a copy leaf by leaf that keeps each dtype. numpy
-has no bfloat16 of its own: JAX hands out ``ml_dtypes.bfloat16`` arrays,
-which cross to torch through a ``uint16`` view of the same bits.
+``[.., N]`` scales, and int8 ``kernel_q4`` (split-half packed ``[.., K/2,
+N]``) with float32 group scales ``[.., G, N]`` (or ``[.., N]``). So a
+conversion is a copy leaf by leaf that keeps each dtype. numpy has no
+bfloat16 of its own: JAX hands out ``ml_dtypes.bfloat16`` arrays, which
+cross to torch through a ``uint16`` view of the same bits.
 """
 
 from __future__ import annotations
@@ -43,9 +45,13 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_from_numpy(tree, device="cuda", dtype=None):
     """A JAX parameter tree (after ``jax.device_get``) -> the port's tree.
     int8 stays int8; bf16 and f32 stay as they are unless ``dtype`` is given,
-    which then applies to every floating leaf."""
+    which then applies to every floating leaf except the float32 scales of
+    a quantized linear (the kernels read them as float32)."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+        quantized = any(k.startswith("kernel_q") for k in tree)
+        return {k: params_from_numpy(
+                    v, device, None if quantized and k == "scale" else dtype)
+                for k, v in tree.items()}
     return tensor_from_numpy(tree, device, dtype)
 
 

@@ -1,9 +1,11 @@
 """Configuration for the PyTorch port: a copy of ``block_transformer_tpu/config.py``.
 
 The port imports nothing of the JAX package, so it carries its own copy of
-the dataclasses, ``make_block_config``, ``get_config`` and the main model
-family ``_BLOCK_MAIN``. ``tests/test_torch_bridge.py`` holds the copy to the
-original field for field.
+the dataclasses, ``make_block_config``, ``get_config`` with the main model
+family ``_BLOCK_MAIN``, and ``get_vanilla_config`` with the vanilla GPT-NeoX
+baselines ``_VANILLA``. ``tests/test_torch_bridge.py`` and
+``tests/test_torch_vanilla.py`` hold the copy to the original field for
+field.
 
 The dataclasses mirror the upstream Block Transformer's Hydra YAML schema
 (``conf/trainer/*.yaml`` and ``util/config.py``): the autofill heuristics
@@ -295,8 +297,29 @@ _BLOCK_MAIN = {
 }
 
 
+_VANILLA = {
+    # name -> (hidden, layers, heads) for the vanilla GPTNeoX baselines.
+    # vanilla_31 overrides hidden/layers/heads on a pythia-410m base, with
+    # num_attention_heads set explicitly to 8 (conf/trainer/vanilla_31.yaml,
+    # applied via setattr in model/utils.py:73-81); the rest are stock
+    # pythia-{70,160,410}m-deduped shapes.
+    "vanilla_31": (256, 6, 8),
+    "vanilla_70": (512, 6, 8),
+    "vanilla_160": (768, 12, 12),
+    "vanilla_410": (1024, 24, 16),
+}
+
+
 def get_config(name: str, **overrides) -> BlockTransformerConfig:
     if name in _BLOCK_MAIN:
         h, l = _BLOCK_MAIN[name]
         return make_block_config(name, h, l, **overrides)
     raise KeyError(f"unknown config {name!r}; known: {sorted(_BLOCK_MAIN)}")
+
+
+def get_vanilla_config(name: str, **overrides) -> NeoXConfig:
+    if name in _VANILLA:
+        h, l, heads = _VANILLA[name]
+        overrides.setdefault("num_heads", heads)
+        return NeoXConfig.from_hidden_layers(h, l, **overrides)
+    raise KeyError(f"unknown vanilla config {name!r}; known: {sorted(_VANILLA)}")

@@ -1,1 +1,1 @@
-"""Operations: masks, INT8 quantization, linear layers, attention."""
+"""Operations: masks, INT8 / INT4 quantization, linear layers, attention."""

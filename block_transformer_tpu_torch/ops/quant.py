@@ -1,12 +1,23 @@
-"""INT8 weight-only quantization (port of ``block_transformer_tpu/ops/quant.py``).
+"""Weight-only quantization, INT8 and INT4 (port of
+``block_transformer_tpu/ops/quant.py``).
 
-Symmetric per-output-channel scales::
+INT8 has symmetric per-output-channel scales::
 
     scale[n] = max(|W[:, n]|) / 127;  W_q = clip(round(W / scale), -127, 127)
 
+INT4 has symmetric group-wise scales: group ``g`` covers input rows
+``[g*gs, (g+1)*gs)``, with ``scale[g, n] = max(|W[group, n]|) / 7`` and values
+in ``[-7, 7]``. Two nibbles share a byte in **split-half** packing: byte row
+``i`` holds row ``i`` in its low nibble and row ``i + K/2`` in its high one,
+so a product splits into ``x[:, :K/2] @ lo + x[:, K/2:] @ hi`` (K4,
+``kernels/dequant_matmul.py``). ``gs`` must divide ``K/2`` so that no group
+straddles the two halves; otherwise the whole of K is one group.
+
 Everything is computed in float32, and ``torch.round`` rounds half to even
 as ``jnp.round`` does, so the results equal the JAX package's bit for bit.
-A stacked ``[L, K, N]`` kernel gets one scale row per layer (``[L, N]``).
+A stacked ``[L, K, N]`` kernel is quantized per layer, as JAX's ``vmap``
+does: INT8 gives ``[L, N]`` scales, INT4 ``[L, K/2, N]`` bytes and
+``[L, G, N]`` scales.
 """
 
 from __future__ import annotations
@@ -28,6 +39,57 @@ def dequantize_int8(w_q: torch.Tensor, scale: torch.Tensor,
     return (w_q.float() * scale.unsqueeze(-2)).to(dtype)
 
 
+def _int4_group_size(K: int, group_size) -> int:
+    """Effective K-group size: ``group_size`` if it divides K/2, else K
+    (one group: per-channel scales)."""
+    if not group_size or group_size <= 0:
+        return K
+    return group_size if (K // 2) % group_size == 0 else K
+
+
+def quantize_int4(w: torch.Tensor, group_size: int = 128):
+    """w [..., K, N] float -> (packed int8 [..., K/2, N], scale f32
+    [..., G, N]), split-half packed."""
+    K, N = w.shape[-2:]
+    if K % 2:
+        raise ValueError(f"int4 packing requires even K, got {K}")
+    gs = _int4_group_size(K, group_size)
+    lead = w.shape[:-2]
+    wf = w.float()
+    a = wf.reshape(*lead, K // gs, gs, N).abs().amax(dim=-2)     # [..., G, N]
+    scale = torch.clamp(a, min=1e-8) / 7.0
+    q = torch.clamp(torch.round(wf / scale.repeat_interleave(gs, dim=-2)),
+                    -7, 7).to(torch.int32)
+    half = K // 2
+    # the byte is built from values in [0, 255] on a wide type, then its
+    # bits are read as int8
+    byte = (q[..., :half, :] & 0xF) | ((q[..., half:, :] & 0xF) << 4)
+    return byte.to(torch.uint8).view(torch.int8), scale
+
+
+def unpack_int4(packed: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
+    """packed [..., K/2, N] -> values [..., K, N] in [-8, 7]: the low
+    nibbles, then the high nibbles (split-half layout). A nibble is sign
+    extended as ``(u << 28) >> 28`` does: 0x8 gives -8."""
+    u = packed.to(torch.int32)
+    lo = ((u & 0xF) ^ 8) - 8
+    hi = (((u >> 4) & 0xF) ^ 8) - 8
+    return torch.cat([lo, hi], dim=-2).to(dtype)
+
+
+def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.bfloat16) -> torch.Tensor:
+    """packed [..., K/2, N]; scale [..., G, N] group-wise (as many dims as
+    ``packed``) or [..., N] per-channel."""
+    w = unpack_int4(packed).float()
+    if scale.dim() == packed.dim():
+        scale = scale.repeat_interleave(w.shape[-2] // scale.shape[-2],
+                                        dim=-2)
+    else:
+        scale = scale.unsqueeze(-2)
+    return (w * scale).to(dtype)
+
+
 def quantize_kv(x: torch.Tensor):
     """[B, H, S, D] -> (int8 values, f32 scales [B, H, S]); one scale per
     position and head, clipped to +-127 after rounding
@@ -39,34 +101,70 @@ def quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
+# ---------------------------------------------------------------------------
+# Whole-model weight quantization
+# ---------------------------------------------------------------------------
+
 def _is_linear(node) -> bool:
     return isinstance(node, dict) and "kernel" in node
 
 
-def quantize_linear(node: dict, bits: int = 8) -> dict:
-    """{'kernel': [..., K, N], 'bias'?} -> {'kernel_q8', 'scale', 'bias'?}."""
-    if bits != 8:
-        raise NotImplementedError("the port quantizes to INT8 only")
-    w_q, scale = quantize_int8(node["kernel"])
-    out = {"kernel_q8": w_q, "scale": scale}
+def quantize_linear(node: dict, bits: int = 8, group_size: int = 128) -> dict:
+    """{'kernel': [..., K, N], 'bias'?} -> {'kernel_q8' | 'kernel_q4',
+    'scale', 'bias'?}."""
+    if bits == 8:
+        w_q, scale = quantize_int8(node["kernel"])
+    elif bits == 4:
+        w_q, scale = quantize_int4(node["kernel"], group_size)
+    else:
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    out = {f"kernel_q{bits}": w_q, "scale": scale}
     if "bias" in node:
         out["bias"] = node["bias"]
     return out
 
 
-def quantize_model_params(params, bits: int = 8):
-    """Replace every dense-kernel node of the tree with its quantized form."""
-    if _is_linear(params):
-        return quantize_linear(params, bits)
-    if isinstance(params, dict):
-        return {k: quantize_model_params(v, bits) for k, v in params.items()}
-    return params
+def quantize_model_params(params, bits: int = 8, skip_paths=(),
+                          group_size: int = 128):
+    """Replace every dense-kernel node of the tree with its quantized form.
+    A node is left in float when its path of keys matches an entry of
+    ``skip_paths``: a string that is one of the keys, or a tuple of strings
+    that all are."""
+    def skipped(path) -> bool:
+        return any(all(s in path for s in sp) if isinstance(sp, tuple)
+                   else sp in path for sp in skip_paths)
+
+    def walk(node, path):
+        if _is_linear(node):
+            return node if skipped(path) else quantize_linear(node, bits,
+                                                              group_size)
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return node
+
+    return walk(params, ())
 
 
-def quantize_block_transformer(params, bits: int = 8):
+def quantize_block_transformer(params, bits: int = 8, group_size: int = 128,
+                               skip_lm_head: bool = False,
+                               token_decoder_bits: int = None,
+                               lm_head_bits: int = None):
     """Quantize both decoder stacks, the expansion layer and the LM head;
-    the embedder, layer norms and biases stay in float."""
+    the embedder, layer norms and biases stay in float.
+
+    ``token_decoder_bits`` / ``lm_head_bits`` mix precisions (``bench.py
+    --quantize mixed48`` is bits 8, token decoder 4, head 8);
+    ``skip_lm_head`` keeps the head in float."""
+    td_bits = bits if token_decoder_bits is None else token_decoder_bits
     out = dict(params)
-    for part in ("block_decoder", "token_decoder"):
-        out[part] = quantize_model_params(params[part], bits)
+    out["block_decoder"] = quantize_model_params(
+        params["block_decoder"], bits, group_size=group_size)
+    skip = ("embed_out",) if (skip_lm_head or lm_head_bits is not None) else ()
+    out["token_decoder"] = quantize_model_params(
+        params["token_decoder"], td_bits, skip_paths=skip,
+        group_size=group_size)
+    if lm_head_bits is not None and not skip_lm_head:
+        out["token_decoder"] = dict(out["token_decoder"])
+        out["token_decoder"]["embed_out"] = quantize_linear(
+            params["token_decoder"]["embed_out"], lm_head_bits, group_size)
     return out

@@ -1,18 +1,29 @@
 """Time and trace the port's main paths on one NVIDIA GPU.
 
     python -m block_transformer_tpu_torch.profile_generate [--runs 5]
+        [--quantize int8|int4|mixed48]
     python -m block_transformer_tpu_torch.profile_generate --engine int8|paged
+    python -m block_transformer_tpu_torch.profile_generate --vanilla
+        [--vanilla_quantize int8|int4]
 
-Builds ``block_main_b4_1.2b`` at full width (random bf16 weights from a seed,
-INT8 weights), as ``chip_smoke.py`` does. Without ``--engine`` it generates
-greedily with an INT8 global KV cache for B=8 ragged prompts of 2048 tokens
-plus 128 new tokens; after one warm-up run it reports, on the host clock
-with the device synchronized:
+Builds ``block_main_b4_1.2b`` at full width (random bf16 weights from a seed),
+as ``chip_smoke.py`` does, with the weights of ``--quantize``: ``int8``
+(default), ``int4`` (group size 128) or ``mixed48`` (block decoder INT8,
+token decoder INT4, LM head INT8), as ``bench.py --quantize`` builds them.
+Without ``--engine`` it generates greedily with an INT8 global KV cache for
+B=8 ragged prompts of 2048 tokens plus 128 new tokens; after one warm-up run
+it reports, on the host clock with the device synchronized:
 
 - ``--runs`` timed ``generate_blocks`` runs: median and quartiles of the
   seconds and of the generated tokens per second (prefill included);
 - ``--runs`` timed ``prefill_blocks`` runs alone (the decode loop is the
   difference).
+
+With ``--vanilla`` it runs the baseline instead: ``vanilla_410`` (random
+bf16 weights, INT8 or INT4 weights, an INT8 KV cache), greedy, for B=8
+unpadded prompts of 2048 random tokens: prefill, then 128 decode steps, each
+an argmax and a ``vanilla_decode_step`` (``bench.py``'s ``full_generate``
+as a host loop); it reports the runs and the prefills alone as above.
 
 With ``--engine`` it serves the smoke's engine traffic instead (16 slots,
 24 requests: 8 of 512 prompt tokens and 32 new ones, then 16 of 2048 and
@@ -41,18 +52,61 @@ from block_transformer_tpu_torch import config
 from block_transformer_tpu_torch.inference import engine as engine_lib
 from block_transformer_tpu_torch.inference import generate as gen
 from block_transformer_tpu_torch.models import block_transformer as bt
+from block_transformer_tpu_torch.models import neox
+from block_transformer_tpu_torch.models import vanilla
 from block_transformer_tpu_torch.ops import quant
 
-MODEL = "block_main_b4_1.2b"
+MODEL, VANILLA_MODEL = "block_main_b4_1.2b", "vanilla_410"
 BATCH, PROMPT_TOKENS, NEW_TOKENS = 8, 2048, 128
+GROUP_SIZE = 128          # INT4 rows per scale group (bench.py's default)
+# --quantize -> quantize_block_transformer arguments (bench.py _quant_kwargs)
+QUANTIZE = {
+    "int8": dict(bits=8),
+    "int4": dict(bits=4, group_size=GROUP_SIZE),
+    "mixed48": dict(bits=8, token_decoder_bits=4, lm_head_bits=8,
+                    group_size=GROUP_SIZE),
+}
 
 
-def main_path_model(seed: int = 0, model: str = MODEL):
-    """(cfg, params): random bf16 weights on the card, quantized to INT8."""
+def main_path_model(seed: int = 0, model: str = MODEL,
+                    quantize: str = "int8"):
+    """(cfg, params): random bf16 weights on the card, quantized as
+    ``--quantize``."""
     cfg = config.get_config(model)
     params = bt.init_block_transformer_params(seed, cfg, dtype=torch.bfloat16,
                                               device="cuda")
-    return cfg, quant.quantize_block_transformer(params, bits=8)
+    return cfg, quant.quantize_block_transformer(params, **QUANTIZE[quantize])
+
+
+def vanilla_model(seed: int = 0, model: str = VANILLA_MODEL,
+                  quantize: str = "int8", dtype=torch.bfloat16,
+                  device="cuda"):
+    """(cfg, params) of the baseline: random weights quantized to
+    ``quantize`` (``int8`` or ``int4``, group size 128), as ``bench.py
+    --vanilla_quantize`` builds them."""
+    cfg = config.get_vanilla_config(model)
+    params = vanilla.init_vanilla_params(seed, cfg, dtype=dtype, device=device)
+    bits = {"int8": 8, "int4": 4}[quantize]
+    return cfg, quant.quantize_model_params(params, bits,
+                                            group_size=GROUP_SIZE)
+
+
+def vanilla_generate(params, cfg, ids: torch.Tensor, new_tokens: int):
+    """Greedy baseline generation with an INT8 KV cache for prompts ids
+    [B, P]: prefill, then ``new_tokens`` decode steps. Returns the tokens
+    [B, new_tokens + 1] (the prefill's, then one per step)."""
+    B, P = ids.shape
+    cache = neox.make_kv_cache(cfg, B, P + new_tokens, "int8",
+                               device=ids.device)
+    logits, cache = vanilla.vanilla_prefill(params, cfg, ids, cache)
+    out = torch.empty((B, new_tokens + 1), dtype=torch.int32,
+                      device=ids.device)
+    out[:, 0] = torch.argmax(logits, -1)
+    for i in range(new_tokens):
+        logits, cache = vanilla.vanilla_decode_step(params, cfg, out[:, i],
+                                                    cache)
+        out[:, i + 1] = torch.argmax(logits, -1)
+    return out
 
 
 def ragged_prompts(cfg, batch: int = BATCH, prompt_tokens: int = PROMPT_TOKENS,
@@ -175,7 +229,8 @@ def device_breakdown(fn):
 
 
 # the kernels of csrc/*.cu, as the profiler names them
-OWN_KERNELS = ("int8_matmul_kernel", "splitk_reduce_kernel",
+OWN_KERNELS = ("int8_matmul_kernel", "int4_matmul_kernel",
+               "splitk_reduce_kernel",
                "decode_attn_int8_kernel", "flash_attn_kernel",
                "paged_write_kernel", "page_copy_kernel", "paged_attn_kernel")
 
@@ -213,17 +268,58 @@ def profile_engine(kind: str, cfg, params, runs: int, seed: int) -> None:
     print_breakdown(per)
 
 
+def profile_vanilla(quantize: str, runs: int, seed: int) -> None:
+    cfg, params = vanilla_model(seed, quantize=quantize)
+    ids = torch.as_tensor(np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, (BATCH, PROMPT_TOKENS)), dtype=torch.int32,
+        device="cuda")
+
+    def run():
+        return vanilla_generate(params, cfg, ids, NEW_TOKENS)
+
+    def prefill():
+        cache = neox.make_kv_cache(cfg, BATCH, PROMPT_TOKENS + NEW_TOKENS,
+                                   "int8", device="cuda")
+        return vanilla.vanilla_prefill(params, cfg, ids, cache)
+
+    run()
+    total = timed(run, runs)
+    pre = timed(prefill, runs)
+    per, busy_us = device_breakdown(run)
+    wall = statistics.median(total)
+    generated = BATCH * NEW_TOKENS               # bench.py's count
+    print(json.dumps({
+        "model": VANILLA_MODEL, "quantize": quantize, "kv_cache": "int8",
+        "batch": BATCH, "prompt_tokens": PROMPT_TOKENS,
+        "decode_steps": NEW_TOKENS, "generated_tokens": generated,
+        "generate_s": quartiles(total),
+        "tok_per_s": quartiles([generated / t for t in total]),
+        "prefill_s": quartiles(pre),
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall}))
+    print_breakdown(per)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--quantize", choices=sorted(QUANTIZE), default="int8",
+                    help="weights of the block model")
     ap.add_argument("--engine", choices=("int8", "paged"), default=None,
                     help="serve the engine traffic with this cache instead "
                          "of generate_blocks")
+    ap.add_argument("--vanilla", action="store_true",
+                    help=f"run the {VANILLA_MODEL} baseline instead")
+    ap.add_argument("--vanilla_quantize", choices=("int8", "int4"),
+                    default="int8", help="weights of the baseline")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate: no CUDA device")
-    cfg, params = main_path_model(args.seed)
+    if args.vanilla:
+        profile_vanilla(args.vanilla_quantize, args.runs, args.seed)
+        return
+    cfg, params = main_path_model(args.seed, quantize=args.quantize)
     if args.engine:
         profile_engine(args.engine, cfg, params, args.runs, args.seed)
         return
@@ -248,7 +344,8 @@ def main() -> None:
     per, busy_us = device_breakdown(run)
     wall = statistics.median(total)
     print(json.dumps({
-        "model": MODEL, "batch": BATCH, "prompt_tokens": PROMPT_TOKENS,
+        "model": MODEL, "quantize": args.quantize, "batch": BATCH,
+        "prompt_tokens": PROMPT_TOKENS,
         "new_tokens_per_row": NEW_TOKENS, "generated_tokens": generated,
         "generate_s": quartiles(total),
         "tok_per_s": quartiles([generated / t for t in total]),

@@ -7,34 +7,41 @@ Needs one CUDA card; exits non-zero, printing no result, without one. In
 one process it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the CUDA kernels K1-K3 and K5-K8 from
-   ``block_transformer_tpu_torch/csrc`` (one ``nvcc`` per source, in
-   parallel) and prints ptxas's register and spill lines;
+2. builds the CUDA kernels K1-K8 from ``block_transformer_tpu_torch/csrc``
+   (one ``nvcc`` per source, in parallel) and prints ptxas's register and
+   spill lines;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes its main path gives it, in bf16, and times kernel, plain version,
    one PyTorch library call computing the same function (a yardstick only:
-   the port never calls it) and the bound from the data: K1-K3 at
+   the port never calls it) and the bound from the data: K1-K4 at
    generation with ``block_main_b4_1.2b`` at B=8, prompt 2048 tokens and
    128 new tokens; K5-K8 at the serving engine's shapes (16 slots, 12
    layers, 16 heads of 128, capacity 640 contiguous, 3 pages of 256 paged);
 4. checks the port on the card against the same port on the CPU (plain
    versions) at a small configuration in float32: forward logits, greedy
-   tokens of INT8-weight, INT8-KV generation, and greedy tokens of the
-   serving engine with the contiguous INT8 cache and the paged INT8 pool;
+   tokens of INT8-, INT4- and mixed48-weight INT8-KV generation, greedy
+   tokens of the vanilla baseline (INT8 and INT4 weights, INT8 KV), and
+   greedy tokens of the serving engine with the contiguous INT8 cache and
+   the paged INT8 pool;
 5. generates with ``block_main_b4_1.2b`` at full width (random weights from
-   a seed, bf16, INT8 weights, INT8 global KV cache), greedy, B=8,
-   p2048/d128: one warm-up run, then a timed run between launch-count
-   resets, and asserts every kernel of the path ran in it;
-6. serves with ``ContinuousBatchingEngine`` at the same width, 16 slots,
-   24 requests submitted together (8 of 512 prompt tokens and 32 new ones,
-   then 16 of 2048 and 128), once with the contiguous INT8 cache and once
-   with the paged INT8 pool: a short warm-up, then a timed ``run()``
-   between launch-count resets; asserts every request is served and every
-   kernel of the path ran.
+   a seed, bf16, INT8 global KV cache), greedy, B=8, p2048/d128, with INT8
+   weights, INT4 weights (no K1 launch) and mixed48 weights (block decoder
+   and head INT8, token decoder INT4): each one warm-up run, then a timed
+   run between launch-count resets, asserting every kernel of the path ran
+   in it;
+6. serves with ``ContinuousBatchingEngine`` at the same width (INT8
+   weights), 16 slots, 24 requests submitted together (8 of 512 prompt
+   tokens and 32 new ones, then 16 of 2048 and 128), once with the
+   contiguous INT8 cache and once with the paged INT8 pool: a short
+   warm-up, then a timed ``run()`` between launch-count resets; asserts
+   every request is served and every kernel of the path ran;
+7. generates greedily with the ``vanilla_410`` baseline (INT8 weights, INT8
+   KV cache) at the same B, prompt and new tokens, the same way, and prints
+   the block/vanilla throughput ratio as a smoke figure.
 
-The second-to-last line is a JSON object listing each kernel's launches
-(from the run of step 5 or 6 that uses it), error and times; the last line
-is ``{"ok": true, "device": {...}}``. Any failure raises.
+The last three lines are the ``nvidia-smi`` line, a JSON object listing
+each kernel's launches (from the run of step 5 or 6 that uses it), error
+and times, and ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from block_transformer_tpu_torch import config  # noqa: E402
 from block_transformer_tpu_torch import profile_generate as pg  # noqa: E402
+from block_transformer_tpu_torch.config import NeoXConfig  # noqa: E402
 from block_transformer_tpu_torch.inference import generate as gen  # noqa: E402
 from block_transformer_tpu_torch.kernels import build  # noqa: E402
 from block_transformer_tpu_torch.kernels import decode_attention as k2  # noqa: E402
@@ -59,6 +67,7 @@ from block_transformer_tpu_torch.kernels import dequant_matmul as k1  # noqa: E4
 from block_transformer_tpu_torch.kernels import flash_attention as k3  # noqa: E402
 from block_transformer_tpu_torch.kernels import paged_attention as kp  # noqa: E402
 from block_transformer_tpu_torch.models import block_transformer as bt  # noqa: E402
+from block_transformer_tpu_torch.models import vanilla  # noqa: E402
 from block_transformer_tpu_torch.ops import masks  # noqa: E402
 from block_transformer_tpu_torch.ops import quant  # noqa: E402
 
@@ -68,19 +77,22 @@ BF16_FLOPS = 989e12
 TOL = 2e-2      # max |kernel - plain| / max |plain| in bf16 (~2^-8 rounding
                 # of outputs and probabilities, summed in another order)
 
-MODEL, BATCH = pg.MODEL, pg.BATCH
+MODEL, VANILLA_MODEL, BATCH = pg.MODEL, pg.VANILLA_MODEL, pg.BATCH
 PROMPT_TOKENS, NEW_TOKENS = pg.PROMPT_TOKENS, pg.NEW_TOKENS
+MATMUL_CU = "block_transformer_tpu_torch/csrc/dequant_matmul.cu"
 PAGED_CU = "block_transformer_tpu_torch/csrc/paged_attention.cu"
 PAGED_PY = "block_transformer_tpu/ops/paged_attention.py"
 # (wrapper, tag, source, TPU kernel replaced, the run whose launches count)
 KERNELS = [
-    (k1.int8_matmul_stacked, "K1", "block_transformer_tpu_torch/csrc/dequant_matmul.cu",
+    (k1.int8_matmul_stacked, "K1", MATMUL_CU,
      "block_transformer_tpu/ops/dequant_matmul.py:86", "generation"),
     (k2.decode_attention_int8_stacked, "K2",
      "block_transformer_tpu_torch/csrc/decode_attention.cu",
      "block_transformer_tpu/ops/decode_attention.py:143", "generation"),
     (k3.flash_attention, "K3", "block_transformer_tpu_torch/csrc/flash_attention.cu",
      "block_transformer_tpu/ops/flash_attention.py:83", "generation"),
+    (k1.int4_matmul_stacked, "K4", MATMUL_CU,
+     "block_transformer_tpu/ops/dequant_matmul.py:181", "generation int4"),
     (kp.paged_write_int8, "K5", PAGED_CU, f"{PAGED_PY}:428", "engine int8"),
     (kp.paged_decode_attention_int8, "K6", PAGED_CU, f"{PAGED_PY}:221",
      "engine paged"),
@@ -92,9 +104,14 @@ KERNELS = [
 # the kernels each main path must launch
 PATH_KERNELS = {
     "generation": ("K1", "K2", "K3"),
+    "generation int4": ("K2", "K3", "K4"),
+    "generation mixed48": ("K1", "K2", "K3", "K4"),
     "engine int8": ("K1", "K2", "K3", "K5"),
     "engine paged": ("K1", "K3", "K6", "K7", "K8"),
+    "vanilla": ("K1", "K2", "K3"),
 }
+# the kernels a main path must not launch: INT4 weights leave K1 no linear
+PATH_ABSENT = {"generation int4": ("K1",)}
 
 
 def log(msg: str) -> None:
@@ -191,6 +208,40 @@ def phase_k1(rows, cfg):
         record(rows, k1.int8_matmul_stacked, label, err, ms, plain_ms, lib_ms,
                nbytes, 2 * M * K * N)
         del w_q, scale, w_deq
+
+
+def phase_k4(rows, cfg):
+    """K4 at the INT4 path's shapes (group size 128), cycling through a
+    12-layer stack as ``phase_k1`` does."""
+    dev, bf16 = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(4)
+    h, m, L = cfg.block_decoder.hidden_size, cfg.block_decoder.intermediate_size, 12
+    V = cfg.vocab_size
+    shapes = [("qkv M=8", 8, h, 3 * h, L), ("mlp_down M=8", 8, m, h, L),
+              ("lm_head M=8", 8, h, V, 1), ("qkv M=4096", 4096, h, 3 * h, L)]
+    for label, M, K, N, layers in shapes:
+        w_p, scale = quant.quantize_int4(
+            torch.randn((layers, K, N), generator=g, device=dev, dtype=bf16)
+            * 0.02, pg.GROUP_SIZE)
+        G = scale.shape[1]
+        x = torch.randn((M, K), generator=g, device=dev, dtype=bf16)
+        w_deq = [quant.dequantize_int4(w_p[i], scale[i], bf16)
+                 for i in range(layers)]
+        got = k1.int4_matmul_stacked(x, w_p, scale, layers - 1)
+        want = k1.int4_matmul_stacked_plain(x, w_p, scale, layers - 1)
+        err = compare(f"K4 {label}", got, want)
+        it = iter(range(10 ** 9))
+        nxt = lambda: next(it) % layers          # noqa: E731
+        iters = 10 if M > 64 else 60
+        ms = time_ms(lambda: k1.int4_matmul_stacked(x, w_p, scale, nxt()),
+                     iters)
+        plain_ms = time_ms(lambda: k1.int4_matmul_stacked_plain(
+            x, w_p, scale, nxt()), iters)
+        lib_ms = time_ms(lambda: torch.matmul(x, w_deq[nxt()]), iters)
+        nbytes = M * K * 2 + K * N // 2 + G * N * 4 + M * N * 2
+        record(rows, k1.int4_matmul_stacked, f"{label} G={G}", err, ms,
+               plain_ms, lib_ms, nbytes, 2 * M * K * N)
+        del w_p, scale, w_deq
 
 
 def phase_k2(rows, cfg):
@@ -556,6 +607,44 @@ def phase_small_reference():
         f"({t_gpu.n_blocks} blocks)")
 
 
+def phase_small_quantized():
+    """INT4 and mixed48 weights (group size 32) and the vanilla baseline
+    (INT8 and INT4 weights, INT8 KV) on the card against the CPU: small
+    configurations, float32, greedy tokens equal."""
+    cfg = config.make_block_config("smoke", 128, 2, vocab_size=512)
+    params = bt.init_block_transformer_params(0, cfg, device="cpu")
+    rng = np.random.default_rng(1)
+    B, N, L = 2, 12, cfg.block_length
+    ids = rng.integers(1, cfg.vocab_size, (B, N, L)).astype(np.int32)
+    att = np.ones_like(ids)
+    ids[1, :2], att[1, :2] = 0, 0
+    bam = att.any(-1).astype(np.int32)
+    for kind in ("int4", "mixed48"):
+        q = quant.quantize_block_transformer(
+            params, **dict(pg.QUANTIZE[kind], group_size=32))
+        res = [gen.generate_blocks(p, cfg, ids, att, bam, max_blocks=N + 4,
+                                   kv_cache="int8", device=d)
+               for p, d in ((q, "cpu"), (to_card(q), "cuda"))]
+        if res[0].n_blocks != res[1].n_blocks or not torch.equal(
+                res[0].tokens, res[1].tokens.cpu()):
+            raise AssertionError(f"small generation {kind}: card and CPU "
+                                 "tokens differ")
+        log(f"small generation {kind}: greedy tokens equal on the card and "
+            f"the CPU ({res[1].n_blocks} blocks)")
+    vcfg = NeoXConfig.from_hidden_layers(128, 2, vocab_size=512, num_heads=4)
+    vparams = vanilla.init_vanilla_params(0, vcfg, device="cpu")
+    vids = torch.from_numpy(rng.integers(1, 512, (2, 12)).astype(np.int32))
+    for bits in (8, 4):
+        q = quant.quantize_model_params(vparams, bits, group_size=32)
+        toks = [pg.vanilla_generate(p, vcfg, i, 6)
+                for p, i in ((q, vids), (to_card(q), vids.cuda()))]
+        if not torch.equal(toks[0], toks[1].cpu()):
+            raise AssertionError(f"small vanilla int{bits}: card and CPU "
+                                 f"tokens differ")
+        log(f"small vanilla int{bits} weights + int8 KV: greedy tokens equal "
+            f"on the card and the CPU ({toks[1].shape[1]} per row)")
+
+
 def reset_launches():
     for fn, *_ in KERNELS:
         fn.launches = 0
@@ -569,10 +658,16 @@ def read_launches(path: str) -> dict:
     for tag in PATH_KERNELS[path]:
         if launches[tag] <= 0:
             raise AssertionError(f"{tag} was not launched on the {path} path")
+    for tag in PATH_ABSENT.get(path, ()):
+        if launches[tag]:
+            raise AssertionError(f"{tag} was launched on the {path} path")
     return launches
 
 
-def phase_generation(cfg, params):
+def phase_generation(cfg, params, quantize: str):
+    """Full-width generation with ``quantize`` weights; returns the launches
+    of the timed run and its tokens per second."""
+    path = "generation" if quantize == "int8" else f"generation {quantize}"
     torch.cuda.reset_peak_memory_stats()
     ids, att, bam = pg.ragged_prompts(cfg, BATCH, PROMPT_TOKENS, seed=0)
     L, N = cfg.block_length, ids.shape[1]
@@ -592,7 +687,7 @@ def phase_generation(cfg, params):
     res = run()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = read_launches("generation")
+    launches = read_launches(path)
 
     toks = res.tokens
     if tuple(toks.shape) != (BATCH, max_blocks, L):
@@ -603,11 +698,46 @@ def phase_generation(cfg, params):
         raise AssertionError("prompt blocks were not kept")
     generated = BATCH * (res.n_blocks - N) * L
     log(f"{MODEL} generate_blocks B={BATCH} p{PROMPT_TOKENS}/d{NEW_TOKENS} "
-        f"int8 weights + int8 KV: {res.n_blocks - N} blocks generated; warm-up "
-        f"run {warm_s:.2f} s; timed run {secs:.3f} s = "
+        f"{quantize} weights + int8 KV: {res.n_blocks - N} blocks generated; "
+        f"warm-up run {warm_s:.2f} s; timed run {secs:.3f} s = "
         f"{generated / secs:.1f} tok/s (prefill included); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, generated / secs
+
+
+def phase_vanilla(cfg, params):
+    """The baseline at the block model's B, prompt and new tokens (unpadded
+    random prompts, as ``bench.py``): one warm-up run, then a timed run
+    between launch-count resets. Returns (launches, tokens per second),
+    counting B x 128 decode-step tokens as ``bench.py`` does."""
+    torch.cuda.reset_peak_memory_stats()
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (BATCH, PROMPT_TOKENS)), dtype=torch.int32,
+        device="cuda")
+
+    def run():
+        return pg.vanilla_generate(params, cfg, ids, NEW_TOKENS)
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    toks = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches("vanilla")
+    if tuple(toks.shape) != (BATCH, NEW_TOKENS + 1):
+        raise AssertionError(f"vanilla tokens shape {tuple(toks.shape)}")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError("vanilla tokens out of [0, vocab)")
+    generated = BATCH * NEW_TOKENS
+    log(f"{VANILLA_MODEL} greedy B={BATCH} p{PROMPT_TOKENS}/d{NEW_TOKENS} "
+        f"int8 weights + int8 KV: warm-up run {warm_s:.2f} s; timed run "
+        f"{secs:.3f} s = {generated / secs:.1f} tok/s (prefill included); "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, generated / secs
 
 
 def phase_engine(kind: str, cfg, params):
@@ -679,22 +809,29 @@ def main() -> None:
     phase_k1(rows, cfg)
     phase_k2(rows, cfg)
     phase_k3(rows, cfg)
+    phase_k4(rows, cfg)
     phase_k5(rows, cfg)
     phase_k6(rows, cfg)
     phase_k7(rows, cfg)
     phase_k8(rows, cfg)
     phase_small_reference()
+    phase_small_quantized()
     phase_small_engine()
-    t0 = time.perf_counter()
-    cfg, params = pg.main_path_model(seed=0)
-    torch.cuda.synchronize()
-    log(f"{MODEL}: random init + INT8 quantization on the card "
-        f"{time.perf_counter() - t0:.2f} s")
-    launches = {"generation": phase_generation(cfg, params)}
-    tokens = {}
-    for kind in ("int8", "paged"):
-        launches[f"engine {kind}"], tokens[kind] = phase_engine(kind, cfg,
-                                                                params)
+    launches, tok_s, tokens = {}, {}, {}
+    for quantize in ("int8", "int4", "mixed48"):
+        t0 = time.perf_counter()
+        cfg, params = pg.main_path_model(seed=0, quantize=quantize)
+        torch.cuda.synchronize()
+        log(f"{MODEL}: random init + {quantize} quantization on the card "
+            f"{time.perf_counter() - t0:.2f} s")
+        path = "generation" if quantize == "int8" else f"generation {quantize}"
+        launches[path], tok_s[quantize] = phase_generation(cfg, params,
+                                                           quantize)
+        if quantize == "int8":
+            for kind in ("int8", "paged"):
+                launches[f"engine {kind}"], tokens[kind] = phase_engine(
+                    kind, cfg, params)
+        del params
     pairs = [(a, b) for x, y in zip(tokens["int8"], tokens["paged"])
              for a, b in zip(x, y)]
     prefix = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
@@ -705,12 +842,19 @@ def main() -> None:
         f"request: min {min(prefix)}, mean {np.mean(prefix):.1f} tokens, "
         f"{sum(p == len(x) for p, x in zip(prefix, tokens['int8']))} of "
         f"{len(prefix)} requests equal")
+    vcfg, vparams = pg.vanilla_model(seed=0, quantize="int8")
+    launches["vanilla"], tok_s["vanilla"] = phase_vanilla(vcfg, vparams)
+    del vparams
+    log("block/vanilla generated tokens per second at B=8 p2048/d128, "
+        "INT8 KV (smoke figures, not a benchmark): " + ", ".join(
+            f"{q} {tok_s[q] / tok_s['vanilla']:.3f}"
+            for q in ("int8", "int4", "mixed48")))
     for row in rows:
         fn, tag, *_, path = next(k for k in KERNELS
                                  if row["name"].startswith(k[1] + " "))
         row["launches"] = launches[path][tag]
-    print(json.dumps({"kernels": rows}))
     print(smi)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

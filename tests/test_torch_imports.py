@@ -38,6 +38,7 @@ def test_the_walk_finds_the_port():
     assert "chip_smoke.py" in names
     assert f"{PORT}/inference/engine.py" in names
     assert f"{PORT}/kernels/paged_attention.py" in names
+    assert f"{PORT}/models/vanilla.py" in names
 
 
 def test_the_check_catches_what_it_forbids():

@@ -1,6 +1,5 @@
-"""The port's CUDA kernels K1-K8 (K4 not ported) against their plain
-PyTorch versions, on the card, at small and ragged shapes; and the launch
-counters.
+"""The port's CUDA kernels K1-K8 against their plain PyTorch versions, on
+the card, at small and ragged shapes; and the launch counters.
 
 Marked ``gpu``: each test skips, from inside its body, when no CUDA device
 is present. This file imports torch and the port only (no JAX), so on a
@@ -64,6 +63,53 @@ def test_k1_matches_plain(M, K, N, L, layer, dtype):
     x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
     got = k1.int8_matmul_stacked(x, w_q, scale, layer)
     _close(got, k1.int8_matmul_stacked_plain(x, w_q, scale, layer), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,Kh,N,G,L,layer,legacy", [
+    (1, 64, 32, 1, 1, 0, True),        # smallest, per-channel [L, N] scale
+    (8, 1024, 384, 16, 2, 1, False),   # decode shape: K split over blocks
+    (16, 100, 37, 4, 2, 1, False),     # ragged K/2 and N, groups of 50 rows
+    (17, 256, 200, 2, 3, 2, False),    # M > 16: 64-row tiles, ragged N
+    (64, 96, 136, 1, 2, 0, False),     # ragged K/2 tile, one group [L, 1, N]
+    (300, 256, 256, 8, 2, 1, False),   # ragged M tile, groups of 64 rows
+])
+def test_k4_matches_plain(M, Kh, N, G, L, layer, legacy, dtype):
+    """Random packed bytes (every nibble, -8 included) and scales."""
+    g = _card()
+    w_p = torch.randint(-128, 128, (L, Kh, N), generator=g, device="cuda",
+                        dtype=torch.int8)
+    scale = 0.01 + 0.1 * torch.rand((L, G, N), generator=g, device="cuda")
+    if legacy:
+        scale = scale[:, 0].contiguous()
+    x = torch.randn((M, 2 * Kh), generator=g, device="cuda").to(dtype)
+    got = k1.int4_matmul_stacked(x, w_p, scale, layer)
+    _close(got, k1.int4_matmul_stacked_plain(x, w_p, scale, layer), dtype)
+    assert (k1.split_k(M, Kh, N, 132)[0] > 1) == (Kh == 1024)
+
+
+def test_k4_raises_and_counts():
+    """A group straddling the split half, a wrong dtype or a strided operand
+    raises; a launch counts once, the plain version on the CPU not at all."""
+    g = _card()
+    x = torch.randn((4, 192), generator=g, device="cuda")
+    w_p = torch.randint(-128, 128, (1, 96, 64), generator=g, device="cuda",
+                        dtype=torch.int8)
+    with pytest.raises(ValueError, match="straddle"):
+        k1.int4_matmul_stacked(x, w_p, torch.ones((1, 3, 64), device="cuda"),
+                               0)                    # groups of 64 rows, 96
+    with pytest.raises(TypeError):
+        k1.int4_matmul_stacked(x, w_p, torch.ones((1, 2, 64), device="cuda",
+                                                  dtype=torch.float64), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.int4_matmul_stacked(x, w_p.transpose(1, 2).contiguous().transpose(
+            1, 2), torch.ones((1, 2, 64), device="cuda"), 0)
+    scale = torch.ones((1, 2, 64), device="cuda")
+    before = k1.int4_matmul_stacked.launches
+    k1.int4_matmul(x, w_p[0], scale[0])
+    assert k1.int4_matmul_stacked.launches == before + 1
+    k1.int4_matmul(x.cpu(), w_p[0].cpu(), scale[0].cpu())
+    assert k1.int4_matmul_stacked.launches == before + 1
 
 
 def _int8_cache(g, L, B, H, cap, D):

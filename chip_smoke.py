@@ -13,10 +13,15 @@ one process it:
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes its main path gives it, in bf16, and times kernel, plain version,
    one PyTorch library call computing the same function (a yardstick only:
-   the port never calls it) and the bound from the data: K1-K4 at
+   the port never calls it) and the bound from the data (device times, with
+   the launch queue filled first so that host cost is left out; K1 and K4
+   rows also give their wrapper's host microseconds a call): K1-K4 at
    generation with ``block_main_b4_1.2b`` at B=8, prompt 2048 tokens and
-   128 new tokens; K5-K8 at the serving engine's shapes (16 slots, 12
-   layers, 16 heads of 128, capacity 640 contiguous, 3 pages of 256 paged);
+   128 new tokens (K1 and K4 at decode M = 8, the token decoder's M = 32
+   prefix step and the M = 4096 prefill, each row naming the route, tile
+   and split ``plan`` gave it); K5-K8 at the serving engine's shapes (16
+   slots, 12 layers, 16 heads of 128, capacity 640 contiguous, 3 pages of
+   256 paged);
 4. checks the port on the card against the same port on the CPU (plain
    versions) at a small configuration in float32: forward logits, greedy
    tokens of INT8-, INT4- and mixed48-weight INT8-KV generation, greedy
@@ -39,15 +44,18 @@ one process it:
    KV cache) at the same B, prompt and new tokens, the same way, and prints
    the block/vanilla throughput ratio as a smoke figure.
 
-The last three lines are the ``nvidia-smi`` line, a JSON object listing
-each kernel's launches (from the run of step 5 or 6 that uses it), error
-and times, and ``{"ok": true, "device": {...}}``. Any failure raises.
+Every timed full-width run of steps 5-7 asserts that K1 and K4 launched by
+the tensor-core route only. The last three lines are the ``nvidia-smi``
+line, a JSON object listing each kernel's launches (from the run of step 5
+or 6 that uses it), error and times, and ``{"ok": true, "device": {...}}``.
+Any failure raises.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -112,24 +120,53 @@ PATH_KERNELS = {
 }
 # the kernels a main path must not launch: INT4 weights leave K1 no linear
 PATH_ABSENT = {"generation int4": ("K1",)}
+# K1 and K4 count their launches by route as well; a full-width path takes
+# the tensor-core route ("tc") only
+MATMULS = {"K1": k1.int8_matmul_stacked, "K4": k1.int4_matmul_stacked}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+def kernel_label(line: str) -> str:
+    """A short name for ptxas's mangled entry function: the kernel's name,
+    its element type and its integer and bool template arguments, e.g.
+    tc_matmul_kernel<16,128,32,16,16,6,3,0> or int8_matmul_kernel<f32,4>."""
+    mangled = line.split("'")[1] if "'" in line else line
+    m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?_kernel)I(.*?)EEv", mangled)
+    if m is None:
+        return mangled[-40:]
+    args = m.group(2)
+    kind = ("f32" if args.startswith("f") else
+            "bf16" if args.startswith("13__nv_bfloat16") else None)
+    return m.group(1) + "<" + ",".join(
+        ([kind] if kind else []) + re.findall(r"L[ib](\d+)E", args)) + ">"
+
+
+def time_ms_host(fn, iters: int):
+    """(mean device ms, mean host us) of ``fn`` over ``iters`` calls. The
+    device first spins for ~10 ms, so the host has queued the calls before
+    the device reaches them: the CUDA events time the device's work alone,
+    unless ``fn`` itself waits for the device, and the host clock times
+    the calls' host cost."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)              # clock cycles
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_us
+
+
+def time_ms(fn, iters: int) -> float:
+    return time_ms_host(fn, iters)[0]
 
 
 def bound(nbytes: float, flops: float):
@@ -164,17 +201,33 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def record(rows, kernel, label, err, ms, plain_ms, library_ms, nbytes, flops):
+def record(rows, kernel, label, err, ms, plain_ms, library_ms, nbytes, flops,
+           plan=None, host_us=None):
+    """One kernel row; ``plan`` (K1, K4) is the dequant-matmul's launch and
+    ``host_us`` the wrapper's host time a call."""
     fn, tag, source, replaces, _ = next(k for k in KERNELS if k[0] is kernel)
     bound_ms, bound_by = bound(nbytes, flops)
-    rows.append({"name": f"{tag} {fn.__name__} [{label}]", "route": "cuda",
-                 "source": source, "replaces": replaces, "launches": None,
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound_ms, "bound_by": bound_by,
-                 "library_ms": library_ms})
+    row = {"name": f"{tag} {fn.__name__} [{label}]", "route": "cuda",
+           "source": source, "replaces": replaces, "launches": None,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    extra = ""
+    if plan is not None:
+        row["matmul_route"] = (f"{plan.route} {'x'.join(map(str, plan.tile))}"
+                               f" splits {plan.splits}")
+        row["host_us"] = host_us
+        extra = f", route {row['matmul_route']}, host {host_us:.1f} us/call"
+    rows.append(row)
     log(f"{tag} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-        f"max_abs_err {err:.3e}")
+        f"max_abs_err {err:.3e}{extra}")
+
+
+def matmul_plan(M, K, N):
+    """K1's / K4's launch plan for bf16 x on this card (K: packed rows for
+    K4)."""
+    return k1.plan(M, K, N, torch.bfloat16, k1._sm_count(0))
 
 
 def phase_k1(rows, cfg):
@@ -185,7 +238,8 @@ def phase_k1(rows, cfg):
     h, m, L = cfg.block_decoder.hidden_size, cfg.block_decoder.intermediate_size, 12
     V = cfg.vocab_size
     shapes = [("qkv M=8", 8, h, 3 * h, L), ("mlp_down M=8", 8, m, h, L),
-              ("lm_head M=8", 8, h, V, 1), ("qkv M=4096", 4096, h, 3 * h, L)]
+              ("lm_head M=8", 8, h, V, 1), ("qkv M=32", 32, h, 3 * h, L),
+              ("qkv M=4096", 4096, h, 3 * h, L)]
     for label, M, K, N, layers in shapes:
         w = quant.quantize_int8(torch.randn((layers, K, N), generator=g,
                                             device=dev, dtype=bf16) * 0.02)
@@ -199,14 +253,14 @@ def phase_k1(rows, cfg):
         it = iter(range(10 ** 9))
         nxt = lambda: next(it) % layers          # noqa: E731
         iters = 10 if M > 64 else 60
-        ms = time_ms(lambda: k1.int8_matmul_stacked(x, w_q, scale, nxt()),
-                     iters)
+        ms, host_us = time_ms_host(
+            lambda: k1.int8_matmul_stacked(x, w_q, scale, nxt()), iters)
         plain_ms = time_ms(lambda: k1.int8_matmul_stacked_plain(
             x, w_q, scale, nxt()), iters)
         lib_ms = time_ms(lambda: torch.matmul(x, w_deq[nxt()]), iters)
         nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
         record(rows, k1.int8_matmul_stacked, label, err, ms, plain_ms, lib_ms,
-               nbytes, 2 * M * K * N)
+               nbytes, 2 * M * K * N, matmul_plan(M, K, N), host_us)
         del w_q, scale, w_deq
 
 
@@ -218,7 +272,8 @@ def phase_k4(rows, cfg):
     h, m, L = cfg.block_decoder.hidden_size, cfg.block_decoder.intermediate_size, 12
     V = cfg.vocab_size
     shapes = [("qkv M=8", 8, h, 3 * h, L), ("mlp_down M=8", 8, m, h, L),
-              ("lm_head M=8", 8, h, V, 1), ("qkv M=4096", 4096, h, 3 * h, L)]
+              ("lm_head M=8", 8, h, V, 1), ("qkv M=32", 32, h, 3 * h, L),
+              ("qkv M=4096", 4096, h, 3 * h, L)]
     for label, M, K, N, layers in shapes:
         w_p, scale = quant.quantize_int4(
             torch.randn((layers, K, N), generator=g, device=dev, dtype=bf16)
@@ -233,14 +288,15 @@ def phase_k4(rows, cfg):
         it = iter(range(10 ** 9))
         nxt = lambda: next(it) % layers          # noqa: E731
         iters = 10 if M > 64 else 60
-        ms = time_ms(lambda: k1.int4_matmul_stacked(x, w_p, scale, nxt()),
-                     iters)
+        ms, host_us = time_ms_host(
+            lambda: k1.int4_matmul_stacked(x, w_p, scale, nxt()), iters)
         plain_ms = time_ms(lambda: k1.int4_matmul_stacked_plain(
             x, w_p, scale, nxt()), iters)
         lib_ms = time_ms(lambda: torch.matmul(x, w_deq[nxt()]), iters)
         nbytes = M * K * 2 + K * N // 2 + G * N * 4 + M * N * 2
         record(rows, k1.int4_matmul_stacked, f"{label} G={G}", err, ms,
-               plain_ms, lib_ms, nbytes, 2 * M * K * N)
+               plain_ms, lib_ms, nbytes, 2 * M * K * N,
+               matmul_plan(M, K // 2, N), host_us)
         del w_p, scale, w_deq
 
 
@@ -648,19 +704,27 @@ def phase_small_quantized():
 def reset_launches():
     for fn, *_ in KERNELS:
         fn.launches = 0
+    for fn in MATMULS.values():
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def read_launches(path: str) -> dict:
     """{tag: launches} since the last reset; fails if a kernel of ``path``
     did not run."""
     launches = {tag: fn.launches for fn, tag, *_ in KERNELS}
-    log(f"launches in the timed {path} run: {json.dumps(launches)}")
+    routes = {tag: dict(fn.route_launches) for tag, fn in MATMULS.items()}
+    log(f"launches in the timed {path} run: {json.dumps(launches)}; K1/K4 "
+        f"by route: {json.dumps(routes)}")
     for tag in PATH_KERNELS[path]:
         if launches[tag] <= 0:
             raise AssertionError(f"{tag} was not launched on the {path} path")
     for tag in PATH_ABSENT.get(path, ()):
         if launches[tag]:
             raise AssertionError(f"{tag} was launched on the {path} path")
+    for tag, by_route in routes.items():     # full width: tensor cores only
+        if by_route["fma"] or by_route["tc"] != launches[tag]:
+            raise AssertionError(f"{tag} took the CUDA-core route on the "
+                                 f"{path} path: {by_route}")
     return launches
 
 
@@ -800,9 +864,12 @@ def main() -> None:
     log(f"kernel build {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
     for name, text in build.build_logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = kernel_label(line)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {entry}: {line.strip()}")
 
     cfg = config.get_config(MODEL)
     rows = []

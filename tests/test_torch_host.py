@@ -1,6 +1,6 @@
-"""Host-side pieces of the PyTorch port that need no card: K1's split-K
-plan, index-vector preparation for the attention kernels, and the helpers of
-``profile_generate``."""
+"""Host-side pieces of the PyTorch port that need no card: the split-K
+part of K1's ``plan``, index-vector preparation for the attention kernels,
+and the helpers of ``profile_generate``."""
 
 import numpy as np
 import pytest
@@ -16,18 +16,21 @@ from block_transformer_tpu_torch.ops import masks
 @pytest.mark.parametrize("M,K,N", [
     (8, 2048, 6144), (8, 8192, 2048), (8, 2048, 50304), (4096, 2048, 6144),
     (1, 32, 8), (3, 100, 37), (16, 300, 64), (17, 4096, 64)])
-def test_split_k_covers_k_without_empty_splits(M, K, N):
-    splits, kps = k1.split_k(M, K, N, sms=132)
-    assert splits >= 1 and kps % 32 == 0
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_k_covers_k_without_empty_splits(M, K, N, dtype):
+    p = k1.plan(M, K, N, dtype, sms=132)
+    splits, kps = p.splits, p.k_per_split
+    assert splits >= 1 and kps % p.tile[2] == 0
     assert splits * kps >= K > (splits - 1) * kps     # last split non-empty
-    if splits > 1:
+    if splits > 1 and p.route == "fma":
         assert kps >= 256                               # each split >= 256 deep
 
 
 def test_split_k_only_when_tiles_are_few():
-    assert k1.split_k(4096, 2048, 6144, sms=132) == (1, 2048)
-    splits, _ = k1.split_k(8, 2048, 2048, sms=132)
-    assert splits > 1 and (2048 // 64) * splits >= 132
+    for dtype in (torch.float32, torch.bfloat16):
+        assert k1.plan(4096, 2048, 6144, dtype, sms=132)[2:] == (1, 2048)
+        p = k1.plan(8, 2048, 2048, dtype, sms=132)
+        assert p.splits > 1 and (2048 // p.tile[1]) * p.splits >= 132
 
 
 def test_index_vectors_broadcast_and_default_valid():

@@ -10,7 +10,10 @@ machine with a card it runs on its own:
 Tolerances: float32 kernel vs float32 plain version differ only in the
 order of float32 sums, so 1e-4 (abs and rel); bf16 outputs carry one bf16
 rounding (2^-8 relative) on each side, so 1e-2 of the output's largest
-magnitude. The pool writes and page copies (K5, K7, K8) are compared bit
+magnitude (K4's tensor-core route also rounds each scaled weight to bf16,
+2^-9 relative, which sums to far less). K1 and K4 cases assert which route
+``plan`` took: bf16 x with K (K/2) a multiple of 32 and N of 16 goes to the
+tensor cores, float32 x and ragged shapes to the CUDA cores. The pool writes and page copies (K5, K7, K8) are compared bit
 for bit, outside page 0 where dead rows may collide.
 """
 
@@ -48,33 +51,68 @@ def _close(got, want, dtype):
         assert err <= BF16_REL * want.float().abs().max().item(), err
 
 
+def _route(dtype, K, N):
+    """The route plan() must take (K: rows of the weight, packed for K4)."""
+    return "tc" if dtype == torch.bfloat16 and K % 32 == 0 and N % 16 == 0 \
+        else "fma"
+
+
+def _routed(fn, route, call):
+    """call(); asserts it launched once, by ``route``."""
+    before = dict(fn.route_launches)
+    out = call()
+    after = dict(fn.route_launches)
+    assert after[route] == before[route] + 1, (route, before, after)
+    assert sum(after.values()) == sum(before.values()) + 1
+    return out
+
+
+# the tensor-core cases: every row tile and the ragged M edge, at the main
+# path's K (K/2 for K4) and a narrow and a wide N; x is scaled by
+# sqrt(32 / K) (K1) or sqrt(128 / (K/2)) (K4) there, so outputs stay a few
+# units at every K and the float32 cases' absolute 1e-4 stays above float32
+# summation noise
+TC_M = (1, 8, 16, 17, 32, 64, 130, 1024)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N,L,layer", [
-    (1, 32, 8, 1, 0),          # smallest
-    (3, 100, 37, 2, 1),        # ragged K and N (scalar weight loads)
-    (17, 256, 200, 3, 2),      # M > 16: 64-row tiles
-    (70, 96, 136, 2, 0),       # ragged M tile
-    (8, 2048, 384, 2, 1),      # decode shape: K split over blocks
-])
-def test_k1_matches_plain(M, K, N, L, layer, dtype):
+@pytest.mark.parametrize("M,K,N,L,layer,x_scale", [
+    (1, 32, 8, 1, 0, 1.0),         # smallest
+    (3, 100, 37, 2, 1, 1.0),       # ragged K and N (scalar weight loads)
+    (17, 256, 200, 3, 2, 1.0),     # M > 16: 64-row tiles
+    (70, 96, 136, 2, 0, 1.0),      # ragged M tile
+    (8, 2048, 384, 2, 1, 1.0),     # decode shape: K split over blocks
+] + [(M, K, N, 2, 1, (32 / K) ** 0.5)
+     for M in TC_M for K in (2048, 8192) for N in (384, 6144)])
+def test_k1_matches_plain(M, K, N, L, layer, x_scale, dtype):
     g = _card()
     w_q, scale = quant.quantize_int8(
         torch.randn((L, K, N), generator=g, device="cuda"))
-    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
-    got = k1.int8_matmul_stacked(x, w_q, scale, layer)
+    x = (x_scale * torch.randn((M, K), generator=g, device="cuda")).to(dtype)
+    got = _routed(k1.int8_matmul_stacked, _route(dtype, K, N),
+                  lambda: k1.int8_matmul_stacked(x, w_q, scale, layer))
     _close(got, k1.int8_matmul_stacked_plain(x, w_q, scale, layer), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,Kh,N,G,L,layer,legacy", [
-    (1, 64, 32, 1, 1, 0, True),        # smallest, per-channel [L, N] scale
-    (8, 1024, 384, 16, 2, 1, False),   # decode shape: K split over blocks
-    (16, 100, 37, 4, 2, 1, False),     # ragged K/2 and N, groups of 50 rows
-    (17, 256, 200, 2, 3, 2, False),    # M > 16: 64-row tiles, ragged N
-    (64, 96, 136, 1, 2, 0, False),     # ragged K/2 tile, one group [L, 1, N]
-    (300, 256, 256, 8, 2, 1, False),   # ragged M tile, groups of 64 rows
-])
-def test_k4_matches_plain(M, Kh, N, G, L, layer, legacy, dtype):
+@pytest.mark.parametrize("M,Kh,N,G,L,layer,legacy,x_scale", [
+    (1, 64, 32, 1, 1, 0, True, 1.0),       # smallest, per-channel [L, N]
+    (8, 1024, 384, 16, 2, 1, False, 1.0),  # decode shape: K split
+    (16, 100, 37, 4, 2, 1, False, 1.0),    # ragged K/2 and N, groups of 50
+    (17, 256, 200, 2, 3, 2, False, 1.0),   # M > 16: 64-row tiles, ragged N
+    (64, 96, 136, 1, 2, 0, False, 1.0),    # ragged K/2 tile, one group
+    (300, 256, 256, 8, 2, 1, False, 1.0),  # ragged M tile, groups of 64
+    # tensor cores with groups that split a 32-row step: each row's scales
+    (8, 96, 128, 4, 2, 1, False, 1.0),     # groups of 48, decode tile
+    (40, 192, 256, 8, 2, 1, False, 1.0),   # groups of 48, 64-row tile
+    (130, 1024, 384, 128, 2, 1, False, (128 / 1024) ** 0.5),  # groups of 16
+] + [  # G = 1, groups of 64 rows and of 128, in turn
+    (M, Kh, N, (1, 2 * Kh // 64, 2 * Kh // 128)[(i + j) % 3], 2, 1, False,
+     (128 / Kh) ** 0.5)
+    for i, M in enumerate(TC_M)
+    for j, (Kh, N) in enumerate([(1024, 384), (1024, 6144), (4096, 384),
+                                 (4096, 6144)])])
+def test_k4_matches_plain(M, Kh, N, G, L, layer, legacy, x_scale, dtype):
     """Random packed bytes (every nibble, -8 included) and scales."""
     g = _card()
     w_p = torch.randint(-128, 128, (L, Kh, N), generator=g, device="cuda",
@@ -82,10 +120,15 @@ def test_k4_matches_plain(M, Kh, N, G, L, layer, legacy, dtype):
     scale = 0.01 + 0.1 * torch.rand((L, G, N), generator=g, device="cuda")
     if legacy:
         scale = scale[:, 0].contiguous()
-    x = torch.randn((M, 2 * Kh), generator=g, device="cuda").to(dtype)
-    got = k1.int4_matmul_stacked(x, w_p, scale, layer)
+    x = (x_scale * torch.randn((M, 2 * Kh), generator=g,
+                               device="cuda")).to(dtype)
+    got = _routed(k1.int4_matmul_stacked, _route(dtype, Kh, N),
+                  lambda: k1.int4_matmul_stacked(x, w_p, scale, layer))
     _close(got, k1.int4_matmul_stacked_plain(x, w_p, scale, layer), dtype)
-    assert (k1.split_k(M, Kh, N, 132)[0] > 1) == (Kh == 1024)
+    p = k1.plan(M, Kh, N, dtype, 132)
+    assert p.route == _route(dtype, Kh, N)
+    if M <= 16 and Kh == 1024 and N == 384:         # decode: K is split
+        assert p.splits > 1
 
 
 def test_k4_raises_and_counts():

@@ -16,6 +16,7 @@ is not 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -99,3 +100,39 @@ def ptr(t) -> ctypes.c_void_p:
 def stream(device) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def raw_stream(dev: int) -> int:
+    """The current stream's raw handle on device ``dev``:
+    ``torch.cuda.current_stream()`` costs ~4 us of host time a call, as much
+    as a kernel at decode."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(dev)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device index, stream) -> (float32 partial sums, int32 arrival counters):
+# the scratch of the kernels that split their work over blocks and merge it
+# in the same launch (K1/K4's split K, K2's split cache), grown as needed
+# and shared by the launches of one stream, which run in order. The kernels
+# leave every counter at zero.
+_scratch: dict = {}
+
+
+def scratch(dev: int, stream: int, floats: int, counters: int):
+    """(float32 [>= floats], int32 [>= counters] zeros) for ``stream``."""
+    import torch
+    ws, ctr = _scratch.get((dev, stream), (None, None))
+    if ws is None or ws.numel() < floats or ctr.numel() < counters:
+        floats = max(floats, 0 if ws is None else ws.numel())
+        counters = max(counters, 0 if ctr is None else ctr.numel())
+        device = torch.device("cuda", dev)
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+        ctr = torch.zeros(counters, dtype=torch.int32, device=device)
+        _scratch[(dev, stream)] = (ws, ctr)
+    return ws, ctr

@@ -8,7 +8,9 @@ scores are ``q . k_q * k_scale / sqrt(D)``, the probabilities are multiplied
 by ``v_scale`` before the product with ``v_q``, and the softmax is float32.
 The CUDA kernel (``csrc/decode_attention.cu``) reads the int8 cache once and
 never dequantizes it in memory; it gets the layer's base pointers, so no
-slice of the cache is copied.
+slice of the cache is copied. It splits the capacity over blocks as the
+pure function ``plan`` says and merges the splits in the same launch,
+through a per-stream scratch buffer (``build.scratch``).
 
 The plain version dequantizes the layer's cache to ``q.dtype`` and runs
 ``attention_xla``, which is what the JAX package does for this shape off the
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +33,8 @@ from block_transformer_tpu_torch.ops.attention import attention_xla
 
 MAX_S = 8
 HEAD_DIMS = (32, 64, 128)
+TILE = 32           # slots a warp step in the kernel
+BLOCKS_PER_SM = 4   # blocks of 4 warps the split aims for on every SM
 
 
 def decode_attention_int8_stacked_plain(q, k_q, k_s, v_q, v_s, layer: int,
@@ -42,9 +47,38 @@ def decode_attention_int8_stacked_plain(q, k_q, k_s, v_q, v_s, layer: int,
 @functools.cache
 def _fn():
     fn = build.load("decode_attention").bt_decode_attention_int8
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+class Plan(NamedTuple):
+    """How K2 launches: the capacity cut into ``splits`` runs of
+    ``slots_per_split`` slots (whole 32-slot tiles), one block each per
+    (b, h)."""
+    splits: int
+    slots_per_split: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(B: int, H: int, cap: int, sms: int) -> Plan:
+    """The split of a ``cap``-slot cache for B x H (batch row, head) pairs on
+    a card with ``sms`` SMs. One block per pair when B*H alone puts
+    BLOCKS_PER_SM blocks on every SM; else the slots are cut into the
+    fewest runs of whole tiles that reach that many blocks, or one tile a
+    split when the cache has fewer tiles. Neither S nor D changes it: a
+    block's loads are in flight together whatever their width."""
+    tiles = -(-cap // TILE)
+    want = -(-BLOCKS_PER_SM * sms // (B * H))
+    per = -(-tiles // want)
+    return Plan(-(-tiles // per), per * TILE)
+
+
+def scratch_floats(p: Plan, B: int, H: int, S: int, D: int) -> int:
+    """float32 partials the merge needs: (acc[S][D], max, sum) per split
+    and (b, h); 0 without a split."""
+    return B * H * p.splits * S * (D + 2) if p.splits > 1 else 0
 
 
 def decode_attention_int8_stacked(q: torch.Tensor, k_q: torch.Tensor,
@@ -74,13 +108,27 @@ def decode_attention_int8_stacked(q: torch.Tensor, k_q: torch.Tensor,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("decode_attention_int8: operands must be "
                              "contiguous and on one device")
+    if (k_q.data_ptr() | v_q.data_ptr()) % 16:   # 16-byte key-row loads
+        raise ValueError("decode_attention_int8: the int8 caches must be "
+                         "16-byte aligned")
     q_idx, kv_idx, kv_valid = index_vectors(mask, B, S, cap, q.device)
     out = torch.empty_like(q)
-    err = _fn()(build.ptr(q), build.ptr(k_q[layer]), build.ptr(k_s[layer]),
-                build.ptr(v_q[layer]), build.ptr(v_s[layer]),
-                build.ptr(q_idx), build.ptr(kv_idx), build.ptr(kv_valid),
-                build.ptr(out), B, H, S, D, cap,
-                int(q.dtype == torch.bfloat16), build.stream(q.device))
+    dev = q.device.index or 0
+    p = plan(B, H, cap, build.sm_count(dev))
+    stream = build.raw_stream(dev)
+    ws = ctr = None
+    if p.splits > 1:
+        ws, ctr = build.scratch(dev, stream, scratch_floats(p, B, H, S, D),
+                                B * H)
+        ws, ctr = ws.data_ptr(), ctr.data_ptr()
+    slots = B * H * cap                 # of one layer
+    err = _fn()(q.data_ptr(), k_q.data_ptr() + layer * slots * D,
+                k_s.data_ptr() + layer * slots * 4,
+                v_q.data_ptr() + layer * slots * D,
+                v_s.data_ptr() + layer * slots * 4, q_idx.data_ptr(),
+                kv_idx.data_ptr(), kv_valid.data_ptr(), out.data_ptr(), ws,
+                ctr, B, H, S, D, cap, p.splits, p.slots_per_split,
+                int(q.dtype == torch.bfloat16), stream)
     build.check(err, "decode_attention_int8")
     decode_attention_int8_stacked.launches += 1
     return out

@@ -52,11 +52,6 @@ def _fn(name: str, n_ints: int):
     return fn
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 class Plan(NamedTuple):
     """How one dequant-matmul launches: ``route`` "tc" (tensor cores) or
     "fma" (CUDA cores), ``tile`` (BM, BN, BK) of its output tile and K step,
@@ -120,24 +115,6 @@ def tile_count(p: Plan, M: int, N: int) -> int:
     return -(-N // p.tile[1]) * -(-M // p.tile[0])
 
 
-# (device index, stream) -> (float32 partial sums, int32 arrival counters):
-# the split-K scratch, grown as needed and shared by the launches of one
-# stream, which run in order. The kernels leave every counter at zero.
-_scratch: dict = {}
-
-
-def _scratch_for(dev: int, stream: int, floats: int, counters: int):
-    ws, ctr = _scratch.get((dev, stream), (None, None))
-    if ws is None or ws.numel() < floats or ctr.numel() < counters:
-        floats = max(floats, 0 if ws is None else ws.numel())
-        counters = max(counters, 0 if ctr is None else ctr.numel())
-        device = torch.device("cuda", dev)
-        ws = torch.empty(floats, dtype=torch.float32, device=device)
-        ctr = torch.zeros(counters, dtype=torch.int32, device=device)
-        _scratch[(dev, stream)] = (ws, ctr)
-    return ws, ctr
-
-
 def _together(*ts) -> bool:
     """All contiguous and on the device of the first (device indices are
     cheaper to compare than ``torch.device`` objects)."""
@@ -156,13 +133,11 @@ def _launch(name: str, fn, x, w, scale, layer: int, out, ints) -> None:
             out.data_ptr())
     aligned = not any(q % _TC_ALIGN for q in ptrs)
     dev = x.device.index or 0
-    p = plan(M, K, N, x.dtype, _sm_count(dev), aligned)
-    # the raw handle: torch.cuda.current_stream() costs ~4 us of host time
-    # a call, as much as the kernel at decode
-    stream = torch._C._cuda_getCurrentRawStream(dev)
+    p = plan(M, K, N, x.dtype, build.sm_count(dev), aligned)
+    stream = build.raw_stream(dev)
     ws = ctr = None
     if p.splits > 1:
-        ws, ctr = _scratch_for(dev, stream, workspace_floats(p, M, N),
+        ws, ctr = build.scratch(dev, stream, workspace_floats(p, M, N),
                                tile_count(p, M, N))
         ws, ctr = ws.data_ptr(), ctr.data_ptr()
     err = _fn(f"bt_{name}", len(ints) + 5)(

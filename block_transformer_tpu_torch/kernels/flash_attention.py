@@ -3,17 +3,21 @@
 ``flash_attention``).
 
 q ``[B, H, Q, D]`` against k, v ``[B, H, K, D]`` under an ``AttnMask``; the
-CUDA kernel (``csrc/flash_attention.cu``) builds the mask per tile from the
-index vectors and runs a float32 online softmax. Any Q and K; any head
-dim D <= 128.
+CUDA kernels (``csrc/flash_attention.cu``) build the mask per tile from the
+index vectors and run a float32 online softmax. Any Q and K; any head
+dim D <= 128. Which kernel is one pure function, ``route``: the tensor-core
+kernel (``"tc"``: bf16 with D = 64 or 128, the main path's and the
+baseline's head dims; it skips key tiles no query of its tile may see) or
+the CUDA-core kernel (``"fma"``: float32 and every other head dim).
 
 The plain version is ``attention_xla``. Keys past K are left out of the
 kernel's softmax, so a query row with no allowed key averages the K real
 values uniformly, as ``attention_xla`` does (the Pallas kernel's zero
 padding rows join that average; only such rows differ from it).
 
-The wrapper runs the plain version for CPU tensors and launches the kernel
-for CUDA tensors; ``flash_attention.launches`` counts the launches.
+The wrapper runs the plain version for CPU tensors and launches a kernel
+for CUDA tensors; ``flash_attention.launches`` counts the launches and
+``flash_attention.route_launches`` counts them by route.
 """
 
 from __future__ import annotations
@@ -28,10 +32,23 @@ from block_transformer_tpu_torch.ops import masks as masks_lib
 from block_transformer_tpu_torch.ops.attention import attention_xla
 
 MAX_HEAD_DIM = 128
+TC_HEAD_DIMS = (64, 128)
+TC_MAX_KEYS = 256 * 32 * 64     # the tensor-core kernel's tile bitmask
+_TC_ALIGN = 16                  # bytes of one cp.async copy
 
 
 def supported_head_dim(D: int) -> bool:
     return 1 <= D <= MAX_HEAD_DIM
+
+
+def route(dtype, D: int, K: int, aligned: bool = True) -> str:
+    """"tc" (tensor cores) for bf16 with D in TC_HEAD_DIMS, K within the
+    kernel's bitmask and 16-byte aligned operands; "fma" (CUDA cores)
+    otherwise."""
+    if (dtype == torch.bfloat16 and D in TC_HEAD_DIMS and K <= TC_MAX_KEYS
+            and aligned):
+        return "tc"
+    return "fma"
 
 
 def flash_attention_plain(q, k, v, mask: masks_lib.AttnMask):
@@ -41,7 +58,7 @@ def flash_attention_plain(q, k, v, mask: masks_lib.AttnMask):
 @functools.cache
 def _fn():
     fn = build.load("flash_attention").bt_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -85,13 +102,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "and on one device")
     q_idx, kv_idx, kv_valid = index_vectors(mask, B, Q, K, q.device)
     out = torch.empty_like(q)
-    err = _fn()(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(q_idx),
-                build.ptr(kv_idx), build.ptr(kv_valid), build.ptr(out),
-                B, H, Q, K, D, int(q.dtype == torch.bfloat16),
-                build.stream(q.device))
+    ptrs = [t.data_ptr() for t in (q, k, v, out)]
+    r = route(q.dtype, D, K, not any(x % _TC_ALIGN for x in ptrs))
+    dev = q.device.index or 0
+    err = _fn()(*ptrs[:3], q_idx.data_ptr(), kv_idx.data_ptr(),
+                kv_valid.data_ptr(), ptrs[3], B, H, Q, K, D,
+                int(q.dtype == torch.bfloat16), int(r == "tc"),
+                build.raw_stream(dev))
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.route_launches[r] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"tc": 0, "fma": 0}

@@ -232,6 +232,7 @@ def device_breakdown(fn):
 OWN_KERNELS = ("tc_matmul_kernel", "int8_matmul_kernel", "int4_matmul_kernel",
                "splitk_reduce_kernel",
                "decode_attn_int8_kernel", "flash_attn_kernel",
+               "flash_attn_tc_kernel",
                "paged_write_kernel", "page_copy_kernel", "paged_attn_kernel")
 
 

@@ -19,9 +19,13 @@ one process it:
    generation with ``block_main_b4_1.2b`` at B=8, prompt 2048 tokens and
    128 new tokens (K1 and K4 at decode M = 8, the token decoder's M = 32
    prefix step and the M = 4096 prefill, each row naming the route, tile
-   and split ``plan`` gave it); K5-K8 at the serving engine's shapes (16
-   slots, 12 layers, 16 heads of 128, capacity 640 contiguous, 3 pages of
-   256 paged);
+   and split ``plan`` gave it; K2 at the block decoder's decode step and K3
+   at the prefill's first and last query tiles); K2 and K3 also at the
+   ``vanilla_410`` baseline's decode step (D = 64, capacity 2176) and
+   prompt (Q = 2048 causal), each K2 row naming its split of the cache and
+   each K3 row its route; K5-K8 at the serving engine's shapes (16 slots,
+   12 layers, 16 heads of 128, capacity 640 contiguous, 3 pages of 256
+   paged);
 4. checks the port on the card against the same port on the CPU (plain
    versions) at a small configuration in float32: forward logits, greedy
    tokens of INT8-, INT4- and mixed48-weight INT8-KV generation, greedy
@@ -44,10 +48,11 @@ one process it:
    KV cache) at the same B, prompt and new tokens, the same way, and prints
    the block/vanilla throughput ratio as a smoke figure.
 
-Every timed full-width run of steps 5-7 asserts that K1 and K4 launched by
-the tensor-core route only. The last three lines are the ``nvidia-smi``
-line, a JSON object listing each kernel's launches (from the run of step 5
-or 6 that uses it), error and times, and ``{"ok": true, "device": {...}}``.
+Every timed full-width run of steps 5-7 asserts that K1, K3 and K4
+launched by the tensor-core route only. The last three lines are the
+``nvidia-smi`` line, a JSON object listing each kernel's launches (from the
+run of step 5, 6 or 7 named by the row's ``path``), error and times, and
+``{"ok": true, "device": {...}}``.
 Any failure raises.
 """
 
@@ -120,9 +125,10 @@ PATH_KERNELS = {
 }
 # the kernels a main path must not launch: INT4 weights leave K1 no linear
 PATH_ABSENT = {"generation int4": ("K1",)}
-# K1 and K4 count their launches by route as well; a full-width path takes
-# the tensor-core route ("tc") only
-MATMULS = {"K1": k1.int8_matmul_stacked, "K4": k1.int4_matmul_stacked}
+# K1, K3 and K4 count their launches by route as well; a full-width path
+# takes the tensor-core route ("tc") only
+ROUTED = {"K1": k1.int8_matmul_stacked, "K3": k3.flash_attention,
+          "K4": k1.int4_matmul_stacked}
 
 
 def log(msg: str) -> None:
@@ -202,32 +208,36 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def record(rows, kernel, label, err, ms, plain_ms, library_ms, nbytes, flops,
-           plan=None, host_us=None):
-    """One kernel row; ``plan`` (K1, K4) is the dequant-matmul's launch and
-    ``host_us`` the wrapper's host time a call."""
-    fn, tag, source, replaces, _ = next(k for k in KERNELS if k[0] is kernel)
+           plan=None, host_us=None, extra=None, path=None):
+    """One kernel row; ``plan`` (K1, K4) is the dequant-matmul's launch,
+    ``host_us`` the wrapper's host time a call, ``extra`` more keys (K2's
+    split, K3's route), ``path`` the main path whose launches the row
+    reports (by default the kernel's own in KERNELS)."""
+    fn, tag, source, replaces, own_path = next(k for k in KERNELS
+                                                if k[0] is kernel)
     bound_ms, bound_by = bound(nbytes, flops)
     row = {"name": f"{tag} {fn.__name__} [{label}]", "route": "cuda",
-           "source": source, "replaces": replaces, "launches": None,
+           "path": path or own_path, "source": source, "replaces": replaces, "launches": None,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms}
-    extra = ""
+    row.update(extra or {})
+    note = "".join(f", {k} {v}" for k, v in (extra or {}).items())
     if plan is not None:
         row["matmul_route"] = (f"{plan.route} {'x'.join(map(str, plan.tile))}"
                                f" splits {plan.splits}")
         row["host_us"] = host_us
-        extra = f", route {row['matmul_route']}, host {host_us:.1f} us/call"
+        note = f", route {row['matmul_route']}, host {host_us:.1f} us/call"
     rows.append(row)
-    log(f"{tag} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-        f"max_abs_err {err:.3e}{extra}")
+    log(f"{tag} [{label}]: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+        f"library {library_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+        f"max_abs_err {err:.3e}{note}")
 
 
 def matmul_plan(M, K, N):
     """K1's / K4's launch plan for bf16 x on this card (K: packed rows for
     K4)."""
-    return k1.plan(M, K, N, torch.bfloat16, k1._sm_count(0))
+    return k1.plan(M, K, N, torch.bfloat16, build.sm_count(0))
 
 
 def phase_k1(rows, cfg):
@@ -300,88 +310,151 @@ def phase_k4(rows, cfg):
         del w_p, scale, w_deq
 
 
-def phase_k2(rows, cfg):
-    """K2 at the block decoder's decode step: B=8, H=16, S=1, D=128, a
-    12-layer cache of capacity 640 filled to 530 slots, layer 5, some rows
-    finished (kv_valid 0 on their last slots) and some left-padded."""
+def int8_layers(g, L, B, H, cap, D):
+    """A random L-layer INT8 cache, quantized as the model writes it:
+    (k int8, k_scale, v int8, v_scale)."""
+    kv = torch.randn((2, L, B, H, cap, D), generator=g, device="cuda")
+    kq, ks = quant.quantize_kv(kv[0].reshape(L * B, H, cap, D))
+    vq, vs = quant.quantize_kv(kv[1].reshape(L * B, H, cap, D))
+    return (kq.reshape(L, B, H, cap, D), ks.reshape(L, B, H, cap),
+            vq.reshape(L, B, H, cap, D), vs.reshape(L, B, H, cap))
+
+
+def k2_row(rows, label, cache, q, mask, iters, path=None):
+    """K2 against its plain version and SDPA on dequantized layers, cycling
+    through the cache's layers so it comes from device memory."""
+    kq, ks, vq, vs = cache
+    L, B, H, cap, D = kq.shape
+    S = q.shape[2]
+    got = k2.decode_attention_int8_stacked(q, kq, ks, vq, vs, L // 2, mask)
+    want = k2.decode_attention_int8_stacked_plain(q, kq, ks, vq, vs, L // 2,
+                                                  mask)
+    err = compare(f"K2 {label}", got, want)
+    it = iter(range(10 ** 9))
+    nxt = lambda: next(it) % L                 # noqa: E731
+    ms = time_ms(lambda: k2.decode_attention_int8_stacked(
+        q, kq, ks, vq, vs, nxt(), mask), iters)
+    plain_ms = time_ms(lambda: k2.decode_attention_int8_stacked_plain(
+        q, kq, ks, vq, vs, nxt(), mask), 10)
+    deq = [((kq[i].float() * ks[i][..., None]).to(q.dtype),
+            (vq[i].float() * vs[i][..., None]).to(q.dtype)) for i in range(L)]
+    allowed = mask.allowed()[:, None]          # [B, 1, S, cap]
+
+    def library():
+        k, v = deq[nxt()]
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=allowed)
+
+    lib_ms = time_ms(library, iters)
+    k_rows, v_rows, ops = attention_need(mask, H, D)
+    nbytes = (2 * B * H * S * D * 2 + (k_rows + v_rows) * (D + 4)
+              + (B * S + cap + B * cap) * 4)
+    p = k2.plan(B, H, cap, build.sm_count(0))
+    record(rows, k2.decode_attention_int8_stacked, label, err, ms, plain_ms,
+           lib_ms, nbytes, ops, path=path,
+           extra={"decode_plan": f"splits {p.splits} x {p.slots_per_split} "
+                                 "slots"})
+    del deq
+
+
+def phase_k2(rows, cfg, vcfg):
+    """K2 at the block decoder's decode step (B=8, H=16, S=1, D=128, a
+    12-layer cache of capacity 640 filled to 530 slots, some rows finished,
+    some left-padded) and at the baseline's (B=8, H=16, S=1, D=64, a
+    24-layer cache of capacity 2176 filled to 2100); in each, one row has
+    no allowed key."""
     dev, bf16 = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(2)
     B, H, D = BATCH, cfg.block_decoder.num_heads, cfg.block_decoder.head_dim
-    L, cap, filled, S = 12, 640, 530, 1
-    kv = torch.randn((2, L, B, H, cap, D), generator=g, device=dev)
-    kq, ks = quant.quantize_kv(kv[0].reshape(L * B, H, cap, D))
-    vq, vs = quant.quantize_kv(kv[1].reshape(L * B, H, cap, D))
-    kq, vq = kq.reshape(L, B, H, cap, D), vq.reshape(L, B, H, cap, D)
-    ks, vs = ks.reshape(L, B, H, cap), vs.reshape(L, B, H, cap)
-    q = torch.randn((B, H, S, D), generator=g, device=dev, dtype=bf16)
+    cap, filled = 640, 530
+    cache = int8_layers(g, 12, B, H, cap, D)
+    q = torch.randn((B, H, 1, D), generator=g, device=dev, dtype=bf16)
     valid = torch.zeros((B, cap), dtype=torch.int32, device=dev)
     for b in range(B):
         valid[b, 16 * b:filled] = 1           # left pad of 16*b blocks
     valid[B - 2:, filled - 4:filled] = 0       # finished rows
     valid[0] = 0                               # a row with no allowed key
-    mask = masks.block_decode_mask(filled - 1, cap, S, valid)
-    got = k2.decode_attention_int8_stacked(q, kq, ks, vq, vs, 5, mask)
-    want = k2.decode_attention_int8_stacked_plain(q, kq, ks, vq, vs, 5, mask)
-    err = compare("K2", got, want)
+    mask = masks.block_decode_mask(filled - 1, cap, 1, valid)
+    k2_row(rows, "B=8 H=16 S=1 D=128 cap=640", cache, q, mask, 100)
+    del cache
+
+    H, D = vcfg.num_heads, vcfg.head_dim
+    cap, filled = PROMPT_TOKENS + NEW_TOKENS, 2100
+    cache = int8_layers(g, vcfg.num_layers, B, H, cap, D)
+    q = torch.randn((B, H, 1, D), generator=g, device=dev, dtype=bf16)
+    valid = torch.ones((B, cap), dtype=torch.int32, device=dev)
+    valid[1] = 0                               # a row with no allowed key
+    mask = masks.decode_mask(filled - 1, cap, 1, valid, device=dev)
+    k2_row(rows, f"baseline B=8 H={H} S=1 D={D} cap={cap}", cache, q, mask,
+           100, path="vanilla")
+    del cache
+
+
+def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None):
+    """K3 against its plain version and SDPA, cycling through copies of
+    (q, k, v); asserts the tensor-core route."""
+    q0, k0, v0 = qkv[0]
+    B, H, Q, D = q0.shape
+    K = k0.shape[2]
+    before = dict(k3.flash_attention.route_launches)
+    got = k3.flash_attention(q0, k0, v0, mask)
+    if k3.flash_attention.route_launches["tc"] != before["tc"] + 1:
+        raise AssertionError(f"K3 {label}: not the tensor-core route")
+    want = k3.flash_attention_plain(q0, k0, v0, mask)
+    err = compare(f"K3 {label}", got, want)
+    del got, want
     it = iter(range(10 ** 9))
-    nxt = lambda: next(it) % L                 # noqa: E731
-    ms = time_ms(lambda: k2.decode_attention_int8_stacked(
-        q, kq, ks, vq, vs, nxt(), mask), 100)
-    plain_ms = time_ms(lambda: k2.decode_attention_int8_stacked_plain(
-        q, kq, ks, vq, vs, nxt(), mask), 20)
-    k_deq = [(kq[i].float() * ks[i][..., None]).to(bf16) for i in range(L)]
-    v_deq = [(vq[i].float() * vs[i][..., None]).to(bf16) for i in range(L)]
-    allowed = mask.allowed()[:, None]          # [B, 1, S, cap]
-
-    def library():
-        i = nxt()
-        return torch.nn.functional.scaled_dot_product_attention(
-            q, k_deq[i], v_deq[i], attn_mask=allowed)
-
-    lib_ms = time_ms(library, 100)
+    pick = lambda: qkv[next(it) % len(qkv)]   # noqa: E731
+    ms = time_ms(lambda: k3.flash_attention(*pick(), mask), iters)
+    plain_ms = time_ms(lambda: k3.flash_attention_plain(*pick(), mask),
+                       plain_iters)
+    allowed = mask.allowed()[:, None]          # [B, 1, Q, K]
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        *pick(), attn_mask=allowed), iters)
     k_rows, v_rows, ops = attention_need(mask, H, D)
-    nbytes = (2 * B * H * S * D * 2 + (k_rows + v_rows) * (D + 4)
-              + (B * S + cap + B * cap) * 4)
-    record(rows, k2.decode_attention_int8_stacked, "B=8 H=16 S=1 cap=640",
-           err, ms, plain_ms, lib_ms, nbytes, ops)
+    nbytes = ((2 * B * H * Q + k_rows + v_rows) * D * 2
+              + (B * Q + K + B * K) * 4)
+    record(rows, k3.flash_attention, label, err, ms, plain_ms, lib_ms, nbytes,
+           ops, path=path, extra={"attention_route": k3.route(q0.dtype, D, K)})
 
 
-def phase_k3(rows, cfg):
-    """K3 at the fresh prefill's first query tile: B=8, H=16, 128 queries
-    against the 512 prompt blocks, D=128, block-causal, with left-padded
-    rows (their first queries have no allowed key)."""
+def phase_k3(rows, cfg, vcfg):
+    """K3 at the fresh prefill's first and last query tiles (B=8, H=16, 128
+    queries against the 512 prompt blocks, D=128, block-causal, with
+    left-padded rows whose first queries have no allowed key) and at the
+    baseline's prompt (B=8, H=16, Q=2048 against the 2176-slot cache, D=64,
+    causal: slots from 2048 on carry indices past every query, as
+    ``vanilla_prefill`` builds it)."""
     dev, bf16 = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(3)
     B, H, D = BATCH, cfg.block_decoder.num_heads, cfg.block_decoder.head_dim
     Q, K = 128, PROMPT_TOKENS // cfg.block_length
-    copies = 4
     qkv = [torch.randn((3, B, H, K, D), generator=g, device=dev, dtype=bf16)
-           for _ in range(copies)]
-    qs = [t[0, :, :, :Q].contiguous() for t in qkv]
+           for _ in range(4)]
     valid = torch.ones((B, K), dtype=torch.int32, device=dev)
     for b in range(B):
         valid[b, :13 * b] = 0                  # left pad of 13*b blocks
     full = masks.block_decode_mask(0, K, K, valid)
-    mask = masks.AttnMask(full.q_idx[:Q], full.kv_idx, full.kv_valid)
-    got = k3.flash_attention(qs[0], qkv[0][1], qkv[0][2], mask)
-    want = k3.flash_attention_plain(qs[0], qkv[0][1], qkv[0][2], mask)
-    err = compare("K3", got, want)
-    it = iter(range(10 ** 9))
+    for label, t0 in (("first", 0), ("last", K - Q)):
+        mask = masks.AttnMask(full.q_idx[t0:t0 + Q], full.kv_idx,
+                              full.kv_valid)
+        tiles = [(t[0, :, :, t0:t0 + Q].contiguous(), t[1], t[2])
+                 for t in qkv]
+        k3_row(rows, f"{label} tile B=8 H=16 Q={Q} K={K} D={D}", tiles,
+               mask, 50, 20)
+    del qkv, tiles
 
-    def pick():
-        i = next(it) % copies
-        return qs[i], qkv[i][1], qkv[i][2]
-
-    ms = time_ms(lambda: k3.flash_attention(*pick(), mask), 50)
-    plain_ms = time_ms(lambda: k3.flash_attention_plain(*pick(), mask), 20)
-    allowed = mask.allowed()[:, None]          # [B, 1, Q, K]
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        *pick(), attn_mask=allowed), 50)
-    k_rows, v_rows, ops = attention_need(mask, H, D)
-    nbytes = ((2 * B * H * Q + k_rows + v_rows) * D * 2
-              + (B * Q + K + B * K) * 4)
-    record(rows, k3.flash_attention, "B=8 H=16 Q=128 K=512", err, ms,
-           plain_ms, lib_ms, nbytes, ops)
+    H, D = vcfg.num_heads, vcfg.head_dim
+    Q, K = PROMPT_TOKENS, PROMPT_TOKENS + NEW_TOKENS
+    qkv = [(torch.randn((B, H, Q, D), generator=g, device=dev, dtype=bf16),
+            torch.randn((B, H, K, D), generator=g, device=dev, dtype=bf16),
+            torch.randn((B, H, K, D), generator=g, device=dev, dtype=bf16))
+           for _ in range(2)]
+    mask = masks.decode_mask(0, K, Q, torch.ones((B, K), dtype=torch.int32,
+                                                 device=dev), device=dev)
+    k3_row(rows, f"baseline B=8 H={H} Q={Q} K={K} D={D} causal", qkv, mask,
+           20, 2, path="vanilla")
+    del qkv
 
 
 ENGINE_L, ENGINE_B = 12, pg.ENGINE_SLOTS   # block decoder layers, slots
@@ -704,7 +777,7 @@ def phase_small_quantized():
 def reset_launches():
     for fn, *_ in KERNELS:
         fn.launches = 0
-    for fn in MATMULS.values():
+    for fn in ROUTED.values():
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
@@ -712,8 +785,8 @@ def read_launches(path: str) -> dict:
     """{tag: launches} since the last reset; fails if a kernel of ``path``
     did not run."""
     launches = {tag: fn.launches for fn, tag, *_ in KERNELS}
-    routes = {tag: dict(fn.route_launches) for tag, fn in MATMULS.items()}
-    log(f"launches in the timed {path} run: {json.dumps(launches)}; K1/K4 "
+    routes = {tag: dict(fn.route_launches) for tag, fn in ROUTED.items()}
+    log(f"launches in the timed {path} run: {json.dumps(launches)}; K1/K3/K4 "
         f"by route: {json.dumps(routes)}")
     for tag in PATH_KERNELS[path]:
         if launches[tag] <= 0:
@@ -872,10 +945,11 @@ def main() -> None:
                 log(f"  ptxas {name} {entry}: {line.strip()}")
 
     cfg = config.get_config(MODEL)
+    vcfg = config.get_vanilla_config(VANILLA_MODEL)
     rows = []
     phase_k1(rows, cfg)
-    phase_k2(rows, cfg)
-    phase_k3(rows, cfg)
+    phase_k2(rows, cfg, vcfg)
+    phase_k3(rows, cfg, vcfg)
     phase_k4(rows, cfg)
     phase_k5(rows, cfg)
     phase_k6(rows, cfg)
@@ -917,9 +991,8 @@ def main() -> None:
             f"{q} {tok_s[q] / tok_s['vanilla']:.3f}"
             for q in ("int8", "int4", "mixed48")))
     for row in rows:
-        fn, tag, *_, path = next(k for k in KERNELS
-                                 if row["name"].startswith(k[1] + " "))
-        row["launches"] = launches[path][tag]
+        tag = row["name"].split()[0]
+        row["launches"] = launches[row["path"]][tag]
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -13,13 +13,18 @@ rounding (2^-8 relative) on each side, so 1e-2 of the output's largest
 magnitude (K4's tensor-core route also rounds each scaled weight to bf16,
 2^-9 relative, which sums to far less). K1 and K4 cases assert which route
 ``plan`` took: bf16 x with K (K/2) a multiple of 32 and N of 16 goes to the
-tensor cores, float32 x and ragged shapes to the CUDA cores. The pool writes and page copies (K5, K7, K8) are compared bit
-for bit, outside page 0 where dead rows may collide.
+tensor cores, float32 x and ragged shapes to the CUDA cores; K3 cases
+assert the route ``route`` took (bf16 with D = 64 or 128 on the tensor
+cores, float32 and other head dims on the CUDA cores). K2 cases cover one
+split and several (``plan``), with splits whose every slot is masked. The
+pool writes and page copies (K5, K7, K8) are compared bit for bit, outside
+page 0 where dead rows may collide.
 """
 
 import pytest
 import torch
 
+from block_transformer_tpu_torch.kernels import build
 from block_transformer_tpu_torch.kernels import decode_attention as k2
 from block_transformer_tpu_torch.kernels import dequant_matmul as k1
 from block_transformer_tpu_torch.kernels import flash_attention as k3
@@ -163,6 +168,22 @@ def _int8_cache(g, L, B, H, cap, D):
             vq.reshape(L, B, H, cap, D), vs.reshape(L, B, H, cap))
 
 
+def _int8_cache_exact(g, L, B, H, cap, D):
+    """Random int8 values with power-of-two scales: the plain version's
+    bf16 dequantized cache is then exact, so at long caches, where outputs
+    average thousands of values and come out small, the bf16 comparison
+    sees the kernel's rounding and not the plain version's."""
+    def i8():
+        return torch.randint(-127, 128, (L, B, H, cap, D), generator=g,
+                             device="cuda", dtype=torch.int8)
+
+    def pow2():
+        return torch.pow(2.0, -torch.randint(
+            6, 9, (L, B, H, cap), generator=g, device="cuda").float())
+
+    return i8(), pow2(), i8(), pow2()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,S,D,L,cap,length", [
     (2, 3, 1, 32, 2, 40, 30),      # capacity not a multiple of 32
@@ -186,6 +207,57 @@ def test_k2_matches_plain(B, H, S, D, L, cap, length, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 3, 8])
+@pytest.mark.parametrize("cap,length", [(40, 17), (640, 530), (2176, 2100),
+                                        (2176, 90)])
+def test_k2_split_matches_plain(cap, length, S, D, dtype):
+    """B = 3, H = 4: few (b, h) pairs, so the cache is split as plan() says;
+    row 1 has no allowed key, row 2 is left-padded; at length 90 of 2176
+    every split but the first is fully masked."""
+    g = _card()
+    B, H, L = 3, 4, 2
+    kq, ks, vq, vs = _int8_cache_exact(g, L, B, H, cap, D)
+    q = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
+    valid = torch.ones((B, cap), dtype=torch.int32, device="cuda")
+    valid[:, length + S:] = 0
+    valid[1] = 0
+    valid[2, :length // 3] = 0
+    mask = masks.decode_mask(length, cap, S, valid, device="cuda")
+    p = k2.plan(B, H, cap, build.sm_count(0))
+    assert p.splits > 1
+    assert p.splits * p.slots_per_split >= cap > (p.splits - 1) * p.slots_per_split
+    got = k2.decode_attention_int8_stacked(q, kq, ks, vq, vs, 1, mask)
+    want = k2.decode_attention_int8_stacked_plain(q, kq, ks, vq, vs, 1, mask)
+    _close(got, want, dtype)
+
+
+def test_k2_counters_are_left_at_zero():
+    """Two launches in a row on one stream, each merging its splits through
+    the arrival counters, give the same output bit for bit."""
+    g = _card()
+    B, H, S, D, cap = 2, 4, 1, 64, 2176
+    kq, ks, vq, vs = _int8_cache_exact(g, 1, B, H, cap, D)
+    q = torch.randn((B, H, S, D), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    mask = masks.decode_mask(2000, cap, S, device="cuda")
+    assert k2.plan(B, H, cap, build.sm_count(0)).splits > 1
+    first = k2.decode_attention_int8_stacked(q, kq, ks, vq, vs, 0, mask)
+    second = k2.decode_attention_int8_stacked(q, kq, ks, vq, vs, 0, mask)
+    assert torch.equal(first, second)
+    _close(second, k2.decode_attention_int8_stacked_plain(
+        q, kq, ks, vq, vs, 0, mask), torch.bfloat16)
+    _, ctr = build.scratch(0, build.raw_stream(0), 0, 0)
+    assert not bool(ctr.any())
+
+
+def _k3_routed(q, k, v, mask, route):
+    """flash_attention(); asserts it launched once, by ``route``."""
+    return _routed(k3.flash_attention, route,
+                   lambda: k3.flash_attention(q, k, v, mask))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Q,K,D,n", [
     (2, 2, 10, 70, 32, 1),     # ragged K tile, left pad
     (1, 3, 130, 200, 64, 2),   # ragged Q tiles, two embeddings per block
@@ -200,8 +272,62 @@ def test_k3_matches_plain(B, H, Q, K, D, n, dtype):
     valid = torch.ones((B, K), dtype=torch.int32, device="cuda")
     valid[-1, :12] = 0         # left pad (queries before slot 12 see no key)
     full = masks.block_decode_mask(K - Q, K, Q, valid, n)
-    got = k3.flash_attention(q, k, v, full)
+    route = "tc" if dtype == torch.bfloat16 and D in (64, 128) else "fma"
+    got = _k3_routed(q, k, v, full, route)
     _close(got, k3.flash_attention_plain(q, k, v, full), dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Q,K,n", [
+    (1, 70, 1), (9, 200, 2), (130, 2176, 4), (130, 70, 1), (9, 2176, 1),
+    (1, 200, 4), (64, 64, 2), (200, 130, 1),
+])
+def test_k3_tensor_cores_match_plain(Q, K, n, D):
+    """bf16 on the tensor cores: ragged Q and K, block-causal masks with n
+    embeddings a block, a left-padded batch row whose first queries see no
+    key (the closing pass), and key tiles skipped past the diagonal."""
+    g = _card()
+    B, H = 2, 3
+    q, k, v = (torch.randn((B, H, S, D), generator=g, device="cuda").to(
+        torch.bfloat16) for S in (Q, K, K))
+    valid = torch.ones((B, K), dtype=torch.int32, device="cuda")
+    valid[-1, :min(K - 1, 2 * n + 5)] = 0      # left pad
+    mask = masks.block_decode_mask(max(0, K - Q), K, Q, valid, n)
+    got = _k3_routed(q, k, v, mask, "tc")
+    _close(got, k3.flash_attention_plain(q, k, v, mask), torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", ["causal", "unsorted", "all_masked",
+                                  "prefix", "left_padded_prompt"])
+def test_k3_tensor_core_masks(case, D):
+    """causal: Q = 512 against K = 576 (a prompt after 64 cached slots);
+    unsorted: kv_idx permuted, so skipping may not assume order;
+    all_masked: a batch row with no valid key at all; prefix: queries that
+    see only the first key tile of a long K; left_padded_prompt: a fresh
+    prefill tile whose first rows see no key while later tiles are
+    skipped."""
+    g = _card()
+    B, H = 2, 2
+    Q, K = (512, 576) if case == "causal" else (70, 700)
+    q, k, v = (torch.randn((B, H, S, D), generator=g, device="cuda").to(
+        torch.bfloat16) for S in (Q, K, K))
+    valid = torch.ones((B, K), dtype=torch.int32, device="cuda")
+    q_idx = torch.arange(K - Q, K, dtype=torch.int32, device="cuda")
+    kv_idx = torch.arange(K, dtype=torch.int32, device="cuda")
+    if case == "unsorted":
+        kv_idx = kv_idx[torch.randperm(K, generator=g, device="cuda")]
+        q_idx = q_idx - 300
+    elif case == "all_masked":
+        valid[0] = 0
+    elif case == "prefix":
+        q_idx = torch.arange(Q, dtype=torch.int32, device="cuda") // 8
+    elif case == "left_padded_prompt":
+        q_idx = torch.arange(Q, dtype=torch.int32, device="cuda")
+        valid[1, :40] = 0
+    mask = masks.AttnMask(q_idx, kv_idx.contiguous(), valid)
+    got = _k3_routed(q, k, v, mask, "tc")
+    _close(got, k3.flash_attention_plain(q, k, v, mask), torch.bfloat16)
 
 
 def test_launch_counters_move_on_the_card_only():

@@ -8,6 +8,12 @@ N]``) with float32 group scales ``[.., G, N]`` (or ``[.., N]``). So a
 conversion is a copy leaf by leaf that keeps each dtype. numpy has no
 bfloat16 of its own: JAX hands out ``ml_dtypes.bfloat16`` arrays, which
 cross to torch through a ``uint16`` view of the same bits.
+
+KV caches differ in one field type: JAX's INT4 caches and pools hold
+``jnp.int4`` values, one to an element (numpy dtype name ``int4``), which
+the port packs two to a byte along D (``ops.quant.pack_kv_int4``, uint8
+``[..., D/2]``). ``cache_to_numpy`` hands such values back unpacked as
+int8, for ``.astype(jnp.int4)`` on the JAX side.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import numpy as np
 import torch
 
 from block_transformer_tpu_torch.models import neox
+from block_transformer_tpu_torch.ops import quant
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -65,7 +72,14 @@ def cache_from_numpy(cache, device="cuda"):
     """A JAX ``KVCache`` / ``QuantKVCache`` / ``PagedKVCache`` (any object
     with its fields, arrays convertible by numpy) -> the port's cache."""
     length = int(np.asarray(cache.length))
-    conv = lambda a: tensor_from_numpy(a, device)      # noqa: E731
+
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype.name == "int4":          # packed two to a byte
+            return quant.pack_kv_int4(torch.from_numpy(
+                a.astype(np.int8))).to(device)
+        return tensor_from_numpy(a, device)
+
     if hasattr(cache, "page_table"):
         return neox.PagedKVCache(conv(cache.k), conv(cache.v),
                                  conv(cache.k_scale), conv(cache.v_scale),
@@ -80,8 +94,13 @@ def cache_from_numpy(cache, device="cuda"):
 def cache_to_numpy(cache) -> dict:
     """The port's cache -> a dict of numpy arrays under the JAX field names
     (``length`` an int32 scalar), e.g. for ``QuantKVCache(**d)`` or
-    ``PagedKVCache(**d)`` in JAX."""
-    out = {f: tensor_to_numpy(getattr(cache, f))
-           for f in cache._fields if f != "length"}
+    ``PagedKVCache(**d)`` in JAX; an INT4 cache's values come unpacked, as
+    int8."""
+    def conv(t):
+        if quant.kv_bits(t) == 4:
+            t = quant.unpack_kv_int4(t)
+        return tensor_to_numpy(t)
+
+    out = {f: conv(getattr(cache, f)) for f in cache._fields if f != "length"}
     out["length"] = np.int32(cache.length)
     return out

@@ -1,7 +1,7 @@
 // PTX helpers shared by the tensor-core kernels (K1/K4 in dequant_matmul.cu,
 // K3 in flash_attention.cu): cp.async copies into shared memory, ldmatrix
-// fragment loads, the bf16 mma.sync product, and exact int8 -> float
-// widening.
+// fragment loads, the bf16 mma.sync product, and exact int8 / int4 -> float
+// widening (also used by K2 and K6).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,9 +1,12 @@
-// K5-K8: the paged INT8 KV pool kernels, for Hopper (sm_90a).
+// K5-K8: the paged KV pool kernels, for Hopper (sm_90a).
 //
 // Replace the four Pallas kernels of block_transformer_tpu/ops/
 // paged_attention.py. The pool holds int8 values [L, P, H, ps, D] with one
 // float32 scale per (layer, page, head, slot) [L, P, H, ps]; row-major, so
-// the D bytes of one slot are contiguous. A batch row b sees its keys at
+// the D bytes of one slot are contiguous. An INT4 pool (K6 and K8 only, as
+// in the reference) holds D/2 bytes a slot, split half: byte i carries
+// dimension i in its low nibble and i + D/2 in its high one, each a signed
+// 4-bit value. A batch row b sees its keys at
 // virtual positions j = vp * ps + o, stored at pool page page_table[b, vp].
 // Page 0 is the null page: unallocated virtual pages point there and are
 // masked by kv_valid.
@@ -44,15 +47,27 @@
 // folded in. Bound by bytes: it reads each visible key and value row once
 // (D + 4 bytes each), against ~4 * S * D operations per key.
 //
+// K6's INT4 form (the Pallas kernel widens any pool dtype) is the template
+// argument INT4 of the same kernel: a lane's key row is D/2 bytes (one to
+// four 16-byte loads), each byte widened exactly into its two signed
+// nibbles by the byte permute onto 2^23 (mma.cuh), the low one dotted with
+// query dim i and the high one with i + D/2; in P.V a lane's DPL output dims
+// lie in one half of D, so it reads DPL bytes and takes their low (lanes
+// 0-15) or high (lanes 16-31) nibbles.
+// It reads (D/2 + 4) bytes a visible key or value row, about half the INT8
+// form's at D = 128.
+//
 // K8, paged_page_copy_int8 (Pallas _page_copy_kernel): admission copies G
 // prefilled rows [L, G, H, nv * ps, D] (+ scales) page by page into their
 // pool pages pt_rows[g, j]; one block per (layer, row, virtual page, head)
-// copies ps * D bytes and ps scales with 16-byte loads and stores. An entry
+// copies ps * D bytes and ps scales with 16-byte loads and stores (D here is
+// a slot's bytes: D/2 of the head dim for a packed INT4 pool). An entry
 // of pt_rows outside [0, P) is dropped. Pages are written whole, so no
 // read-modify-write; duplicate targets (padded admission rows, unallocated
 // tails on page 0) write identical or masked data. Bound by bytes.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -174,7 +189,17 @@ page_copy_kernel(int8_t* __restrict__ kpool, float* __restrict__ kspool,
 constexpr int WARPS = 8;
 constexpr int MAX_S = 8;
 
-template <typename T, int D>
+// The four low (hi = false) or high nibbles of the 4 bytes of w, each
+// biased by 8 into a byte of its own: bt::biased_byte<8>(result, i) is the
+// signed value of byte i's nibble, exactly and without integer-to-float
+// conversions (mma.cuh).
+__device__ __forceinline__ uint32_t nibbles(uint32_t w, bool hi) {
+  const uint32_t u = w ^ 0x88888888u;
+  return (hi ? u >> 4 : u) & 0x0F0F0F0Fu;
+}
+
+// INT4: the pool holds D/2 packed bytes a slot (see the top of the file).
+template <typename T, int D, bool INT4>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                   const float* __restrict__ ks, const int8_t* __restrict__ vq,
@@ -187,6 +212,7 @@ paged_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                   T* __restrict__ out, int H, int S, int P, int ps,
                   int n_virt, float sm_scale) {
   constexpr int DPL = D / 32;   // output dims per lane
+  constexpr int RB = INT4 ? D / 2 : D;   // bytes of a slot's values
   __shared__ float qs[MAX_S][D];
   __shared__ float m_w[WARPS][MAX_S];
   __shared__ float l_w[WARPS][MAX_S];
@@ -239,20 +265,38 @@ paged_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
 #pragma unroll
     for (int s = 0; s < MAX_S; ++s) sc[s] = 0.f;
     if (in_range) {
-      const int8_t* krow = kq + slot * D;
+      const int8_t* krow = kq + slot * RB;
 #pragma unroll
-      for (int d0 = 0; d0 < D; d0 += 16) {
-        union {
-          int4 u;
-          int8_t b[16];
-        } raw;
-        raw.u = *reinterpret_cast<const int4*>(krow + d0);
+      for (int d0 = 0; d0 < RB; d0 += 16) {
+        if constexpr (INT4) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(krow + d0);
+          const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const float kv = static_cast<float>(raw.b[e]);
+          for (int c = 0; c < 4; ++c) {
+            const uint32_t lo = nibbles(w[c], false), hi = nibbles(w[c], true);
 #pragma unroll
-          for (int s = 0; s < MAX_S; ++s)
-            if (s < S) sc[s] += qs[s][d0 + e] * kv;
+            for (int e = 0; e < 4; ++e) {
+              const int d = d0 + c * 4 + e;
+              const float kl = bt::biased_byte<8>(lo, e);
+              const float kh = bt::biased_byte<8>(hi, e);
+#pragma unroll
+              for (int s = 0; s < MAX_S; ++s)
+                if (s < S) sc[s] += qs[s][d] * kl + qs[s][d + D / 2] * kh;
+            }
+          }
+        } else {
+          union {
+            int4 u;
+            int8_t b[16];
+          } raw;
+          raw.u = *reinterpret_cast<const int4*>(krow + d0);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const float kv = static_cast<float>(raw.b[e]);
+#pragma unroll
+            for (int s = 0; s < MAX_S; ++s)
+              if (s < S) sc[s] += qs[s][d0 + e] * kv;
+          }
         }
       }
     }
@@ -280,15 +324,29 @@ paged_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
     const int n_keys = min(32, K - t * 32);
     for (int jj = 0; jj < n_keys; ++jj) {
       const unsigned long long vslot = __shfl_sync(FULL, slot, jj);
-      const int8_t* vrow = vq + vslot * D + lane * DPL;
       float vv[DPL];
-      if constexpr (DPL == 4) {
+      if constexpr (INT4) {   // this lane's dims, all in one half of D
+        const uint8_t* vrow = reinterpret_cast<const uint8_t*>(vq) +
+                              vslot * RB + (lane % 16) * DPL;
+        uint32_t w;   // the DPL bytes of this lane's dims
+        if constexpr (DPL == 4)
+          w = *reinterpret_cast<const uint32_t*>(vrow);
+        else if constexpr (DPL == 2)
+          w = *reinterpret_cast<const uint16_t*>(vrow);
+        else
+          w = *vrow;
+        const uint32_t nib = nibbles(w, lane >= 16);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) vv[e] = bt::biased_byte<8>(nib, e);
+      } else if constexpr (DPL == 4) {
+        const int8_t* vrow = vq + vslot * D + lane * DPL;
         const char4 c = *reinterpret_cast<const char4*>(vrow);
         vv[0] = c.x;
         vv[1] = c.y;
         vv[2] = c.z;
         vv[3] = c.w;
       } else {
+        const int8_t* vrow = vq + vslot * D + lane * DPL;
 #pragma unroll
         for (int e = 0; e < DPL; ++e) vv[e] = vrow[e];
       }
@@ -336,14 +394,14 @@ paged_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool INT4>
 void launch_attn(const void* q, const void* kq, const void* ks, const void* vq,
                  const void* vs, const void* pt, const void* q_idx,
                  const void* kv_idx, const void* kv_valid, const void* kf,
                  const void* vf, void* out, int B, int H, int S, int P,
                  int ps, int n_virt, cudaStream_t stream) {
   const float sm_scale = 1.0f / sqrtf(static_cast<float>(D));
-  paged_attn_kernel<T, D><<<dim3(H, B), WARPS * 32, 0, stream>>>(
+  paged_attn_kernel<T, D, INT4><<<dim3(H, B), WARPS * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(kq),
       static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
       static_cast<const float*>(vs), static_cast<const int*>(pt),
@@ -353,7 +411,7 @@ void launch_attn(const void* q, const void* kq, const void* ks, const void* vq,
       n_virt, sm_scale);
 }
 
-template <typename T>
+template <typename T, bool INT4>
 int attn_dispatch_d(const void* q, const void* kq, const void* ks,
                     const void* vq, const void* vs, const void* pt,
                     const void* q_idx, const void* kv_idx,
@@ -362,21 +420,38 @@ int attn_dispatch_d(const void* q, const void* kq, const void* ks,
                     int n_virt, cudaStream_t st) {
   switch (D) {
     case 32:
-      launch_attn<T, 32>(q, kq, ks, vq, vs, pt, q_idx, kv_idx, kv_valid, kf,
-                         vf, out, B, H, S, P, ps, n_virt, st);
+      launch_attn<T, 32, INT4>(q, kq, ks, vq, vs, pt, q_idx, kv_idx, kv_valid,
+                               kf, vf, out, B, H, S, P, ps, n_virt, st);
       break;
     case 64:
-      launch_attn<T, 64>(q, kq, ks, vq, vs, pt, q_idx, kv_idx, kv_valid, kf,
-                         vf, out, B, H, S, P, ps, n_virt, st);
+      launch_attn<T, 64, INT4>(q, kq, ks, vq, vs, pt, q_idx, kv_idx, kv_valid,
+                               kf, vf, out, B, H, S, P, ps, n_virt, st);
       break;
     case 128:
-      launch_attn<T, 128>(q, kq, ks, vq, vs, pt, q_idx, kv_idx, kv_valid, kf,
-                          vf, out, B, H, S, P, ps, n_virt, st);
+      launch_attn<T, 128, INT4>(q, kq, ks, vq, vs, pt, q_idx, kv_idx,
+                                kv_valid, kf, vf, out, B, H, S, P, ps, n_virt,
+                                st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool INT4>
+int attn_dispatch_t(const void* q, const void* kq, const void* ks,
+                    const void* vq, const void* vs, const void* pt,
+                    const void* q_idx, const void* kv_idx,
+                    const void* kv_valid, const void* kf, const void* vf,
+                    void* out, int B, int H, int S, int D, int P, int ps,
+                    int n_virt, int q_bf16, cudaStream_t st) {
+  if (q_bf16)
+    return attn_dispatch_d<__nv_bfloat16, INT4>(q, kq, ks, vq, vs, pt, q_idx,
+                                                kv_idx, kv_valid, kf, vf, out,
+                                                B, H, S, D, P, ps, n_virt, st);
+  return attn_dispatch_d<float, INT4>(q, kq, ks, vq, vs, pt, q_idx, kv_idx,
+                                      kv_valid, kf, vf, out, B, H, S, D, P,
+                                      ps, n_virt, st);
 }
 
 }  // namespace
@@ -405,7 +480,8 @@ extern "C" int bt_paged_write_int8(void* kpool, void* kspool, void* vpool,
 }
 
 // K8. Pools as above; pt_rows int32 [G, nv]; rows int8 [L, G, H, nv * ps, D]
-// and f32 [L, G, H, nv * ps]. vec: (ps * D) % 16 == 0 and aligned pointers.
+// and f32 [L, G, H, nv * ps], D the bytes of a slot (D/2 of the head dim for
+// packed INT4 pools and rows). vec: (ps * D) % 16 == 0 and aligned pointers.
 extern "C" int bt_paged_page_copy_int8(void* kpool, void* kspool, void* vpool,
                                        void* vspool, const void* pt_rows,
                                        const void* rk, const void* rks,
@@ -425,24 +501,25 @@ extern "C" int bt_paged_page_copy_int8(void* kpool, void* kspool, void* vpool,
 }
 
 // K6. q [B, H, S, D] (float if q_bf16 == 0, else bf16), S <= 8, D in {32,
-// 64, 128}; kq/vq int8 [P, H, ps, D] and ks/vs f32 [P, H, ps] of one layer;
-// page_table int32 [B, n_virt]; q_idx int32 [B, S]; kv_idx int32 [K];
-// kv_valid int32 [B, K] with K = n_virt * ps; kf/vf f32 [B, H, D] or null
-// (only with S == 1); out [B, H, S, D] like q.
+// 64, 128}; kq/vq of one layer: int8 [P, H, ps, D], or with int4 != 0
+// packed uint8 [P, H, ps, D/2]; ks/vs f32 [P, H, ps]; page_table int32
+// [B, n_virt]; q_idx int32 [B, S]; kv_idx int32 [K]; kv_valid int32 [B, K]
+// with K = n_virt * ps; kf/vf f32 [B, H, D] or null (only with S == 1);
+// out [B, H, S, D] like q.
 extern "C" int bt_paged_decode_attention_int8(
     const void* q, const void* kq, const void* ks, const void* vq,
     const void* vs, const void* page_table, const void* q_idx,
     const void* kv_idx, const void* kv_valid, const void* kf, const void* vf,
     void* out, int B, int H, int S, int D, int P, int ps, int n_virt,
-    int q_bf16, void* stream) {
+    int q_bf16, int int4, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S < 1 || S > MAX_S || (kf != nullptr && S != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (q_bf16)
-    return attn_dispatch_d<__nv_bfloat16>(q, kq, ks, vq, vs, page_table,
-                                          q_idx, kv_idx, kv_valid, kf, vf,
-                                          out, B, H, S, D, P, ps, n_virt, st);
-  return attn_dispatch_d<float>(q, kq, ks, vq, vs, page_table, q_idx, kv_idx,
+  if (int4)
+    return attn_dispatch_t<true>(q, kq, ks, vq, vs, page_table, q_idx, kv_idx,
+                                 kv_valid, kf, vf, out, B, H, S, D, P, ps,
+                                 n_virt, q_bf16, st);
+  return attn_dispatch_t<false>(q, kq, ks, vq, vs, page_table, q_idx, kv_idx,
                                 kv_valid, kf, vf, out, B, H, S, D, P, ps,
-                                n_virt, st);
+                                n_virt, q_bf16, st);
 }

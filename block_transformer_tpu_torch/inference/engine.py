@@ -7,11 +7,18 @@ live slot. Waiting prompts are admitted into free slots between decode
 windows; a slot's region of the global block-level KV cache is re-prefilled
 on admission while the other slots' caches persist.
 
-- Cache kinds: ``"bf16"`` (a cache in the activation dtype), ``"int8"``
-  (the contiguous INT8 cache, per-slot writes through K5, decode attention
-  through K2) and ``"paged"`` (an INT8 page pool: pages come from a free
-  list at admission, first fit; decode attends through K6, writes through
-  K7 after the layer loop, and admission places prefilled pages with K8).
+- Cache kinds: ``"bf16"`` (a cache in the activation dtype, decode
+  attention through K2's bf16 form), ``"int8"`` (the contiguous INT8 cache,
+  per-slot writes through K5, decode attention through K2), ``"int4"`` (the
+  contiguous INT4 cache, packed two values a byte: plain per-row writes,
+  decode attention on the dequantized layer, as in the JAX package),
+  ``"paged"`` (an INT8 page pool: pages come from a free list at
+  admission, first fit; decode attends through K6, writes through K7 after
+  the layer loop, and admission places prefilled pages with K8) and
+  ``"paged-int4"`` (an INT4 page pool: each decode step writes every
+  layer's packed K/V first with a plain indexed write, then attends through
+  K6's INT4 form; admission prefills an INT4 mini-cache and K8 copies its
+  packed pages). The token decoder's local cache is bf16 on every kind.
 - Admission pads each prompt to the next ``bucket_blocks`` multiple and
   prefills same-bucket prompts together, in chunks of at most
   ``admit_chunk`` rows padded to a power of two by repeating the last row
@@ -27,9 +34,8 @@ on admission while the other slots' caches persist.
 The engine's state lives on ``device`` ("cuda" by default) and is updated
 in place; ``params`` must already be there (the engine never moves them).
 Sampling draws from a ``torch.Generator`` seeded from ``seed``. Not ported:
-serving over a mesh (``mesh``), ``overlap_streams > 1``, the INT4 caches
-(``"int4"``, ``"paged-int4"``) and W8A8 (``ops_linear.kv_mode``); the engine
-raises for the first three.
+serving over a mesh (``mesh``), ``overlap_streams > 1`` and W8A8
+(``ops_linear.kv_mode``); the engine raises for the first two.
 """
 
 from __future__ import annotations
@@ -108,12 +114,9 @@ class ContinuousBatchingEngine:
         if overlap_streams > 1:
             raise NotImplementedError("overlap_streams > 1 is mesh-only and "
                                       "not ported")
-        if kv_cache in ("int4", "paged-int4"):
-            raise NotImplementedError(f"kv_cache={kv_cache!r}: the INT4 caches "
-                                      "are not ported yet")
-        if kv_cache not in ("bf16", "int8", "paged"):
-            raise ValueError(f"unknown kv_cache {kv_cache!r} (the port has "
-                             "bf16, int8 and paged)")
+        if kv_cache not in ("bf16", "int8", "int4", "paged", "paged-int4"):
+            raise ValueError(f"unknown kv_cache {kv_cache!r} (expected bf16, "
+                             "int8, int4, paged or paged-int4)")
         if cfg.block_decoder_cls != "gpt-neo-x":
             raise NotImplementedError(f"block decoder {cfg.block_decoder_cls!r}")
         self.device = dev = torch.device(device)
@@ -149,8 +152,10 @@ class ContinuousBatchingEngine:
         self.kv_kind = kv_cache
         bcfg = cfg.block_decoder
 
-        if kv_cache == "paged":
-            # page 0 is the null page; pages 1.. are handed out at admission
+        if kv_cache.startswith("paged"):
+            # an INT8 or INT4 pool; page 0 is the null page, pages 1.. are
+            # handed out at admission
+            bits = 4 if kv_cache.endswith("int4") else 8
             self.page_size = ps = min(page_size, cap)
             self.cap = cap = _round_up(cap, ps)
             self.n_virt = cap // ps
@@ -158,13 +163,13 @@ class ContinuousBatchingEngine:
                 self.n_virt + 1, n_slots * self.n_virt // 2 + 1))
             self.cache = neox.PagedKVCache.create(
                 bcfg, n_slots, cap, n_pages=self.pool_pages, page_size=ps,
-                device=dev)
+                bits=bits, device=dev)
             self._free_pages = list(range(1, self.pool_pages))
             self._slot_pages: Dict[int, list] = {}
-            # admission prefills a contiguous mini-cache, then copies its
-            # pages into the pool
+            # admission prefills a contiguous mini-cache of the pool's
+            # width, then copies its pages into the pool
             self._make_cache = lambda b: neox.QuantKVCache.create(
-                bcfg, b, cap, device=dev)
+                bcfg, b, cap, bits=bits, device=dev)
         else:
             self._make_cache = lambda b: neox.make_kv_cache(
                 bcfg, b, cap, kv_cache, dtype=dtype, device=dev)
@@ -239,8 +244,8 @@ class ContinuousBatchingEngine:
         ids/att [G, Nb, L] right-padded to the bucket; bam [G, Nb]; slots,
         true_len (real prompt blocks) [G]. The G rows run as a mini-cache,
         then land in the engine's cache: along the slot axis (contiguous)
-        or page by page through K8 (paged; unallocated tail pages go to the
-        null page). Padded tail positions stay kv_valid = 0 and are
+        or page by page through K8 (paged, either width; unallocated tail
+        pages go to the null page). Padded tail positions stay kv_valid = 0 and are
         overwritten as decode advances."""
         cfg, cap = self.cfg, self.cap
         n = cfg.n_embedding_tokens
@@ -352,7 +357,7 @@ class ContinuousBatchingEngine:
                 self.completed.append(req)
                 free.insert(0, slot)
                 continue
-            if self.kv_kind == "paged":
+            if self.kv_kind.startswith("paged"):
                 # pages for the prompt and the whole budget, so decode never
                 # grows a row; first fit when the pool is tight (skipped
                 # requests keep their queue order and retry next admission)
@@ -488,7 +493,7 @@ class ContinuousBatchingEngine:
             if self.active.get(s) is req:
                 del self.active[s]
                 self._dispatched.pop(s, None)
-                if self.kv_kind == "paged":
+                if self.kv_kind.startswith("paged"):
                     self._free_pages.extend(self._slot_pages.pop(s, []))
                     # point the dead slot at the null page: every slot
                     # writes each decode step, and its old pages may go to

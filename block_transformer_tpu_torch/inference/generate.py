@@ -2,7 +2,8 @@
 ``block_transformer_tpu/inference/generate.py``, main path).
 
 - The prompt's block embeddings go through the block decoder in one fresh
-  prefill pass that fills the global KV cache (bf16 or INT8).
+  prefill pass that fills the global KV cache (bf16, INT8 or INT4:
+  ``kv_cache``).
 - The outer loop runs once per block: the token decoder decodes up to
   ``block_length`` tokens against a small local cache made fresh for each
   block, the new block is embedded, and the block decoder appends it to

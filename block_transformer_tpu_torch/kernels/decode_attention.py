@@ -1,6 +1,7 @@
-"""K2: decode attention over an INT8 KV cache (replaces the Pallas kernel
-``block_transformer_tpu/ops/decode_attention.py`` ``_decode_attn``, entry
-``decode_attention_int8_stacked``).
+"""K2: decode attention over a stacked KV cache (replaces the Pallas kernel
+``block_transformer_tpu/ops/decode_attention.py`` ``_decode_attn`` in both
+its forms: INT8, entry ``decode_attention_int8_stacked``, and unquantized,
+entry ``decode_attention_stacked``).
 
 q ``[B, H, S, D]`` with S <= 8 against one layer of the stacked int8 cache
 ``[L, B, H, cap, D]`` with float32 per-slot scales ``[L, B, H, cap]``: the
@@ -12,10 +13,18 @@ slice of the cache is copied. It splits the capacity over blocks as the
 pure function ``plan`` says and merges the splits in the same launch,
 through a per-stream scratch buffer (``build.scratch``).
 
-The plain version dequantizes the layer's cache to ``q.dtype`` and runs
-``attention_xla``, which is what the JAX package does for this shape off the
-TPU. The wrapper runs it for CPU tensors and launches the kernel for CUDA
-tensors; ``decode_attention_int8_stacked.launches`` counts the launches.
+The unquantized form takes a bf16 or float32 cache ``[L, B, H, cap, D]``
+of the query's dtype, with no scales: scores ``q . k / sqrt(D)``, a float32
+softmax, and the probabilities rounded to the cache's (the query's) dtype
+before the product with ``v``, as the Pallas kernel (``p.astype(cdt)``) and
+``attention_xla`` do. It is a second instantiation of the same CUDA design:
+the same ``plan``, the same in-launch merge and counters.
+
+Each plain version (the INT8 one dequantizes the layer's cache to
+``q.dtype``) runs ``attention_xla``, which is what the JAX package does for
+these shapes off the TPU. A wrapper runs its plain version for CPU tensors
+and launches its kernel for CUDA tensors; ``<wrapper>.launches`` counts the
+launches of each form apart.
 """
 
 from __future__ import annotations
@@ -44,10 +53,15 @@ def decode_attention_int8_stacked_plain(q, k_q, k_s, v_q, v_s, layer: int,
     return attention_xla(q, k, v, mask)
 
 
+def decode_attention_stacked_plain(q, k, v, layer: int,
+                                   mask: masks_lib.AttnMask):
+    return attention_xla(q, k[layer].to(q.dtype), v[layer].to(q.dtype), mask)
+
+
 @functools.cache
-def _fn():
-    fn = build.load("decode_attention").bt_decode_attention_int8
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+def _fn(name: str, n_ptr: int):
+    fn = getattr(build.load("decode_attention"), name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -111,6 +125,23 @@ def decode_attention_int8_stacked(q: torch.Tensor, k_q: torch.Tensor,
     if (k_q.data_ptr() | v_q.data_ptr()) % 16:   # 16-byte key-row loads
         raise ValueError("decode_attention_int8: the int8 caches must be "
                          "16-byte aligned")
+    slots = B * H * cap                 # of one layer
+    out = _launch("bt_decode_attention_int8", q, mask, cap, (
+        k_q.data_ptr() + layer * slots * D, k_s.data_ptr() + layer * slots * 4,
+        v_q.data_ptr() + layer * slots * D,
+        v_s.data_ptr() + layer * slots * 4))
+    decode_attention_int8_stacked.launches += 1
+    return out
+
+
+decode_attention_int8_stacked.launches = 0
+
+
+def _launch(name: str, q, mask, cap: int, cache_ptrs) -> torch.Tensor:
+    """Launch a K2 form over one layer of the cache (``cache_ptrs``: the
+    layer's base pointers, as the C entry takes them), split as ``plan``
+    says; returns the output [B, H, S, D]."""
+    B, H, S, D = q.shape
     q_idx, kv_idx, kv_valid = index_vectors(mask, B, S, cap, q.device)
     out = torch.empty_like(q)
     dev = q.device.index or 0
@@ -121,17 +152,47 @@ def decode_attention_int8_stacked(q: torch.Tensor, k_q: torch.Tensor,
         ws, ctr = build.scratch(dev, stream, scratch_floats(p, B, H, S, D),
                                 B * H)
         ws, ctr = ws.data_ptr(), ctr.data_ptr()
-    slots = B * H * cap                 # of one layer
-    err = _fn()(q.data_ptr(), k_q.data_ptr() + layer * slots * D,
-                k_s.data_ptr() + layer * slots * 4,
-                v_q.data_ptr() + layer * slots * D,
-                v_s.data_ptr() + layer * slots * 4, q_idx.data_ptr(),
-                kv_idx.data_ptr(), kv_valid.data_ptr(), out.data_ptr(), ws,
-                ctr, B, H, S, D, cap, p.splits, p.slots_per_split,
-                int(q.dtype == torch.bfloat16), stream)
-    build.check(err, "decode_attention_int8")
-    decode_attention_int8_stacked.launches += 1
+    fn = _fn(name, len(cache_ptrs) + 7)
+    err = fn(q.data_ptr(), *cache_ptrs, q_idx.data_ptr(), kv_idx.data_ptr(),
+             kv_valid.data_ptr(), out.data_ptr(), ws, ctr, B, H, S, D, cap,
+             p.splits, p.slots_per_split, int(q.dtype == torch.bfloat16),
+             stream)
+    build.check(err, name)
     return out
 
 
-decode_attention_int8_stacked.launches = 0
+def decode_attention_stacked(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, layer: int,
+                             mask: masks_lib.AttnMask) -> torch.Tensor:
+    """q [B, H, S, D] (S <= 8); k/v [L, B, H, cap, D] bf16 or float32 (on
+    the card: of q's dtype); mask at cache granularity -> [B, H, S, D] in
+    q.dtype."""
+    if not q.is_cuda:
+        return decode_attention_stacked_plain(q, k, v, layer, mask)
+    B, H, S, D = q.shape
+    L, cap = k.shape[0], k.shape[3]
+    if (tuple(k.shape) != (L, B, H, cap, D) or v.shape != k.shape
+            or not 1 <= S <= MAX_S or D not in HEAD_DIMS
+            or not 0 <= layer < L):
+        raise ValueError(f"decode_attention_stacked: q {tuple(q.shape)}, "
+                         f"cache {tuple(k.shape)}, layer {layer}")
+    if (q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype
+            or v.dtype != q.dtype):
+        raise TypeError(f"decode_attention_stacked: q and the cache must both "
+                        f"be f32 or bf16, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    for t in (q, k, v):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("decode_attention_stacked: operands must be "
+                             "contiguous and on one device")
+    if (k.data_ptr() | v.data_ptr()) % 16:    # 16-byte key-row loads
+        raise ValueError("decode_attention_stacked: the caches must be "
+                         "16-byte aligned")
+    layer_bytes = B * H * cap * D * k.element_size()
+    out = _launch("bt_decode_attention", q, mask, cap, (
+        k.data_ptr() + layer * layer_bytes, v.data_ptr() + layer * layer_bytes))
+    decode_attention_stacked.launches += 1
+    return out
+
+
+decode_attention_stacked.launches = 0

@@ -1,8 +1,10 @@
-"""K5-K8: the paged INT8 KV pool (replaces the four Pallas kernels of
+"""K5-K8: the paged KV pool (replaces the four Pallas kernels of
 ``block_transformer_tpu/ops/paged_attention.py``).
 
-The pool holds int8 values ``[L, P, H, ps, D]`` and float32 scales
-``[L, P, H, ps]``; ``page_table [B, n_virt]`` maps each batch row's virtual
+The pool holds int8 values ``[L, P, H, ps, D]`` (an INT4 pool: uint8
+``[L, P, H, ps, D/2]``, two values a byte, split half along D as
+``ops.quant.pack_kv_int4`` packs them) and float32 scales ``[L, P, H, ps]``;
+``page_table [B, n_virt]`` maps each batch row's virtual
 pages to pool pages, and page 0 is the null page (unallocated virtual
 pages point there and are masked). The CUDA kernels are in
 ``csrc/paged_attention.cu``:
@@ -12,10 +14,16 @@ pages point there and are masked). The CUDA kernels are in
   ``[L, B, H, cap, D]`` is such a pool with ``page = arange(B)``.
 - K6 ``paged_decode_attention_int8``: decode attention (S <= 8) through the
   page table, optionally with the current step's not-yet-written ``fresh``
-  K/V as one extra softmax term (S == 1).
+  K/V as one extra softmax term (S == 1). One entry serves both pool
+  widths, as the Pallas kernel does: the wrapper picks the kernel's INT8
+  or packed-INT4 form by the pool's dtype.
 - K7 ``paged_write_layers_int8``: K5 for every layer in one launch.
 - K8 ``paged_page_copy_int8``: admission's page-by-page copy of prefilled
-  rows into their pool pages.
+  rows into their pool pages. It copies bytes, so it takes a packed INT4
+  pool and packed rows as they are.
+
+K5 and K7 take INT8 pools only, as in the JAX package, where the INT4 pool
+is written by XLA scatters.
 
 The pools are updated **in place**; the write wrappers return the same four
 tensors (the Pallas calls alias them through ``input_output_aliases``).
@@ -28,7 +36,9 @@ Pallas kernels' tiling switches (``_pick_tiles``, ``_pick_layer_tile``,
 counterpart: a CUDA store writes one slot directly.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
-kernel for CUDA tensors; ``<wrapper>.launches`` counts the launches.
+kernel for CUDA tensors; ``<wrapper>.launches`` counts the launches, and
+K6's and K8's ``form_launches`` count them by pool width ("int8",
+"int4").
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from block_transformer_tpu_torch.kernels import build
 from block_transformer_tpu_torch.kernels.flash_attention import index_vectors
 from block_transformer_tpu_torch.ops import masks as masks_lib
 from block_transformer_tpu_torch.ops.attention import attention_xla
+from block_transformer_tpu_torch.ops.quant import kv_bits, unpack_kv_int4
 
 MAX_S = 8
 HEAD_DIMS = (32, 64, 128)
@@ -57,18 +68,24 @@ def _fn(name: str, n_ptr: int, n_int: int):
     return fn
 
 
-def _check_pools(what, k_pool, ks_pool, v_pool, vs_pool):
-    L, P, H, ps, D = k_pool.shape
+def _check_pools(what, k_pool, ks_pool, v_pool, vs_pool, *, int4=False):
+    """(L, P, H, ps, D) of the pools, D the head dim: int8 values
+    [L, P, H, ps, D] or, where ``int4`` allows it, packed uint8
+    [L, P, H, ps, D/2]; float32 scales [L, P, H, ps]."""
+    L, P, H, ps, row = k_pool.shape
     if (v_pool.shape != k_pool.shape or tuple(ks_pool.shape) != (L, P, H, ps)
             or vs_pool.shape != ks_pool.shape):
         raise ValueError(f"{what}: pools {tuple(k_pool.shape)}, "
                          f"{tuple(v_pool.shape)}, scales "
                          f"{tuple(ks_pool.shape)}, {tuple(vs_pool.shape)}")
-    if (k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8
+    widths = (torch.int8, torch.uint8) if int4 else (torch.int8,)
+    if (k_pool.dtype not in widths or v_pool.dtype != k_pool.dtype
             or ks_pool.dtype != torch.float32
             or vs_pool.dtype != torch.float32):
-        raise TypeError(f"{what}: int8 pools and float32 scales expected")
-    return L, P, H, ps, D
+        kinds = "int8 or packed uint8" if int4 else "int8"
+        raise TypeError(f"{what}: {kinds} pools and float32 scales expected, "
+                        f"got {k_pool.dtype}, {v_pool.dtype}")
+    return L, P, H, ps, row * 8 // kv_bits(k_pool)
 
 
 def _check_operands(what, device, tensors):
@@ -230,7 +247,13 @@ def paged_decode_attention_int8_plain(q, k_q, k_s, v_q, v_s, layer: int,
                                       page_table, mask: masks_lib.AttnMask, *,
                                       fresh=None):
     """Gather the rows' pages into [B, H, n_virt * ps, D], dequantize, append
-    the fresh key/value as one always-allowed column, ``attention_xla``."""
+    the fresh key/value as one always-allowed column, ``attention_xla``. A
+    packed INT4 pool is unpacked first (the layer's pages only)."""
+    if kv_bits(k_q) == 4:
+        sl = slice(layer, layer + 1)
+        return paged_decode_attention_int8_plain(
+            q, unpack_kv_int4(k_q[sl]), k_s[sl], unpack_kv_int4(v_q[sl]),
+            v_s[sl], 0, page_table, mask, fresh=fresh)
     B, H, S, D = q.shape
     n_virt, ps = page_table.shape[1], k_q.shape[3]
     fresh = _fresh_pair(fresh, S)
@@ -258,8 +281,9 @@ def paged_decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
                                 page_table: torch.Tensor,
                                 mask: masks_lib.AttnMask, *,
                                 fresh=None) -> torch.Tensor:
-    """q [B, H, S, D] (S <= 8); pools int8 [L, P, H, ps, D] / f32
-    [L, P, H, ps]; page_table int32 [B, n_virt]; mask at the virtual
+    """q [B, H, S, D] (S <= 8); pools int8 [L, P, H, ps, D] or packed
+    uint8 [L, P, H, ps, D/2], and f32 [L, P, H, ps]; page_table int32
+    [B, n_virt]; mask at the virtual
     positions ([B, n_virt * ps]); fresh: None, or the current step's
     dequantized (kf, vf) f32 [B, H, D] (S == 1; the caller passes
     ``mask.q_idx - 1``). Returns [B, H, S, D] in q.dtype."""
@@ -268,7 +292,7 @@ def paged_decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
                                                  page_table, mask, fresh=fresh)
     B, H, S, D = q.shape
     L, P, H2, ps, D2 = _check_pools("paged_decode_attention_int8", k_q, k_s,
-                                    v_q, v_s)
+                                    v_q, v_s, int4=True)
     n_virt = page_table.shape[1]
     if ((H2, D2) != (H, D) or tuple(page_table.shape) != (B, n_virt)
             or not 1 <= S <= MAX_S or D not in HEAD_DIMS
@@ -295,20 +319,22 @@ def paged_decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
     q_idx, kv_idx, kv_valid = index_vectors(mask, B, S, n_virt * ps, q.device)
     out = torch.empty_like(q)
     null = ctypes.c_void_p(None)
-    err = _fn("bt_paged_decode_attention_int8", 12, 8)(
+    err = _fn("bt_paged_decode_attention_int8", 12, 9)(
         build.ptr(q), build.ptr(k_q[layer]), build.ptr(k_s[layer]),
         build.ptr(v_q[layer]), build.ptr(v_s[layer]), build.ptr(page_table),
         build.ptr(q_idx), build.ptr(kv_idx), build.ptr(kv_valid),
         build.ptr(fresh[0]) if fresh else null,
         build.ptr(fresh[1]) if fresh else null, build.ptr(out),
         B, H, S, D, P, ps, n_virt, int(q.dtype == torch.bfloat16),
-        build.stream(q.device))
+        int(kv_bits(k_q) == 4), build.stream(q.device))
     build.check(err, "paged_decode_attention_int8")
     paged_decode_attention_int8.launches += 1
+    paged_decode_attention_int8.form_launches[f"int{kv_bits(k_q)}"] += 1
     return out
 
 
 paged_decode_attention_int8.launches = 0
+paged_decode_attention_int8.form_launches = {"int8": 0, "int4": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -342,38 +368,43 @@ def paged_page_copy_int8(k_pool: torch.Tensor, ks_pool: torch.Tensor,
                          row_vs: torch.Tensor):
     """Copy G prefilled rows (int8 [L, G, H, nv * ps, D] + f32
     [L, G, H, nv * ps]) page by page into ``pool[:, pt_rows[g, j]]``, in
-    place. pt_rows int32 [G, nv]. Returns the four pools."""
+    place. pt_rows int32 [G, nv]. Packed INT4 rows (uint8 [..., D/2]) go
+    into a packed pool byte for byte. Returns the four pools."""
     if not k_pool.is_cuda:
         return paged_page_copy_int8_plain(k_pool, ks_pool, v_pool, vs_pool,
                                           pt_rows, row_k, row_ks, row_v,
                                           row_vs)
-    L, P, H, ps, D = _check_pools("paged_page_copy_int8", k_pool, ks_pool,
-                                  v_pool, vs_pool)
+    L, P, H, ps, _ = _check_pools("paged_page_copy_int8", k_pool, ks_pool,
+                                  v_pool, vs_pool, int4=True)
+    row = k_pool.shape[-1]              # bytes of a slot's values
     G, nv = pt_rows.shape
-    if (tuple(row_k.shape) != (L, G, H, nv * ps, D)
+    if (tuple(row_k.shape) != (L, G, H, nv * ps, row)
             or row_v.shape != row_k.shape
             or tuple(row_ks.shape) != (L, G, H, nv * ps)
             or row_vs.shape != row_ks.shape):
         raise ValueError(f"paged_page_copy_int8: rows {tuple(row_k.shape)}, "
                          f"{tuple(row_ks.shape)}, pt_rows "
                          f"{tuple(pt_rows.shape)}, pool {tuple(k_pool.shape)}")
-    if row_k.dtype != torch.int8 or row_v.dtype != torch.int8 or (
+    if row_k.dtype != k_pool.dtype or row_v.dtype != k_pool.dtype or (
             row_ks.dtype != torch.float32 or row_vs.dtype != torch.float32):
-        raise TypeError("paged_page_copy_int8: int8 rows and f32 scales "
-                        "expected")
+        raise TypeError("paged_page_copy_int8: rows of the pool's dtype and "
+                        "f32 scales expected")
     _check_int32("paged_page_copy_int8", pt_rows)
     _check_operands("paged_page_copy_int8", k_pool.device,
                     (k_pool, ks_pool, v_pool, vs_pool, pt_rows, row_k, row_ks,
                      row_v, row_vs))
-    vec = int((ps * D) % 16 == 0 and _aligned(k_pool, v_pool, row_k, row_v))
+    vec = int((ps * row) % 16 == 0
+              and _aligned(k_pool, v_pool, row_k, row_v))
     err = _fn("bt_paged_page_copy_int8", 9, 8)(
         build.ptr(k_pool), build.ptr(ks_pool), build.ptr(v_pool),
         build.ptr(vs_pool), build.ptr(pt_rows), build.ptr(row_k),
         build.ptr(row_ks), build.ptr(row_v), build.ptr(row_vs),
-        L, G, nv, P, H, ps, D, vec, build.stream(k_pool.device))
+        L, G, nv, P, H, ps, row, vec, build.stream(k_pool.device))
     build.check(err, "paged_page_copy_int8")
     paged_page_copy_int8.launches += 1
+    paged_page_copy_int8.form_launches[f"int{kv_bits(k_pool)}"] += 1
     return k_pool, ks_pool, v_pool, vs_pool
 
 
 paged_page_copy_int8.launches = 0
+paged_page_copy_int8.form_launches = {"int8": 0, "int4": 0}

@@ -10,7 +10,10 @@ indices into the stacked tensors; ``layer_view`` hands each linear to
 ``apply_linear`` as a ``StackedLinear``, so no weight slice is copied.
 
 KV caches are fixed-capacity ``[L, B, H, cap, D]`` buffers with a Python-int
-``length``, or the serving engine's paged INT8 pool (``PagedKVCache``).
+``length`` (bf16, INT8 or INT4), or the serving engine's paged INT8 or INT4
+pool (``PagedKVCache``). An INT4 cache or pool holds its values packed two
+to a byte along D (``ops.quant.pack_kv_int4``, uint8 ``[..., D/2]``); its
+dtype, uint8, is what tells it from an INT8 one.
 Unlike the JAX functions, which return new arrays, the cached forwards here
 write the new K/V into the given buffers in place and return a cache tuple
 that shares them.
@@ -20,13 +23,17 @@ or a ``[B]`` int32 tensor of per-row offsets (the engine's slot frontiers).
 A per-row write whose position falls outside the cache is dropped; the JAX
 reference clamps it instead, which only ever touches a finished slot.
 
-Cached attention: the INT8 cache sends decode-shaped queries (S <= 8) to K2
-(``kernels/decode_attention.py``), and writes a per-row single position
-through K5 (``kernels/paged_attention.py``, the cache viewed as a pool with
-one page per row); longer queries dequantize the layer and go through
-``ops.attention.attention``, which sends Q >= 8 to K3. The paged pool
-attends through K6 and, for single-position decode steps, defers the write
-of every layer to one K7 launch after the layer loop.
+Cached attention: the bf16 and INT8 caches send decode-shaped queries
+(S <= 8) to K2's bf16 and INT8 forms (``kernels/decode_attention.py``); the
+INT8 cache writes a per-row single position through K5
+(``kernels/paged_attention.py``, the cache viewed as a pool with one page
+per row). Longer queries, and every query on the INT4 cache (as in the JAX
+package, which has no kernel there), dequantize the layer and go through
+``ops.attention.attention``, which sends Q >= 8 to K3; INT4 writes are
+plain indexed writes of packed rows. The paged pool attends through K6
+(both widths); for single-position decode steps the INT8 pool defers the
+write of every layer to one K7 launch after the layer loop, while the INT4
+pool, like every longer step, writes each layer first.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ from block_transformer_tpu_torch.kernels import paged_attention
 from block_transformer_tpu_torch.ops import linear as linear_ops
 from block_transformer_tpu_torch.ops import masks as masks_lib
 from block_transformer_tpu_torch.ops.attention import attention
-from block_transformer_tpu_torch.ops.quant import quantize_kv
+from block_transformer_tpu_torch.ops.quant import (dequantize_kv, kv_bits,
+                                                   pack_kv_int4, quantize_kv)
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +159,9 @@ class KVCache(NamedTuple):
 
 
 class QuantKVCache(NamedTuple):
-    """INT8 cache: values int8 [L, B, H, cap, D] with one float32 scale per
-    (layer, batch, head, slot) [L, B, H, cap]."""
+    """INT8 cache: values int8 [L, B, H, cap, D], or INT4 (``bits=4``):
+    uint8 [L, B, H, cap, D/2], packed split-half along D; one float32 scale
+    per (layer, batch, head, slot) [L, B, H, cap]."""
     k: torch.Tensor
     v: torch.Tensor
     k_scale: torch.Tensor
@@ -160,18 +169,24 @@ class QuantKVCache(NamedTuple):
     length: int
 
     @staticmethod
-    def create(cfg: NeoXConfig, batch: int, capacity: int, device="cuda"):
+    def create(cfg: NeoXConfig, batch: int, capacity: int, *, bits: int = 8,
+               device="cuda"):
         shape = (cfg.num_layers, batch, cfg.num_heads, capacity, cfg.head_dim)
-        i8 = dict(dtype=torch.int8, device=device)
         f32 = dict(dtype=torch.float32, device=device)
-        return QuantKVCache(torch.zeros(shape, **i8), torch.zeros(shape, **i8),
+        return QuantKVCache(_zero_values(shape, bits, device),
+                            _zero_values(shape, bits, device),
                             torch.zeros(shape[:-1], **f32),
                             torch.zeros(shape[:-1], **f32), 0)
 
+    @property
+    def bits(self) -> int:
+        return kv_bits(self.k)
+
 
 class PagedKVCache(NamedTuple):
-    """INT8 paged KV pool: values int8 [L, P, H, page_size, D] and float32
-    scales [L, P, H, page_size] shared by every row; ``page_table``
+    """Paged KV pool: values int8 [L, P, H, page_size, D] (INT4: uint8
+    [..., D/2], packed) and float32 scales [L, P, H, page_size] shared by
+    every row; ``page_table``
     [B, n_virt] int32 maps each row's virtual pages to pool pages. Page 0
     is the null page: unallocated virtual pages point there and are masked
     by kv_valid. ``length`` is kept for the cache interface only (the
@@ -186,17 +201,15 @@ class PagedKVCache(NamedTuple):
     @staticmethod
     def create(cfg: NeoXConfig, batch: int, capacity: int, *, n_pages: int,
                page_size: int = 256, bits: int = 8, device="cuda"):
-        if bits != 8:
-            raise NotImplementedError("the port's paged pool is INT8 only")
         if capacity % page_size:
             raise ValueError(f"capacity {capacity} is not a multiple of the "
                              f"page size {page_size}")
         shape = (cfg.num_layers, n_pages, cfg.num_heads, page_size,
                  cfg.head_dim)
-        i8 = dict(dtype=torch.int8, device=device)
         f32 = dict(dtype=torch.float32, device=device)
         return PagedKVCache(
-            torch.zeros(shape, **i8), torch.zeros(shape, **i8),
+            _zero_values(shape, bits, device),
+            _zero_values(shape, bits, device),
             torch.zeros(shape[:-1], **f32), torch.zeros(shape[:-1], **f32),
             torch.zeros((batch, capacity // page_size), dtype=torch.int32,
                         device=device), 0)
@@ -205,15 +218,35 @@ class PagedKVCache(NamedTuple):
     def page_size(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def bits(self) -> int:
+        return kv_bits(self.k)
+
+
+def _zero_values(shape, bits: int, device) -> torch.Tensor:
+    """Zero cache values: int8 ``shape`` (bits 8) or packed uint8
+    ``shape[:-1] + (D/2,)`` (bits 4)."""
+    if bits == 8:
+        return torch.zeros(shape, dtype=torch.int8, device=device)
+    if bits != 4:
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if shape[-1] % 2:
+        raise ValueError(f"an INT4 cache needs an even head dim, got "
+                         f"{shape[-1]}")
+    return torch.zeros((*shape[:-1], shape[-1] // 2), dtype=torch.uint8,
+                       device=device)
+
 
 def make_kv_cache(cfg: NeoXConfig, batch: int, capacity: int, kind: str,
                   dtype=torch.bfloat16, device="cuda"):
-    """kind: 'bf16' (a cache in ``dtype``) or 'int8'."""
-    if kind == "int8":
-        return QuantKVCache.create(cfg, batch, capacity, device=device)
+    """kind: 'bf16' (a cache in ``dtype``), 'int8' or 'int4'."""
+    if kind in ("int8", "int4"):
+        return QuantKVCache.create(cfg, batch, capacity,
+                                   bits=8 if kind == "int8" else 4,
+                                   device=device)
     if kind != "bf16":
-        raise ValueError(f"unknown kv cache kind {kind!r} (the port has "
-                         "bf16 and int8)")
+        raise ValueError(f"unknown kv cache kind {kind!r} "
+                         "(expected bf16/int8/int4)")
     return KVCache.create(cfg, batch, capacity, dtype=dtype, device=device)
 
 
@@ -251,14 +284,24 @@ def _write_rows(buf: torch.Tensor, i: int, new: torch.Tensor,
     layer.scatter_(2, spread(tgt), vals)
 
 
+def _quantize_pair(k, v, bits: int):
+    """(kq, ks, vq, vs): k and v quantized per slot, packed when bits is
+    4."""
+    kq, ks = quantize_kv(k, bits)
+    vq, vs = quantize_kv(v, bits)
+    if bits == 4:
+        kq, vq = pack_kv_int4(kq), pack_kv_int4(vq)
+    return kq, ks, vq, vs
+
+
 def _write_layer(cache, i: int, write_pos, k, v, rows=None) -> None:
     """Write one layer's new K/V [B, H, S, D] in place at ``write_pos``: an
     int (every row) or a [B] int32 tensor (per row; quantized per slot for
-    a QuantKVCache). A per-row single-position write into the INT8 cache
-    goes through K5, with ``rows = arange(B)`` as its page ids."""
+    a QuantKVCache, and packed for an INT4 one). A per-row single-position
+    write into the INT8 cache goes through K5, with ``rows = arange(B)`` as
+    its page ids; INT4 writes are plain indexed writes, as in JAX."""
     if isinstance(cache, QuantKVCache):
-        kq, ks = quantize_kv(k)
-        vq, vs = quantize_kv(v)
+        kq, ks, vq, vs = _quantize_pair(k, v, cache.bits)
         new = ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks),
                (cache.v_scale, vs))
     else:
@@ -267,7 +310,8 @@ def _write_layer(cache, i: int, write_pos, k, v, rows=None) -> None:
         sl = slice(write_pos, write_pos + k.shape[2])
         for buf, val in new:
             buf[i, :, :, sl] = val.to(buf.dtype)
-    elif isinstance(cache, QuantKVCache) and k.shape[2] == 1:
+    elif (isinstance(cache, QuantKVCache) and cache.bits == 8
+          and k.shape[2] == 1):
         paged_attention.paged_write_int8(
             cache.k, cache.k_scale, cache.v, cache.v_scale, i, rows,
             write_pos, kq[:, :, 0].contiguous(), ks[:, :, 0].contiguous(),
@@ -359,20 +403,23 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
             attn = attention(q, k, v, mask)
         elif isinstance(cache, QuantKVCache):
             _write_layer(cache, i, write_pos, k, v, rows)
-            if S <= decode_attention.MAX_S:
+            if cache.bits == 8 and S <= decode_attention.MAX_S:
                 attn = decode_attention.decode_attention_int8_stacked(
                     q.contiguous(), cache.k, cache.k_scale, cache.v,
                     cache.v_scale, i, mask)
             else:
-                k_all = (cache.k[i].float()
-                         * cache.k_scale[i][..., None]).to(q.dtype)
-                v_all = (cache.v[i].float()
-                         * cache.v_scale[i][..., None]).to(q.dtype)
-                attn = attention(q, k_all, v_all, mask)
+                attn = attention(q, dequantize_kv(cache.k[i], cache.k_scale[i],
+                                                  q.dtype),
+                                 dequantize_kv(cache.v[i], cache.v_scale[i],
+                                               q.dtype), mask)
         else:
             _write_layer(cache, i, write_pos, k, v)
-            attn = attention(q, cache.k[i].to(q.dtype),
-                             cache.v[i].to(q.dtype), mask)
+            if S <= decode_attention.MAX_S:
+                attn = decode_attention.decode_attention_stacked(
+                    q.contiguous(), cache.k, cache.v, i, mask)
+            else:
+                attn = attention(q, cache.k[i].to(q.dtype),
+                                 cache.v[i].to(q.dtype), mask)
         h = layer_finish(p, h, attn, cfg=cfg)
     if cache is not None:
         cache = cache._replace(length=cache.length + S)
@@ -381,16 +428,18 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
 
 def _paged_stack(params, x, *, cfg: NeoXConfig, mask, positions,
                  cache: PagedKVCache, write_pos, cos, sin):
-    """The stack over the paged INT8 pool. Position ``write_pos[b] + s`` of
-    row b goes to page ``page_table[b, pos // ps]`` at ``pos % ps`` (page -1,
+    """The stack over the paged pool. Position ``write_pos[b] + s`` of row b
+    goes to page ``page_table[b, pos // ps]`` at ``pos % ps`` (page -1,
     dropped by the writes, past the row's virtual pages).
 
-    A single-position step (the engine's decode) writes nothing inside the
-    layer loop: each layer attends through K6 to the pool, whose stale
-    frontier slot ``mask.q_idx - 1`` masks, plus its own just-quantized K/V
-    dequantized as the ``fresh`` term, and one K7 launch after the loop
-    writes every layer's K/V. Longer steps write each layer first with a
-    plain indexed write, then attend through K6."""
+    A single-position step (the engine's decode) on the INT8 pool writes
+    nothing inside the layer loop: each layer attends through K6 to the
+    pool, whose stale frontier slot ``mask.q_idx - 1`` masks, plus its own
+    just-quantized K/V dequantized as the ``fresh`` term, and one K7 launch
+    after the loop writes every layer's K/V. Longer steps, and every step
+    on the INT4 pool (the JAX package defers INT8 writes only), write each
+    layer first with a plain indexed write of quantized (packed) rows, then
+    attend through K6 with the mask as it is."""
     B, S = x.shape[:2]
     ps, pt = cache.page_size, cache.page_table
     n_virt = pt.shape[1]
@@ -407,7 +456,7 @@ def _paged_stack(params, x, *, cfg: NeoXConfig, mask, positions,
     layers = params["layers"]
     pools = (cache.k, cache.k_scale, cache.v, cache.v_scale)
     h = x
-    if S == 1:
+    if S == 1 and cache.bits == 8:
         L, H, D = cfg.num_layers, cfg.num_heads, cfg.head_dim
         step_q = torch.empty((2, L, B, H, D), dtype=torch.int8,
                              device=x.device)
@@ -440,8 +489,7 @@ def _paged_stack(params, x, *, cfg: NeoXConfig, mask, positions,
             p = layer_view(layers, i)
             q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
                                 positions=positions)
-            kq, ks = quantize_kv(k)
-            vq, vs = quantize_kv(v)
+            kq, ks, vq, vs = _quantize_pair(k, v, cache.bits)
             # [B, H, S(, D)] -> the (b, s) pairs in range, [n, H(, D)]
             cache.k[i, pg, :, of] = kq.transpose(1, 2)[ok]
             cache.v[i, pg, :, of] = vq.transpose(1, 2)[ok]

@@ -90,15 +90,56 @@ def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor,
     return (w * scale).to(dtype)
 
 
-def quantize_kv(x: torch.Tensor):
+def quantize_kv(x: torch.Tensor, bits: int = 8):
     """[B, H, S, D] -> (int8 values, f32 scales [B, H, S]); one scale per
-    position and head, clipped to +-127 after rounding
+    position and head, ``max|x| / qmax``, values clipped to +-qmax after
+    rounding, with qmax 127 (``bits=8``) or 7 (``bits=4``, values still
+    one to a byte: ``pack_kv_int4`` packs them)
     (``block_transformer_tpu/models/neox.py`` ``quantize_kv``)."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    qmax = 127.0 if bits == 8 else 7.0
     xf = x.float()
     a = xf.abs().amax(dim=-1)
-    scale = torch.clamp(a, min=1e-8) / 127.0
-    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    scale = torch.clamp(a, min=1e-8) / qmax
+    q = torch.clamp(torch.round(xf / scale[..., None]), -qmax, qmax)
     return q.to(torch.int8), scale
+
+
+def pack_kv_int4(q: torch.Tensor) -> torch.Tensor:
+    """INT4 cache values int8 [..., D] in [-8, 7] -> uint8 [..., D/2], split
+    half along D: byte i holds d = i in its low nibble and d = i + D/2 in
+    its high one (the INT4 weights' layout along K). A packed cache is
+    told from an INT8 one by its dtype, uint8."""
+    D = q.shape[-1]
+    if D % 2:
+        raise ValueError(f"int4 packing requires an even head dim, got {D}")
+    u = q.to(torch.int32)
+    byte = (u[..., :D // 2] & 0xF) | ((u[..., D // 2:] & 0xF) << 4)
+    return byte.to(torch.uint8)
+
+
+def kv_bits(values: torch.Tensor) -> int:
+    """A cache's width from its values: 4 when packed (uint8), else 8."""
+    return 4 if values.dtype == torch.uint8 else 8
+
+
+def unpack_kv_int4(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., D/2] -> int8 values [..., D]: the low nibbles, then the
+    high nibbles, each sign extended."""
+    u = packed.to(torch.int32)
+    lo = ((u & 0xF) ^ 8) - 8
+    hi = (((u >> 4) & 0xF) ^ 8) - 8
+    return torch.cat([lo, hi], dim=-1).to(torch.int8)
+
+
+def dequantize_kv(values: torch.Tensor, scale: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """A cache's int8 [..., D] or packed uint8 [..., D/2] values times their
+    per-slot scales [...] -> ``dtype``."""
+    if kv_bits(values) == 4:
+        values = unpack_kv_int4(values)
+    return (values.float() * scale[..., None]).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Time and trace the port's main paths on one NVIDIA GPU.
 
     python -m block_transformer_tpu_torch.profile_generate [--runs 5]
-        [--quantize int8|int4|mixed48]
-    python -m block_transformer_tpu_torch.profile_generate --engine int8|paged
+        [--quantize int8|int4|mixed48] [--kv int8|int4|bf16]
+    python -m block_transformer_tpu_torch.profile_generate
+        --engine int8|int4|paged|paged-int4
     python -m block_transformer_tpu_torch.profile_generate --vanilla
         [--vanilla_quantize int8|int4]
 
@@ -10,9 +11,10 @@ Builds ``block_main_b4_1.2b`` at full width (random bf16 weights from a seed),
 as ``chip_smoke.py`` does, with the weights of ``--quantize``: ``int8``
 (default), ``int4`` (group size 128) or ``mixed48`` (block decoder INT8,
 token decoder INT4, LM head INT8), as ``bench.py --quantize`` builds them.
-Without ``--engine`` it generates greedily with an INT8 global KV cache for
-B=8 ragged prompts of 2048 tokens plus 128 new tokens; after one warm-up run
-it reports, on the host clock with the device synchronized:
+Without ``--engine`` it generates greedily with the global KV cache of
+``--kv`` (INT8 by default, INT4, or bf16) for B=8 ragged prompts of 2048
+tokens plus 128 new tokens; after one warm-up run it reports, on the host
+clock with the device synchronized:
 
 - ``--runs`` timed ``generate_blocks`` runs: median and quartiles of the
   seconds and of the generated tokens per second (prefill included);
@@ -27,9 +29,10 @@ as a host loop); it reports the runs and the prefills alone as above.
 
 With ``--engine`` it serves the smoke's engine traffic instead (16 slots,
 24 requests: 8 of 512 prompt tokens and 32 new ones, then 16 of 2048 and
-128) through ``ContinuousBatchingEngine`` with the contiguous INT8 cache
-(``int8``) or the paged INT8 pool (``paged``): after one warm-up, ``--runs``
-timed ``run()`` calls (seconds, generated tokens per second, dispatches).
+128) through ``ContinuousBatchingEngine`` with the contiguous INT8 or INT4
+cache (``int8``, ``int4``) or the paged INT8 or INT4 pool (``paged``,
+``paged-int4``): after one warm-up, ``--runs`` timed ``run()`` calls
+(seconds, generated tokens per second, dispatches).
 
 Either way it then traces one more run under ``torch.profiler`` (CPU and
 CUDA activity): device time and launches per kernel name, the device's busy
@@ -127,6 +130,7 @@ def ragged_prompts(cfg, batch: int = BATCH, prompt_tokens: int = PROMPT_TOKENS,
 # together in this order; 16 slots, so the short requests finish early and
 # the last long ones are admitted mid-flight into reused slots
 ENGINE_TRAFFIC = ((8, 512, 32), (16, 2048, 128))
+ENGINE_KINDS = ("int8", "int4", "paged", "paged-int4")
 ENGINE_SLOTS, ENGINE_MAX_BLOCKS = 16, 546
 ENGINE_BUCKET_BLOCKS, ENGINE_SYNC_BLOCKS, ENGINE_PAGE_SIZE = 128, 8, 256
 
@@ -231,7 +235,8 @@ def device_breakdown(fn):
 # the kernels of csrc/*.cu, as the profiler names them
 OWN_KERNELS = ("tc_matmul_kernel", "int8_matmul_kernel", "int4_matmul_kernel",
                "splitk_reduce_kernel",
-               "decode_attn_int8_kernel", "flash_attn_kernel",
+               "decode_attn_int8_kernel", "decode_attn_kernel",
+               "flash_attn_kernel",
                "flash_attn_tc_kernel",
                "paged_write_kernel", "page_copy_kernel", "paged_attn_kernel")
 
@@ -307,7 +312,9 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quantize", choices=sorted(QUANTIZE), default="int8",
                     help="weights of the block model")
-    ap.add_argument("--engine", choices=("int8", "paged"), default=None,
+    ap.add_argument("--kv", choices=("int8", "int4", "bf16"),
+                    default="int8", help="global KV cache of generation")
+    ap.add_argument("--engine", choices=ENGINE_KINDS, default=None,
                     help="serve the engine traffic with this cache instead "
                          "of generate_blocks")
     ap.add_argument("--vanilla", action="store_true",
@@ -331,12 +338,12 @@ def main() -> None:
 
     def run():
         return gen.generate_blocks(params, cfg, *dev, max_blocks=max_blocks,
-                                   kv_cache="int8", device="cuda")
+                                   kv_cache=args.kv, device="cuda")
 
     def prefill():
         return gen.prefill_blocks(params, cfg, *dev,
                                   capacity=-(-max_blocks // 128) * 128,
-                                  kv_cache="int8")
+                                  kv_cache=args.kv)
 
     res = run()
     generated = BATCH * (res.n_blocks - N) * cfg.block_length
@@ -345,7 +352,8 @@ def main() -> None:
     per, busy_us = device_breakdown(run)
     wall = statistics.median(total)
     print(json.dumps({
-        "model": MODEL, "quantize": args.quantize, "batch": BATCH,
+        "model": MODEL, "quantize": args.quantize, "kv_cache": args.kv,
+        "batch": BATCH,
         "prompt_tokens": PROMPT_TOKENS,
         "new_tokens_per_row": NEW_TOKENS, "generated_tokens": generated,
         "generate_s": quartiles(total),

@@ -20,30 +20,35 @@ one process it:
    128 new tokens (K1 and K4 at decode M = 8, the token decoder's M = 32
    prefix step and the M = 4096 prefill, each row naming the route, tile
    and split ``plan`` gave it; K2 at the block decoder's decode step and K3
-   at the prefill's first and last query tiles); K2 and K3 also at the
-   ``vanilla_410`` baseline's decode step (D = 64, capacity 2176) and
-   prompt (Q = 2048 causal), each K2 row naming its split of the cache and
-   each K3 row its route; K5-K8 at the serving engine's shapes (16 slots,
-   12 layers, 16 heads of 128, capacity 640 contiguous, 3 pages of 256
-   paged);
+   at the prefill's first and last query tiles); K2's bf16 form at the
+   block decoder's decode step over a bf16 cache and at the token
+   decoder's local cache; K2 and K3 also at the ``vanilla_410`` baseline's
+   decode step (D = 64, capacity 2176) and prompt (Q = 2048 causal), each
+   K2 row naming its split of the cache and each K3 row its route; K5-K8 at
+   the serving engine's shapes (16 slots, 12 layers, 16 heads of 128,
+   capacity 640 contiguous, 3 pages of 256 paged), K6 and K8 also on the
+   packed INT4 pool;
 4. checks the port on the card against the same port on the CPU (plain
    versions) at a small configuration in float32: forward logits, greedy
-   tokens of INT8-, INT4- and mixed48-weight INT8-KV generation, greedy
-   tokens of the vanilla baseline (INT8 and INT4 weights, INT8 KV), and
-   greedy tokens of the serving engine with the contiguous INT8 cache and
-   the paged INT8 pool;
+   tokens of INT8-weight generation with the INT8, INT4 and bf16 global
+   caches, of INT4- and mixed48-weight INT8-KV generation, of the vanilla
+   baseline (INT8 and INT4 weights, INT8 KV), and of the serving engine
+   with each of its four quantized caches (contiguous INT8 and INT4, paged
+   INT8 and INT4);
 5. generates with ``block_main_b4_1.2b`` at full width (random weights from
-   a seed, bf16, INT8 global KV cache), greedy, B=8, p2048/d128, with INT8
-   weights, INT4 weights (no K1 launch) and mixed48 weights (block decoder
-   and head INT8, token decoder INT4): each one warm-up run, then a timed
-   run between launch-count resets, asserting every kernel of the path ran
-   in it;
+   a seed, bf16), greedy, B=8, p2048/d128: INT8 weights with the INT8,
+   bf16 and INT4 global caches, then INT4 weights (no K1 launch) and
+   mixed48 weights (block decoder and head INT8, token decoder INT4) with
+   the INT8 cache: each one warm-up run, then a timed run between
+   launch-count resets, asserting every kernel of the path ran in it (and
+   none it must not run);
 6. serves with ``ContinuousBatchingEngine`` at the same width (INT8
    weights), 16 slots, 24 requests submitted together (8 of 512 prompt
-   tokens and 32 new ones, then 16 of 2048 and 128), once with the
-   contiguous INT8 cache and once with the paged INT8 pool: a short
-   warm-up, then a timed ``run()`` between launch-count resets; asserts
-   every request is served and every kernel of the path ran;
+   tokens and 32 new ones, then 16 of 2048 and 128), once with each cache:
+   contiguous INT8 and INT4, paged INT8 and INT4: a short warm-up, then a
+   timed ``run()`` between launch-count resets; asserts every request is
+   served and every kernel of the path ran, and logs how far the
+   contiguous and paged caches of one width agree;
 7. generates greedily with the ``vanilla_410`` baseline (INT8 weights, INT8
    KV cache) at the same B, prompt and new tokens, the same way, and prints
    the block/vanilla throughput ratio as a smoke figure.
@@ -51,7 +56,8 @@ one process it:
 Every timed full-width run of steps 5-7 asserts that K1, K3 and K4
 launched by the tensor-core route only. The last three lines are the
 ``nvidia-smi`` line, a JSON object listing each kernel's launches (from the
-run of step 5, 6 or 7 named by the row's ``path``), error and times, and
+run of step 5, 6 or 7 named by the row's ``path``; a K6 or K8 row counts
+the launches on its pool width), error and times, and
 ``{"ok": true, "device": {...}}``.
 Any failure raises.
 """
@@ -93,38 +99,63 @@ TOL = 2e-2      # max |kernel - plain| / max |plain| in bf16 (~2^-8 rounding
 MODEL, VANILLA_MODEL, BATCH = pg.MODEL, pg.VANILLA_MODEL, pg.BATCH
 PROMPT_TOKENS, NEW_TOKENS = pg.PROMPT_TOKENS, pg.NEW_TOKENS
 MATMUL_CU = "block_transformer_tpu_torch/csrc/dequant_matmul.cu"
+DECODE_CU = "block_transformer_tpu_torch/csrc/decode_attention.cu"
+DECODE_PY = "block_transformer_tpu/ops/decode_attention.py"
 PAGED_CU = "block_transformer_tpu_torch/csrc/paged_attention.cu"
 PAGED_PY = "block_transformer_tpu/ops/paged_attention.py"
-# (wrapper, tag, source, TPU kernel replaced, the run whose launches count)
+# (wrapper, tag, source, TPU kernel replaced, the run whose launches count,
+# the pool width whose launches a K6/K8 row counts, else None: all)
 KERNELS = [
     (k1.int8_matmul_stacked, "K1", MATMUL_CU,
-     "block_transformer_tpu/ops/dequant_matmul.py:86", "generation"),
-    (k2.decode_attention_int8_stacked, "K2",
-     "block_transformer_tpu_torch/csrc/decode_attention.cu",
-     "block_transformer_tpu/ops/decode_attention.py:143", "generation"),
+     "block_transformer_tpu/ops/dequant_matmul.py:86", "generation", None),
+    (k2.decode_attention_int8_stacked, "K2", DECODE_CU, f"{DECODE_PY}:143",
+     "generation", None),
+    (k2.decode_attention_stacked, "K2 bf16", DECODE_CU, f"{DECODE_PY}:293",
+     "generation kv bf16", None),
     (k3.flash_attention, "K3", "block_transformer_tpu_torch/csrc/flash_attention.cu",
-     "block_transformer_tpu/ops/flash_attention.py:83", "generation"),
+     "block_transformer_tpu/ops/flash_attention.py:83", "generation", None),
     (k1.int4_matmul_stacked, "K4", MATMUL_CU,
-     "block_transformer_tpu/ops/dequant_matmul.py:181", "generation int4"),
-    (kp.paged_write_int8, "K5", PAGED_CU, f"{PAGED_PY}:428", "engine int8"),
+     "block_transformer_tpu/ops/dequant_matmul.py:181", "generation int4",
+     None),
+    (kp.paged_write_int8, "K5", PAGED_CU, f"{PAGED_PY}:428", "engine int8",
+     None),
     (kp.paged_decode_attention_int8, "K6", PAGED_CU, f"{PAGED_PY}:221",
-     "engine paged"),
+     "engine paged", "int8"),
+    (kp.paged_decode_attention_int8, "K6 int4", PAGED_CU, f"{PAGED_PY}:221",
+     "engine paged-int4", "int4"),
     (kp.paged_write_layers_int8, "K7", PAGED_CU, f"{PAGED_PY}:549",
-     "engine paged"),
+     "engine paged", None),
     (kp.paged_page_copy_int8, "K8", PAGED_CU, f"{PAGED_PY}:646",
-     "engine paged"),
+     "engine paged", "int8"),
+    (kp.paged_page_copy_int8, "K8 int4", PAGED_CU, f"{PAGED_PY}:646",
+     "engine paged-int4", "int4"),
 ]
-# the kernels each main path must launch
+# the kernels each main path must launch; every path with a token decoder
+# runs K2's bf16 form on its local cache
 PATH_KERNELS = {
-    "generation": ("K1", "K2", "K3"),
-    "generation int4": ("K2", "K3", "K4"),
-    "generation mixed48": ("K1", "K2", "K3", "K4"),
-    "engine int8": ("K1", "K2", "K3", "K5"),
-    "engine paged": ("K1", "K3", "K6", "K7", "K8"),
+    "generation": ("K1", "K2", "K2 bf16", "K3"),
+    "generation int4": ("K2", "K2 bf16", "K3", "K4"),
+    "generation mixed48": ("K1", "K2", "K2 bf16", "K3", "K4"),
+    "generation kv bf16": ("K1", "K2 bf16", "K3"),
+    "generation kv int4": ("K1", "K2 bf16", "K3"),
+    "engine int8": ("K1", "K2", "K2 bf16", "K3", "K5"),
+    "engine int4": ("K1", "K2 bf16", "K3"),
+    "engine paged": ("K1", "K2 bf16", "K3", "K6", "K7", "K8"),
+    "engine paged-int4": ("K1", "K2 bf16", "K3", "K6 int4", "K8 int4"),
     "vanilla": ("K1", "K2", "K3"),
 }
-# the kernels a main path must not launch: INT4 weights leave K1 no linear
-PATH_ABSENT = {"generation int4": ("K1",)}
+# the kernels a main path must not launch: INT4 weights leave K1 no linear;
+# the INT4 and bf16 caches take no INT8 cache kernel; the baseline has no
+# bf16 cache
+PATH_ABSENT = {
+    "generation int4": ("K1",),
+    "generation kv bf16": ("K2",),
+    "generation kv int4": ("K2", "K5"),
+    "engine int4": ("K2", "K5", "K6", "K6 int4"),
+    "engine paged": ("K6 int4", "K8 int4"),
+    "engine paged-int4": ("K2", "K5", "K6", "K7", "K8"),
+    "vanilla": ("K2 bf16",),
+}
 # K1, K3 and K4 count their launches by route as well; a full-width path
 # takes the tensor-core route ("tc") only
 ROUTED = {"K1": k1.int8_matmul_stacked, "K3": k3.flash_attention,
@@ -207,16 +238,18 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def record(rows, kernel, label, err, ms, plain_ms, library_ms, nbytes, flops,
+def record(rows, tag, label, err, ms, plain_ms, library_ms, nbytes, flops,
            plan=None, host_us=None, extra=None, path=None):
-    """One kernel row; ``plan`` (K1, K4) is the dequant-matmul's launch,
-    ``host_us`` the wrapper's host time a call, ``extra`` more keys (K2's
-    split, K3's route), ``path`` the main path whose launches the row
-    reports (by default the kernel's own in KERNELS)."""
-    fn, tag, source, replaces, own_path = next(k for k in KERNELS
-                                                if k[0] is kernel)
+    """One kernel row of the kernel ``tag`` in KERNELS; ``plan`` (K1, K4) is
+    the dequant-matmul's launch, ``host_us`` the wrapper's host time a call,
+    ``extra`` more keys (K2's split, K3's route), ``path`` the main path
+    whose launches the row reports (by default the kernel's own in
+    KERNELS)."""
+    fn, _, source, replaces, own_path, _ = next(k for k in KERNELS
+                                                if k[1] == tag)
     bound_ms, bound_by = bound(nbytes, flops)
-    row = {"name": f"{tag} {fn.__name__} [{label}]", "route": "cuda",
+    row = {"name": f"{tag} {fn.__name__} [{label}]", "tag": tag,
+           "route": "cuda",
            "path": path or own_path, "source": source, "replaces": replaces, "launches": None,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -269,7 +302,7 @@ def phase_k1(rows, cfg):
             x, w_q, scale, nxt()), iters)
         lib_ms = time_ms(lambda: torch.matmul(x, w_deq[nxt()]), iters)
         nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
-        record(rows, k1.int8_matmul_stacked, label, err, ms, plain_ms, lib_ms,
+        record(rows, "K1", label, err, ms, plain_ms, lib_ms,
                nbytes, 2 * M * K * N, matmul_plan(M, K, N), host_us)
         del w_q, scale, w_deq
 
@@ -304,7 +337,7 @@ def phase_k4(rows, cfg):
             x, w_p, scale, nxt()), iters)
         lib_ms = time_ms(lambda: torch.matmul(x, w_deq[nxt()]), iters)
         nbytes = M * K * 2 + K * N // 2 + G * N * 4 + M * N * 2
-        record(rows, k1.int4_matmul_stacked, f"{label} G={G}", err, ms,
+        record(rows, "K4", f"{label} G={G}", err, ms,
                plain_ms, lib_ms, nbytes, 2 * M * K * N,
                matmul_plan(M, K // 2, N), host_us)
         del w_p, scale, w_deq
@@ -321,40 +354,49 @@ def int8_layers(g, L, B, H, cap, D):
 
 
 def k2_row(rows, label, cache, q, mask, iters, path=None):
-    """K2 against its plain version and SDPA on dequantized layers, cycling
-    through the cache's layers so it comes from device memory."""
-    kq, ks, vq, vs = cache
-    L, B, H, cap, D = kq.shape
-    S = q.shape[2]
-    got = k2.decode_attention_int8_stacked(q, kq, ks, vq, vs, L // 2, mask)
-    want = k2.decode_attention_int8_stacked_plain(q, kq, ks, vq, vs, L // 2,
-                                                  mask)
-    err = compare(f"K2 {label}", got, want)
+    """K2 against its plain version and SDPA on the cache's bf16 layers
+    (dequantized for the INT8 form), cycling through the layers so they
+    come from device memory. ``cache``: (k_q, k_s, v_q, v_s) for the INT8
+    form, (k, v) in bf16 for the bf16 form."""
+    int8 = len(cache) == 4
+    tag = "K2" if int8 else "K2 bf16"
+    fn, plain = ((k2.decode_attention_int8_stacked,
+                  k2.decode_attention_int8_stacked_plain) if int8 else
+                 (k2.decode_attention_stacked,
+                  k2.decode_attention_stacked_plain))
+    L, B, H, cap, _ = cache[0].shape
+    S, D = q.shape[2], q.shape[3]
+    got = fn(q, *cache, L // 2, mask)
+    err = compare(f"{tag} {label}", got, plain(q, *cache, L // 2, mask))
     it = iter(range(10 ** 9))
     nxt = lambda: next(it) % L                 # noqa: E731
-    ms = time_ms(lambda: k2.decode_attention_int8_stacked(
-        q, kq, ks, vq, vs, nxt(), mask), iters)
-    plain_ms = time_ms(lambda: k2.decode_attention_int8_stacked_plain(
-        q, kq, ks, vq, vs, nxt(), mask), 10)
-    deq = [((kq[i].float() * ks[i][..., None]).to(q.dtype),
-            (vq[i].float() * vs[i][..., None]).to(q.dtype)) for i in range(L)]
+    ms = time_ms(lambda: fn(q, *cache, nxt(), mask), iters)
+    plain_ms = time_ms(lambda: plain(q, *cache, nxt(), mask), 10)
+    if int8:
+        kq, ks, vq, vs = cache
+        layers = [(quant.dequantize_kv(kq[i], ks[i], q.dtype),
+                   quant.dequantize_kv(vq[i], vs[i], q.dtype))
+                  for i in range(L)]
+    else:
+        layers = list(zip(*cache))
     allowed = mask.allowed()[:, None]          # [B, 1, S, cap]
 
     def library():
-        k, v = deq[nxt()]
+        k, v = layers[nxt()]
         return torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=allowed)
 
     lib_ms = time_ms(library, iters)
     k_rows, v_rows, ops = attention_need(mask, H, D)
-    nbytes = (2 * B * H * S * D * 2 + (k_rows + v_rows) * (D + 4)
+    row_bytes = D + 4 if int8 else 2 * D       # values (+ scale) of a slot
+    nbytes = (2 * B * H * S * D * 2 + (k_rows + v_rows) * row_bytes
               + (B * S + cap + B * cap) * 4)
     p = k2.plan(B, H, cap, build.sm_count(0))
-    record(rows, k2.decode_attention_int8_stacked, label, err, ms, plain_ms,
-           lib_ms, nbytes, ops, path=path,
+    record(rows, tag, label, err, ms, plain_ms, lib_ms, nbytes, ops,
+           path=path,
            extra={"decode_plan": f"splits {p.splits} x {p.slots_per_split} "
                                  "slots"})
-    del deq
+    del layers
 
 
 def phase_k2(rows, cfg, vcfg):
@@ -390,6 +432,39 @@ def phase_k2(rows, cfg, vcfg):
     del cache
 
 
+def phase_k2_bf16(rows, cfg):
+    """K2's bf16 form at the block decoder's decode step over a bf16 global
+    cache (B=8, H=16, S=1, D=128, 12 layers of capacity 640 filled to 530,
+    as ``phase_k2``; one row with no allowed key) and at the token
+    decoder's local cache (B=8, H=16, D=128, 12 layers of capacity
+    n_exp + block_length = 6; the last token step, S=1 at position 4)."""
+    dev, bf16 = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, H, D = BATCH, cfg.block_decoder.num_heads, cfg.block_decoder.head_dim
+    cap, filled = 640, 530
+    k, v = (torch.randn((12, B, H, cap, D), generator=g, device=dev,
+                        dtype=bf16) for _ in range(2))
+    q = torch.randn((B, H, 1, D), generator=g, device=dev, dtype=bf16)
+    valid = torch.zeros((B, cap), dtype=torch.int32, device=dev)
+    for b in range(B):
+        valid[b, 16 * b:filled] = 1
+    valid[B - 2:, filled - 4:filled] = 0
+    valid[0] = 0
+    mask = masks.block_decode_mask(filled - 1, cap, 1, valid)
+    k2_row(rows, "B=8 H=16 S=1 D=128 cap=640", (k, v), q, mask, 100)
+    del k, v
+
+    tcfg = cfg.token_decoder.neox
+    H, D, L = tcfg.num_heads, tcfg.head_dim, tcfg.num_layers
+    cap = cfg.n_expanded_emb + cfg.block_length
+    k, v = (torch.randn((L, B, H, cap, D), generator=g, device=dev,
+                        dtype=bf16) for _ in range(2))
+    q = torch.randn((B, H, 1, D), generator=g, device=dev, dtype=bf16)
+    mask = masks.decode_mask(cap - 2, cap, 1, device=dev)
+    k2_row(rows, f"token decoder's local cache B=8 H={H} S=1 D={D} "
+           f"cap={cap}", (k, v), q, mask, 50)
+
+
 def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None):
     """K3 against its plain version and SDPA, cycling through copies of
     (q, k, v); asserts the tensor-core route."""
@@ -414,7 +489,7 @@ def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None):
     k_rows, v_rows, ops = attention_need(mask, H, D)
     nbytes = ((2 * B * H * Q + k_rows + v_rows) * D * 2
               + (B * Q + K + B * K) * 4)
-    record(rows, k3.flash_attention, label, err, ms, plain_ms, lib_ms, nbytes,
+    record(rows, "K3", label, err, ms, plain_ms, lib_ms, nbytes,
            ops, path=path, extra={"attention_route": k3.route(q0.dtype, D, K)})
 
 
@@ -460,10 +535,14 @@ def phase_k3(rows, cfg, vcfg):
 ENGINE_L, ENGINE_B = 12, pg.ENGINE_SLOTS   # block decoder layers, slots
 
 
-def random_pools(g, L, P, H, ps, D):
-    """int8 [L, P, H, ps, D] values and f32 [L, P, H, ps] scales, as
-    (k, k_scale, v, v_scale)."""
-    def i8():
+def random_pools(g, L, P, H, ps, D, packed=False):
+    """int8 [L, P, H, ps, D] values (``packed``: INT4, uint8 [..., D/2], each
+    byte two nibbles) and f32 [L, P, H, ps] scales, as (k, k_scale, v,
+    v_scale)."""
+    def values():
+        if packed:
+            return torch.randint(0, 256, (L, P, H, ps, D // 2), generator=g,
+                                 device="cuda", dtype=torch.uint8)
         return torch.randint(-127, 128, (L, P, H, ps, D), generator=g,
                              device="cuda", dtype=torch.int8)
 
@@ -471,7 +550,7 @@ def random_pools(g, L, P, H, ps, D):
         return 0.01 + 0.02 * torch.rand((L, P, H, ps), generator=g,
                                         device="cuda")
 
-    return [i8(), f32(), i8(), f32()]
+    return [values(), f32(), values(), f32()]
 
 
 def random_step(g, lead, H, D):
@@ -535,31 +614,35 @@ def phase_k5(rows, cfg):
     lib_ms = time_ms(library, 200)
     n = int(ok.sum())
     nbytes = 2 * 2 * n * H * (D + 4) + 2 * B * 4     # read + write, page/off
-    record(rows, kp.paged_write_int8, "B=16 H=16 D=128 pool [12,16,16,640]",
+    record(rows, "K5", "B=16 H=16 D=128 pool [12,16,16,640]",
            err, ms, plain_ms, lib_ms, nbytes, 0)
 
 
-def engine_pool_case(g, cfg):
-    """The paged engine's pool [12, 49, 16, 256, 128], 16 rows of 3 virtual
-    pages on distinct pages; row 0 holds one page, its tail on page 0."""
+def engine_pool_case(g, cfg, packed=False):
+    """The paged engine's pool [12, 49, 16, 256, 128] (``packed``: the
+    paged-int4 engine's, [..., 64] bytes), 16 rows of 3 virtual pages on
+    distinct pages; row 0 holds one page, its tail on page 0."""
     L, B = ENGINE_L, ENGINE_B
     H, D = cfg.block_decoder.num_heads, cfg.block_decoder.head_dim
     ps, n_virt = 256, 3
     P = B * n_virt + 1
-    pools = random_pools(g, L, P, H, ps, D)
+    pools = random_pools(g, L, P, H, ps, D, packed)
     pt = (1 + torch.randperm(B * n_virt, generator=g, device="cuda")).reshape(
         B, n_virt).to(torch.int32)
     pt[0, 1:] = 0
     return pools, pt, (L, B, H, D, ps, n_virt, P)
 
 
-def phase_k6(rows, cfg):
-    """K6 at the paged engine's deferred decode step: 16 rows, ragged
-    lengths (row 0 within its one page), S=1, the fresh pair on, mask
-    q_idx - 1."""
-    g = torch.Generator(device="cuda").manual_seed(6)
+def phase_k6(rows, cfg, int4=False):
+    """K6 at a paged engine's decode step: 16 rows, ragged lengths (row 0
+    within its one page), S=1. INT8 pool: the deferred write, the fresh
+    pair on and mask q_idx - 1. Packed INT4 pool (``int4``): no fresh term,
+    the step's K/V already written at the frontier, which the mask
+    allows."""
+    tag = "K6 int4" if int4 else "K6"
+    g = torch.Generator(device="cuda").manual_seed(10 if int4 else 6)
     bf16 = torch.bfloat16
-    pools, pt, (L, B, H, D, ps, n_virt, P) = engine_pool_case(g, cfg)
+    pools, pt, (L, B, H, D, ps, n_virt, P) = engine_pool_case(g, cfg, int4)
     K = ps * n_virt
     frontier = torch.randint(130, K, (B,), generator=g, device="cuda")
     frontier[0] = 200
@@ -567,17 +650,19 @@ def phase_k6(rows, cfg):
              <= frontier[:, None]).to(torch.int32)
     for b in range(B):
         valid[b, :8 * b] = 0                   # left pad
-    mask = masks.AttnMask((frontier - 1)[:, None].to(torch.int32),
+    q_idx = frontier if int4 else frontier - 1
+    mask = masks.AttnMask(q_idx[:, None].to(torch.int32),
                           torch.arange(K, dtype=torch.int32, device="cuda"),
                           valid)
     q = torch.randn((B, H, 1, D), generator=g, device="cuda", dtype=bf16)
-    fresh = tuple(0.3 * torch.randn((B, H, D), generator=g, device="cuda")
-                  for _ in range(2))
+    fresh = None if int4 else tuple(
+        0.3 * torch.randn((B, H, D), generator=g, device="cuda")
+        for _ in range(2))
     got = kp.paged_decode_attention_int8(q, *pools, L // 2, pt, mask,
                                          fresh=fresh)
     want = kp.paged_decode_attention_int8_plain(q, *pools, L // 2, pt, mask,
                                                 fresh=fresh)
-    err = compare("K6", got, want)
+    err = compare(tag, got, want)
     it = iter(range(10 ** 9))
     nxt = lambda: next(it) % L                 # noqa: E731
     ms = time_ms(lambda: kp.paged_decode_attention_int8(
@@ -585,16 +670,21 @@ def phase_k6(rows, cfg):
     plain_ms = time_ms(lambda: kp.paged_decode_attention_int8_plain(
         q, *pools, nxt(), pt, mask, fresh=fresh), 20)
     ptl = pt.long()
+    allowed = mask.allowed()
 
-    def deq(vals, scale, extra):               # pages + fresh column, bf16
-        x = (vals[ptl].float() * scale[ptl][..., None]).permute(
+    def deq(vals, scale, extra):               # pages (+ fresh column), bf16
+        x = quant.dequantize_kv(vals[ptl], scale[ptl], bf16).permute(
             0, 2, 1, 3, 4).reshape(B, H, K, D)
-        return torch.cat([x, extra[:, :, None]], dim=2).to(bf16)
+        return x if int4 else torch.cat([x, extra[:, :, None].to(bf16)], 2)
 
-    k_deq = [deq(pools[0][i], pools[1][i], fresh[0]) for i in range(L)]
-    v_deq = [deq(pools[2][i], pools[3][i], fresh[1]) for i in range(L)]
-    allowed = torch.cat([mask.allowed(), torch.ones(
-        (B, 1, 1), dtype=torch.bool, device="cuda")], dim=2)[:, None]
+    k_deq = [deq(pools[0][i], pools[1][i], fresh and fresh[0])
+             for i in range(L)]
+    v_deq = [deq(pools[2][i], pools[3][i], fresh and fresh[1])
+             for i in range(L)]
+    if fresh is not None:
+        allowed = torch.cat([allowed, torch.ones(
+            (B, 1, 1), dtype=torch.bool, device="cuda")], dim=2)
+    allowed = allowed[:, None]
 
     def library():
         i = nxt()
@@ -604,12 +694,17 @@ def phase_k6(rows, cfg):
     lib_ms = time_ms(library, 100)
     k_rows, v_rows, ops = attention_need(mask, H, D)
     if bool((~mask.allowed().any(-1)).any()):
-        raise AssertionError("K6 case: every row should see a pool key")
-    nbytes = ((k_rows + v_rows) * (D + 4) + 2 * B * H * D * (2 + 4)
+        raise AssertionError(f"{tag} case: every row should see a pool key")
+    row_bytes = (D // 2 if int4 else D) + 4
+    nbytes = ((k_rows + v_rows) * row_bytes + 2 * B * H * D * 2
               + (B + K + B * K + B * n_virt) * 4)
-    record(rows, kp.paged_decode_attention_int8,
-           "B=16 H=16 S=1 D=128 pool [12,49,16,256] n_virt=3 fresh", err,
-           ms, plain_ms, lib_ms, nbytes, ops + 4 * B * H * D)
+    if fresh is not None:                      # kf, vf and their products
+        nbytes += 2 * B * H * D * 4
+        ops += 4 * B * H * D
+    label = ("B=16 H=16 S=1 D=128 packed pool [12,49,16,256] n_virt=3"
+             if int4 else
+             "B=16 H=16 S=1 D=128 pool [12,49,16,256] n_virt=3 fresh")
+    record(rows, tag, label, err, ms, plain_ms, lib_ms, nbytes, ops)
     del k_deq, v_deq
 
 
@@ -641,21 +736,23 @@ def phase_k7(rows, cfg):
 
     lib_ms = time_ms(library, 200)
     nbytes = 2 * 2 * L * B * H * (D + 4) + 2 * B * 4
-    record(rows, kp.paged_write_layers_int8,
+    record(rows, "K7",
            "L=12 B=16 H=16 D=128 pool [12,49,16,256]", err, ms, plain_ms,
            lib_ms, nbytes, 0)
 
 
-def phase_k8(rows, cfg):
-    """K8 at the paged engine's admission of 16 rows: rows
+def phase_k8(rows, cfg, int4=False):
+    """K8 at a paged engine's admission of 16 rows: rows
     [12, 16, 16, 768, 128] into the pool [12, 49, 16, 256, 128], 3 pages a
-    row (row 0's tail on page 0)."""
-    g = torch.Generator(device="cuda").manual_seed(8)
-    pools, pt, (L, B, H, D, ps, n_virt, P) = engine_pool_case(g, cfg)
-    src = random_pools(g, L, B, H, n_virt * ps, D)
+    row (row 0's tail on page 0); ``int4``: packed rows and pool, [..., 64]
+    bytes."""
+    tag = "K8 int4" if int4 else "K8"
+    g = torch.Generator(device="cuda").manual_seed(11 if int4 else 8)
+    pools, pt, (L, B, H, D, ps, n_virt, P) = engine_pool_case(g, cfg, int4)
+    src = random_pools(g, L, B, H, n_virt * ps, D, int4)
     want = kp.paged_page_copy_int8_plain(*clones(pools), pt, *src)
     got = kp.paged_page_copy_int8(*clones(pools), pt, *src)
-    err = exact("K8", got, want, skip_page0=True)
+    err = exact(tag, got, want, skip_page0=True)
     ms = time_ms(lambda: kp.paged_page_copy_int8(*pools, pt, *src), 20)
     plain_ms = time_ms(lambda: kp.paged_page_copy_int8_plain(
         *pools, pt, *src), 5)
@@ -667,10 +764,10 @@ def phase_k8(rows, cfg):
             pool[:, ptl] = val
 
     lib_ms = time_ms(library, 5)
-    nbytes = 2 * 2 * L * B * n_virt * H * ps * (D + 4) + B * n_virt * 4
-    record(rows, kp.paged_page_copy_int8,
-           "L=12 G=16 nv=3 ps=256 H=16 D=128", err, ms, plain_ms, lib_ms,
-           nbytes, 0)
+    row_bytes = (D // 2 if int4 else D) + 4
+    nbytes = 2 * 2 * L * B * n_virt * H * ps * row_bytes + B * n_virt * 4
+    record(rows, tag, "L=12 G=16 nv=3 ps=256 H=16 D=128"
+           + (" packed" if int4 else ""), err, ms, plain_ms, lib_ms, nbytes, 0)
     del src, pages
 
 
@@ -689,12 +786,12 @@ def to_card(tree):
 def phase_small_engine():
     """The serving engine on the card (kernels) against the same engine on
     the CPU (plain versions): small configuration, float32, INT8 weights,
-    3 slots, 5 requests of uneven prompts and budgets; contiguous INT8
-    cache and paged INT8 pool (page size 4)."""
+    3 slots, 5 requests of uneven prompts and budgets; contiguous INT8 and
+    INT4 caches and paged INT8 and INT4 pools (page size 4)."""
     cfg, qparams = small_config()
     traffic = ((1, 37, 9), (1, 12, 30), (1, 64, 5), (1, 5, 17), (1, 26, 12))
     requests = pg.engine_requests(cfg, traffic, seed=3)
-    for kind in ("int8", "paged"):
+    for kind in pg.ENGINE_KINDS:
         out = []
         for params, dev in ((qparams, "cpu"), (to_card(qparams), "cuda")):
             eng = pg.make_engine(params, cfg, kind, n_slots=3, max_blocks=40,
@@ -726,14 +823,17 @@ def phase_small_reference():
     err = (got.cpu() - want).abs().max().item()
     if err > 1e-3:
         raise AssertionError(f"small forward: card vs CPU logits differ by {err}")
-    run = lambda p, d: gen.generate_blocks(  # noqa: E731
-        p, cfg, ids, att, bam, max_blocks=N + 4, kv_cache="int8", device=d)
-    t_cpu, t_gpu = run(qparams, "cpu"), run(to_dev(qparams), "cuda")
-    if t_cpu.n_blocks != t_gpu.n_blocks or not torch.equal(
-            t_cpu.tokens, t_gpu.tokens.cpu()):
-        raise AssertionError("small generation: card and CPU tokens differ")
-    log(f"small reference: logits max err {err:.3e}, greedy tokens equal "
-        f"({t_gpu.n_blocks} blocks)")
+    log(f"small reference: logits max err {err:.3e}")
+    for kv in ("int8", "int4", "bf16"):
+        run = lambda p, d: gen.generate_blocks(  # noqa: E731
+            p, cfg, ids, att, bam, max_blocks=N + 4, kv_cache=kv, device=d)
+        t_cpu, t_gpu = run(qparams, "cpu"), run(to_dev(qparams), "cuda")
+        if t_cpu.n_blocks != t_gpu.n_blocks or not torch.equal(
+                t_cpu.tokens, t_gpu.tokens.cpu()):
+            raise AssertionError(f"small generation kv {kv}: card and CPU "
+                                 "tokens differ")
+        log(f"small generation kv {kv}: greedy tokens equal on the card and "
+            f"the CPU ({t_gpu.n_blocks} blocks)")
 
 
 def phase_small_quantized():
@@ -777,14 +877,18 @@ def phase_small_quantized():
 def reset_launches():
     for fn, *_ in KERNELS:
         fn.launches = 0
+        if hasattr(fn, "form_launches"):
+            fn.form_launches = dict.fromkeys(fn.form_launches, 0)
     for fn in ROUTED.values():
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 def read_launches(path: str) -> dict:
-    """{tag: launches} since the last reset; fails if a kernel of ``path``
-    did not run."""
-    launches = {tag: fn.launches for fn, tag, *_ in KERNELS}
+    """{tag: launches} since the last reset (a K6/K8 tag: its pool width's
+    launches); fails if a kernel of ``path`` did not run, or one it must
+    not run did."""
+    launches = {tag: fn.launches if form is None else fn.form_launches[form]
+                for fn, tag, *_, form in KERNELS}
     routes = {tag: dict(fn.route_launches) for tag, fn in ROUTED.items()}
     log(f"launches in the timed {path} run: {json.dumps(launches)}; K1/K3/K4 "
         f"by route: {json.dumps(routes)}")
@@ -801,10 +905,17 @@ def read_launches(path: str) -> dict:
     return launches
 
 
-def phase_generation(cfg, params, quantize: str):
-    """Full-width generation with ``quantize`` weights; returns the launches
-    of the timed run and its tokens per second."""
-    path = "generation" if quantize == "int8" else f"generation {quantize}"
+def generation_path(quantize: str, kv: str) -> str:
+    if kv != "int8":
+        return f"generation kv {kv}"
+    return "generation" if quantize == "int8" else f"generation {quantize}"
+
+
+def phase_generation(cfg, params, quantize: str, kv: str = "int8"):
+    """Full-width generation with ``quantize`` weights and the ``kv`` global
+    cache; returns the launches of the timed run and its tokens per
+    second."""
+    path = generation_path(quantize, kv)
     torch.cuda.reset_peak_memory_stats()
     ids, att, bam = pg.ragged_prompts(cfg, BATCH, PROMPT_TOKENS, seed=0)
     L, N = cfg.block_length, ids.shape[1]
@@ -812,7 +923,7 @@ def phase_generation(cfg, params, quantize: str):
 
     def run():
         return gen.generate_blocks(params, cfg, ids, att, bam,
-                                   max_blocks=max_blocks, kv_cache="int8",
+                                   max_blocks=max_blocks, kv_cache=kv,
                                    device="cuda")
 
     t0 = time.perf_counter()
@@ -835,7 +946,7 @@ def phase_generation(cfg, params, quantize: str):
         raise AssertionError("prompt blocks were not kept")
     generated = BATCH * (res.n_blocks - N) * L
     log(f"{MODEL} generate_blocks B={BATCH} p{PROMPT_TOKENS}/d{NEW_TOKENS} "
-        f"{quantize} weights + int8 KV: {res.n_blocks - N} blocks generated; "
+        f"{quantize} weights + {kv} KV: {res.n_blocks - N} blocks generated; "
         f"warm-up run {warm_s:.2f} s; timed run {secs:.3f} s = "
         f"{generated / secs:.1f} tok/s (prefill included); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -900,10 +1011,10 @@ def phase_engine(kind: str, cfg, params):
         if min(r.generated) < 0 or max(r.generated) >= cfg.vocab_size:
             raise AssertionError(f"engine {kind}: tokens out of [0, vocab)")
         early += len(r.generated) < budget      # ended at an EOS
-    if kind == "paged" and (
+    if kind.startswith("paged") and (
             sorted(eng._free_pages) != list(range(1, eng.pool_pages))
             or bool(eng.cache.page_table.any())):
-        raise AssertionError("engine paged: pages were not all freed")
+        raise AssertionError(f"engine {kind}: pages were not all freed")
     lat = res["latency"]
     log(f"{MODEL} engine kv_cache={kind}: {len(reqs)} requests, 16 slots, "
         f"{res['tokens']} tokens in {res['seconds']:.3f} s = "
@@ -916,6 +1027,21 @@ def phase_engine(kind: str, cfg, params):
         f"{lat['queue_wait_s_mean']:.3f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches, [r.generated for r in reqs]
+
+
+def log_agreement(a: str, b: str, x_tokens, y_tokens) -> None:
+    """How far the greedy tokens of engine caches ``a`` and ``b`` agree."""
+    pairs = [(p, q) for x, y in zip(x_tokens, y_tokens)
+             for p, q in zip(x, y)]
+    prefix = [next((i for i, (p, q) in enumerate(zip(x, y)) if p != q),
+                   min(len(x), len(y)))
+              for x, y in zip(x_tokens, y_tokens)]
+    log(f"engine {a} vs {b}: the two caches agree on "
+        f"{sum(p == q for p, q in pairs)} of {len(pairs)} tokens (bf16 "
+        f"near-ties may differ); common prefix per request: min "
+        f"{min(prefix)}, mean {np.mean(prefix):.1f} tokens, "
+        f"{sum(p == len(x) for p, x in zip(prefix, x_tokens))} of "
+        f"{len(prefix)} requests equal")
 
 
 def main() -> None:
@@ -949,12 +1075,15 @@ def main() -> None:
     rows = []
     phase_k1(rows, cfg)
     phase_k2(rows, cfg, vcfg)
+    phase_k2_bf16(rows, cfg)
     phase_k3(rows, cfg, vcfg)
     phase_k4(rows, cfg)
     phase_k5(rows, cfg)
     phase_k6(rows, cfg)
+    phase_k6(rows, cfg, int4=True)
     phase_k7(rows, cfg)
     phase_k8(rows, cfg)
+    phase_k8(rows, cfg, int4=True)
     phase_small_reference()
     phase_small_quantized()
     phase_small_engine()
@@ -965,34 +1094,26 @@ def main() -> None:
         torch.cuda.synchronize()
         log(f"{MODEL}: random init + {quantize} quantization on the card "
             f"{time.perf_counter() - t0:.2f} s")
-        path = "generation" if quantize == "int8" else f"generation {quantize}"
-        launches[path], tok_s[quantize] = phase_generation(cfg, params,
-                                                           quantize)
+        kvs = ("int8", "bf16", "int4") if quantize == "int8" else ("int8",)
+        for kv in kvs:
+            launches[generation_path(quantize, kv)], tok_s[(quantize, kv)] = (
+                phase_generation(cfg, params, quantize, kv))
         if quantize == "int8":
-            for kind in ("int8", "paged"):
+            for kind in pg.ENGINE_KINDS:
                 launches[f"engine {kind}"], tokens[kind] = phase_engine(
                     kind, cfg, params)
         del params
-    pairs = [(a, b) for x, y in zip(tokens["int8"], tokens["paged"])
-             for a, b in zip(x, y)]
-    prefix = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
-                   min(len(x), len(y)))
-              for x, y in zip(tokens["int8"], tokens["paged"])]
-    log(f"engine: the two pools agree on {sum(a == b for a, b in pairs)} of "
-        f"{len(pairs)} tokens (bf16 near-ties may differ); common prefix per "
-        f"request: min {min(prefix)}, mean {np.mean(prefix):.1f} tokens, "
-        f"{sum(p == len(x) for p, x in zip(prefix, tokens['int8']))} of "
-        f"{len(prefix)} requests equal")
+    for a, b in (("int8", "paged"), ("int4", "paged-int4")):
+        log_agreement(a, b, tokens[a], tokens[b])
     vcfg, vparams = pg.vanilla_model(seed=0, quantize="int8")
     launches["vanilla"], tok_s["vanilla"] = phase_vanilla(vcfg, vparams)
     del vparams
     log("block/vanilla generated tokens per second at B=8 p2048/d128, "
         "INT8 KV (smoke figures, not a benchmark): " + ", ".join(
-            f"{q} {tok_s[q] / tok_s['vanilla']:.3f}"
+            f"{q} {tok_s[(q, 'int8')] / tok_s['vanilla']:.3f}"
             for q in ("int8", "int4", "mixed48")))
     for row in rows:
-        tag = row["name"].split()[0]
-        row["launches"] = launches[row["path"]][tag]
+        row["launches"] = launches[row["path"]][row.pop("tag")]
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

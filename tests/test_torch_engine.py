@@ -103,12 +103,16 @@ def test_engine_paged_pages_freed(served):
 
 
 def test_engine_refuses_what_it_does_not_serve(models):
+    """Mesh serving and overlapped streams are refused; the INT4 caches are
+    served (their own tests compare them with JAX)."""
     _, tcfg, _, pt = models
     make = torch_engine.ContinuousBatchingEngine
-    for kw in (dict(mesh=object()), dict(overlap_streams=2),
-               dict(kv_cache="int4"), dict(kv_cache="paged-int4")):
+    for kw in (dict(mesh=object()), dict(overlap_streams=2)):
         with pytest.raises(NotImplementedError):
             make(pt, tcfg, device="cpu", **kw)
+    for kind in ("int4", "paged-int4"):
+        eng = make(pt, tcfg, device="cpu", kv_cache=kind, page_size=4)
+        assert eng.cache.k.dtype == torch.uint8
     with pytest.raises(ValueError, match="kv_cache"):
         make(pt, tcfg, device="cpu", kv_cache="fp8")
     with pytest.raises(ValueError, match="params must be on"):

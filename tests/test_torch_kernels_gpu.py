@@ -1,5 +1,7 @@
 """The port's CUDA kernels K1-K8 against their plain PyTorch versions, on
-the card, at small and ragged shapes; and the launch counters.
+the card, at small and ragged shapes; and the launch counters. K2 is held
+in both its forms (INT8 and the bf16/float32 cache), K6 on INT8 and packed
+INT4 pools, K8 on both pool widths.
 
 Marked ``gpu``: each test skips, from inside its body, when no CUDA device
 is present. This file imports torch and the port only (no JAX), so on a
@@ -251,6 +253,63 @@ def test_k2_counters_are_left_at_zero():
     assert not bool(ctr.any())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,D,cap,length", [
+    (8, 16, 1, 128, 6, 5),          # the token decoder's local cache
+    (8, 16, 2, 128, 6, 0),          # its prefix step
+    (3, 4, 1, 32, 40, 17),          # capacity not a multiple of 32
+    (3, 4, 8, 64, 2176, 2100),      # several splits, S = 8
+    (3, 4, 3, 128, 2176, 90),       # every split but the first masked
+    (3, 4, 1, 128, 640, 530),       # the block decoder's capacity
+    (64, 16, 1, 64, 64, 50),        # one split: B*H fills the card
+    (2, 3, 8, 32, 300, 290),
+])
+def test_k2_float_cache_matches_plain(B, H, S, D, cap, length, dtype):
+    """K2's unquantized form: row 0 left-padded, row 1 (when B > 2) with no
+    allowed key."""
+    g = _card()
+    L = 2
+    k, v = (torch.randn((L, B, H, cap, D), generator=g, device="cuda"
+                        ).to(dtype) for _ in range(2))
+    q = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
+    valid = torch.ones((B, cap), dtype=torch.int32, device="cuda")
+    valid[:, length + S:] = 0
+    valid[0, :min(3, length)] = 0
+    if B > 2:
+        valid[1] = 0
+    mask = masks.decode_mask(length, cap, S, valid, device="cuda")
+    before = (k2.decode_attention_stacked.launches,
+              k2.decode_attention_int8_stacked.launches)
+    got = k2.decode_attention_stacked(q, k, v, L - 1, mask)
+    assert (k2.decode_attention_stacked.launches,
+            k2.decode_attention_int8_stacked.launches) == (before[0] + 1,
+                                                           before[1])
+    _close(got, k2.decode_attention_stacked_plain(q, k, v, L - 1, mask),
+           dtype)
+
+
+def test_k2_float_cache_counters_are_left_at_zero():
+    """Two launches in a row, each merging its splits, give the same bits;
+    a cache of another dtype than q is refused."""
+    g = _card()
+    B, H, S, D, cap = 2, 4, 1, 128, 2176
+    k, v = (torch.randn((1, B, H, cap, D), generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    q = torch.randn((B, H, S, D), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    mask = masks.decode_mask(2000, cap, S, device="cuda")
+    assert k2.plan(B, H, cap, build.sm_count(0)).splits > 1
+    first = k2.decode_attention_stacked(q, k, v, 0, mask)
+    second = k2.decode_attention_stacked(q, k, v, 0, mask)
+    assert torch.equal(first, second)
+    _close(second, k2.decode_attention_stacked_plain(q, k, v, 0, mask),
+           torch.bfloat16)
+    _, ctr = build.scratch(0, build.raw_stream(0), 0, 0)
+    assert not bool(ctr.any())
+    with pytest.raises(TypeError, match="both"):
+        k2.decode_attention_stacked(q.float(), k, v, 0, mask)
+
+
 def _k3_routed(q, k, v, mask, route):
     """flash_attention(); asserts it launched once, by ``route``."""
     return _routed(k3.flash_attention, route,
@@ -485,6 +544,87 @@ def test_k6_matches_plain(B, H, S, D, ps, n_virt, fresh, dtype):
     want = kp.paged_decode_attention_int8_plain(q, *pools, L - 1, pt, mask,
                                                 fresh=pair)
     _close(got, want, dtype)
+
+
+def _packed_pools(g, L, P, H, ps, D):
+    """Random packed INT4 pools (uint8 [L, P, H, ps, D/2]: every byte is two
+    valid nibbles) and positive f32 scales."""
+    def u8(shape):
+        return torch.randint(0, 256, shape, generator=g, device="cuda",
+                             dtype=torch.uint8)
+
+    def f32(shape):
+        return 0.01 + 0.02 * torch.rand(shape, generator=g, device="cuda")
+
+    return [u8((L, P, H, ps, D // 2)), f32((L, P, H, ps)),
+            u8((L, P, H, ps, D // 2)), f32((L, P, H, ps))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 8])
+def test_k6_int4_matches_plain(S, D, dtype):
+    """Packed pools, no fresh term (the INT4 pool writes first): row 0's
+    tail on the null page, row 1 with no allowed key, rows 1 and 2 with page
+    ids outside [0, P), which the kernel reads as the null page."""
+    g = _card()
+    L, B, H, ps, n_virt = 2, 3, 2, 16, 3
+    cap, P = ps * n_virt, B * n_virt + 1
+    pools = _packed_pools(g, L, P, H, ps, D)
+    pt = (1 + torch.randperm(B * n_virt, generator=g, device="cuda")).reshape(
+        B, n_virt).to(torch.int32)
+    pt[0, 1:] = 0
+    lengths = torch.randint(S + 1, cap, (B,), generator=g, device="cuda")
+    lengths[0] = ps - 1
+    valid = (torch.arange(cap, device="cuda")[None]
+             < lengths[:, None]).to(torch.int32)
+    valid[1] = 0
+    valid[2, :3] = 0
+    q_idx = (lengths[:, None] - S + torch.arange(S, device="cuda")[None])
+    mask = masks.AttnMask(q_idx.to(torch.int32),
+                          torch.arange(cap, dtype=torch.int32, device="cuda"),
+                          valid)
+    q = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
+    wild = pt.clone()
+    wild[1, 0], wild[2, -1] = -2, P + 3
+    null = torch.where((wild < 0) | (wild >= P), 0, wild)
+    fn = kp.paged_decode_attention_int8
+    before = (fn.launches, dict(fn.form_launches))
+    got = fn(q, *pools, L - 1, wild, mask)
+    assert fn.launches == before[0] + 1
+    assert fn.form_launches == dict(before[1],
+                                    int4=before[1]["int4"] + 1)
+    want = kp.paged_decode_attention_int8_plain(q, *pools, L - 1, null, mask)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("G,nv,P,H,ps,D,pt", [
+    (3, 2, 9, 4, 16, 128, [[1, 2], [3, 4], [5, 0]]),
+    (4, 3, 12, 2, 10, 32, [[1, 2, 3], [4, 5, 0], [4, 5, 0], [6, 12, -1]]),
+    (2, 1, 4, 2, 6, 40, [[3], [1]]),        # 20-byte rows: byte copies
+])
+def test_k8_packed_matches_plain(G, nv, P, H, ps, D, pt):
+    """K8 copies a packed INT4 pool's bytes as they are."""
+    g = _card()
+    L = 2
+    pools = _packed_pools(g, L, P, H, ps, D)
+    rows = _packed_pools(g, L, G, H, nv * ps, D)
+    pt = _i32(pt)
+    for g0 in range(G):
+        for g1 in range(g0):
+            if torch.equal(pt[g0], pt[g1]):
+                for t in rows:
+                    t[:, g0] = t[:, g1]
+    want = kp.paged_page_copy_int8_plain(*[t.clone() for t in pools], pt,
+                                         *rows)
+    before = kp.paged_page_copy_int8.form_launches["int4"]
+    got = kp.paged_page_copy_int8(*[t.clone() for t in pools], pt, *rows)
+    assert kp.paged_page_copy_int8.form_launches["int4"] == before + 1
+    _same_pools(got, want)
+    signed = [t.view(torch.int8) if t.dtype == torch.uint8 else t
+              for t in rows]
+    with pytest.raises(TypeError, match="dtype"):
+        kp.paged_page_copy_int8(*pools, pt, *signed)
 
 
 def test_k5_to_k8_launch_counters():

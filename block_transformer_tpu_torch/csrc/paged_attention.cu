@@ -39,23 +39,51 @@
 // value join the softmax as one more term with score (q . kf) / sqrt(D);
 // the caller masks the stale pool slot at the frontier with q_idx - 1. A
 // page id outside [0, P) is read as the null page 0, so no page id makes
-// the kernel read outside the pool. Design as K2: one block of 8 warps per
-// (b, h), 32-key tiles dealt round-robin to the warps, one key per lane in
-// the score phase (16-byte loads of its int8 row), each lane's pool slot
-// passed by shuffle to the lanes that own the value dims in P.V, warp
-// states merged through shared memory at the end, where the fresh term is
-// folded in. Bound by bytes: it reads each visible key and value row once
-// (D + 4 bytes each), against ~4 * S * D operations per key.
+// the kernel read outside the pool. K6's INT4 form (the Pallas kernel
+// widens any pool dtype) is the template argument INT4 of the same kernel.
 //
-// K6's INT4 form (the Pallas kernel widens any pool dtype) is the template
-// argument INT4 of the same kernel: a lane's key row is D/2 bytes (one to
-// four 16-byte loads), each byte widened exactly into its two signed
-// nibbles by the byte permute onto 2^23 (mma.cuh), the low one dotted with
-// query dim i and the high one with i + D/2; in P.V a lane's DPL output dims
-// lie in one half of D, so it reads DPL bytes and takes their low (lanes
-// 0-15) or high (lanes 16-31) nibbles.
-// It reads (D/2 + 4) bytes a visible key or value row, about half the INT8
-// form's at D = 128.
+// What bounds K6 on the H100: the bytes of the key and value rows some
+// query row may see, D + 4 bytes a row (INT8) or D/2 + 4 (INT4), against
+// ~4 * S * D operations a row. At decode, B * H of 256 pairs over ~800
+// virtual slots, the bytes are a few MB, so what it takes is set by how
+// many loads are in flight and by the rows it does not have to read. The
+// design (K2's split design, csrc/decode_attention.cu, through the page
+// table), and what each choice does about that:
+// - Split over the virtual capacity. The grid is (splits, H, B), blocks of
+//   4 warps; the n_virt * ps slots are cut into runs of slots_per_split
+//   (whole 32-slot tiles) by K2's plan() (kernels/decode_attention.py), so
+//   the launch puts several blocks on every SM: 3 splits of 256 slots at
+//   the engine's B = 16, H = 16, n_virt * ps = 768. A warp walks its
+//   split's tiles dealt round-robin.
+// - Merge in the same launch. Each split writes its (max, sum, acc[S][D])
+//   partials to a scratch buffer; the last split of a (b, h) to arrive (an
+//   atomic counter, left at zero) merges them in split order, folds in the
+//   fresh term once and writes the output: no second launch. The only
+//   block folds it when splits == 1.
+// - Page lookup a tile. When ps % 32 == 0 a tile lies in one page: the
+//   warp reads one page-table entry and the tile's key and value rows are
+//   contiguous in the pool. Otherwise each lane looks up its own slot's
+//   page, and the tile's 32 pool slots go through the warp's row of shared
+//   memory to the lanes that read the value rows.
+// - Loads in flight. Each warp holds two tiles in registers, in turn (no
+//   copies between them): the next tile's key rows, value rows, scales and
+//   mask are issued before the current tile's math, and the mask of the
+//   tile after that before it. Key rows are read with 16-byte loads, one
+//   key a lane; value rows whole-line, 4 bytes a lane (INT8: 4 dims, a warp
+//   reads a 128-byte row at D = 128; INT4: 8 dims, 4c..4c+3 in the low
+//   nibbles and D/2+4c.. in the high ones), with the tile's probabilities
+//   (times v_scale) in the warp's shared row: no serial loop of dependent
+//   loads. Widening is exact: the byte permute onto 2^23 for int8, nibbles()
+//   for int4 (mma.cuh).
+// - Skip tiles no query row may see. A warp ballots the tile's mask
+//   (kv_valid and kv_idx <= the largest q_idx), loaded ahead; a tile with
+//   no allowed key for any of the S rows loads no key, value or scale, so
+//   the ragged tail of a short row is not read. A row with an allowed key
+//   (or the fresh term) is unchanged: its masked keys weigh exp(-1e30 - m)
+//   = 0. A row with no allowed key in any split and no fresh term keeps the
+//   reference's uniform mean over all K virtual positions: the merging
+//   block sees its max still at -1e30 and computes that mean on a slow
+//   path that reads the (b, h)'s value rows, as K3 closes such rows.
 //
 // K8, paged_page_copy_int8 (Pallas _page_copy_kernel): admission copies G
 // prefilled rows [L, G, H, nv * ps, D] (+ scales) page by page into their
@@ -65,6 +93,8 @@
 // of pt_rows outside [0, P) is dropped. Pages are written whole, so no
 // read-modify-write; duplicate targets (padded admission rows, unallocated
 // tails on page 0) write identical or masked data. Bound by bytes.
+
+#include <climits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -186,7 +216,9 @@ page_copy_kernel(int8_t* __restrict__ kpool, float* __restrict__ kspool,
 // K6
 // ---------------------------------------------------------------------------
 
-constexpr int WARPS = 8;
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int TILE = 32;   // virtual slots a warp step, one a lane
 constexpr int MAX_S = 8;
 
 // The four low (hi = false) or high nibbles of the 4 bytes of w, each
@@ -198,9 +230,403 @@ __device__ __forceinline__ uint32_t nibbles(uint32_t w, bool hi) {
   return (hi ? u >> 4 : u) & 0x0F0F0F0Fu;
 }
 
+// A form's shapes: RB bytes of a slot's values (D int8, or D/2 packed
+// INT4), KW 16-byte loads of a key row; value rows are read 4 bytes a
+// lane, LPR lanes a row and RPS rows a warp step, VW loads a lane a tile;
+// AW output dims a lane accumulates a query row (INT4: 4 in each half of D).
+template <int D, bool INT4>
+struct Form {
+  static constexpr int RB = INT4 ? D / 2 : D;
+  static constexpr int KW = RB / 16;
+  static constexpr int LPR = RB / 4;
+  static constexpr int RPS = 32 / LPR;
+  static constexpr int VW = TILE / RPS;
+  static constexpr int AW = INT4 ? 8 : 4;
+};
+
+// 4 value bytes of a lane's column c, widened exactly: INT8 dims 4c..4c+3;
+// INT4 the low nibbles (dims 4c..4c+3), then the high ones (D/2 + 4c..).
+template <bool INT4>
+__device__ __forceinline__ void widen(uint32_t w, float (&f)[INT4 ? 8 : 4]) {
+  if constexpr (INT4) {
+    const uint32_t lo = nibbles(w, false), hi = nibbles(w, true);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[e] = bt::biased_byte<8>(lo, e);
+      f[4 + e] = bt::biased_byte<8>(hi, e);
+    }
+  } else {
+    const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = bt::biased_byte<128>(u, e);
+  }
+}
+
+// One layer of the pool as the block's (b, h) reads it: virtual position j
+// is slot (page * H + h) * ps + j % ps of [P, H, ps], page =
+// page_table[b, j / ps], read as the null page 0 when outside [0, P).
+struct Pool {
+  const int8_t* kq;
+  const float* ks;
+  const int8_t* vq;
+  const float* vs;
+  const int* pt;   // the row's page table [n_virt]
+  int P, H, h, ps;
+  bool whole;      // ps % TILE == 0: a tile lies in one page
+
+  __device__ __forceinline__ unsigned slot(int j) const {
+    const int vp = j / ps;
+    int pg = pt[vp];
+    if (pg < 0 || pg >= P) pg = 0;   // never read outside the pool
+    return (static_cast<unsigned>(pg) * H + h) * ps + (j - vp * ps);
+  }
+};
+
+// The block's shared memory: the query rows, each warp's probabilities of
+// its tile and pool slots of its tile (pages smaller than a tile), each
+// warp's softmax state for the merge, the fresh key's score and the rows
+// left with no allowed key.
+template <int D, int NS>
+struct Smem {
+  __align__(16) float qs[NS][D];
+  float pw[WARPS][TILE][NS];
+  unsigned slots[WARPS][TILE];
+  float m_w[WARPS][NS];
+  float l_w[WARPS][NS];
+  __align__(16) float acc_w[WARPS][NS][D];
+  float s_fresh;
+  int empty[NS];
+  int last;
+};
+
+// The mask inputs of a lane's slot j0 + lane of a tile; nothing past j_end.
+__device__ __forceinline__ void load_mask(int& idx, int& ok,
+                                          const int* __restrict__ kv_idx,
+                                          const int* __restrict__ valid,
+                                          int j0, int j_end, int lane) {
+  const int j = j0 + lane;
+  const bool in = j < j_end;
+  idx = in ? kv_idx[j] : 0;
+  ok = in ? valid[j] != 0 : 0;
+}
+
+// One 32-slot tile as a lane holds it: its key's row and scales, 4 bytes
+// of each value row it reads (row i * RPS + lane / LPR, column lane % LPR),
+// its key's mask inputs, and whether any query row may see the tile.
+template <int D, bool INT4>
+struct Tile {
+  using F = Form<D, INT4>;
+  uint4 k[F::KW];
+  uint32_t v[F::VW];
+  float ks, vs;
+  int idx, ok;
+  bool live;
+
+  // Rows of slots [j0, j0 + 32), none from j_end on; KEYS: the key rows
+  // and k_scale too (the uniform mean reads values and v_scale only).
+  template <bool KEYS>
+  __device__ __forceinline__ void load_rows(const Pool& pool,
+                                            unsigned* slots, int j0,
+                                            int j_end, int lane) {
+    const int j = j0 + lane;
+    const bool in = j < j_end;
+    unsigned base = 0, kslot;
+    if (pool.whole) {   // one page: the tile's rows are contiguous
+      base = pool.slot(j0);
+      kslot = base + lane;
+    } else {            // the value rows' slots through the warp's row
+      __syncwarp();     // the last tile's slots are read
+      kslot = in ? pool.slot(j) : 0u;
+      slots[lane] = kslot;
+      __syncwarp();
+    }
+    if (in) {
+      if constexpr (KEYS) {
+        const uint4* krow =
+            reinterpret_cast<const uint4*>(pool.kq + (size_t)kslot * F::RB);
+#pragma unroll
+        for (int c = 0; c < F::KW; ++c) k[c] = krow[c];
+        ks = pool.ks[kslot];
+      }
+      vs = pool.vs[kslot];
+    } else {
+      if constexpr (KEYS) {
+#pragma unroll
+        for (int c = 0; c < F::KW; ++c) k[c] = make_uint4(0, 0, 0, 0);
+        ks = 0.f;
+      }
+      vs = 0.f;
+    }
+    const int col = (lane % F::LPR) * 4;
+#pragma unroll
+    for (int i = 0; i < F::VW; ++i) {
+      const int r = i * F::RPS + lane / F::LPR;
+      const unsigned s = pool.whole ? base + r : slots[r];
+      v[i] = j0 + r < j_end ? *reinterpret_cast<const uint32_t*>(
+                                  pool.vq + (size_t)s * F::RB + col)
+                            : 0u;
+    }
+  }
+};
+
+// One tile's online-softmax step for a lane holding key score sc[s] (before
+// masking): updates (m, l), rescales acc and leaves the lane's probability
+// in sc[s]. `in`: the slot lies before j_end.
+template <int NS, int AW>
+__device__ __forceinline__ void softmax_step(float (&sc)[NS], float (&m)[NS],
+                                             float (&l)[NS],
+                                             float (&acc)[NS][AW],
+                                             const int (&qi)[NS], int S,
+                                             float k_mul, bool ok, int idx,
+                                             bool in) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (s >= S) break;
+    float x = sc[s] * k_mul;
+    if (!(ok && idx <= qi[s])) x = bt::kNeg;
+    if (!in) x = -INFINITY;   // past the split: no weight at all
+    const float m_new = fmaxf(m[s], warp_max(x));
+    const float corr = expf(m[s] - m_new);
+    const float p = expf(x - m_new);
+    l[s] = l[s] * corr + p;   // this lane's share of the sum
+    m[s] = m_new;
+#pragma unroll
+    for (int e = 0; e < AW; ++e) acc[s][e] *= corr;
+    sc[s] = p;
+  }
+}
+
+// The tile's math: scores of the lane's key against the S query rows, the
+// softmax step, then P.V over the value rows with the probabilities (times
+// v_scale) through the warp's shared row.
+template <int D, bool INT4, int NS>
+__device__ __forceinline__ void attend(
+    const Tile<D, INT4>& t, Smem<D, NS>& sm, float (&m)[NS], float (&l)[NS],
+    float (&acc)[NS][Form<D, INT4>::AW], const int (&qi)[NS], int S,
+    float sm_scale, bool in, int warp, int lane) {
+  using F = Form<D, INT4>;
+  float sc[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) sc[s] = 0.f;
+#pragma unroll
+  for (int c = 0; c < F::KW; ++c) {
+    const uint32_t w[4] = {t.k[c].x, t.k[c].y, t.k[c].z, t.k[c].w};
+#pragma unroll
+    for (int e4 = 0; e4 < 4; ++e4) {
+      const int d = c * 16 + e4 * 4;   // INT4: byte d holds dims d, D/2 + d
+      float f[F::AW];
+      widen<INT4>(w[e4], f);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        if (s >= S) break;
+        const float4 qv = *reinterpret_cast<const float4*>(&sm.qs[s][d]);
+        sc[s] += qv.x * f[0] + qv.y * f[1] + qv.z * f[2] + qv.w * f[3];
+        if constexpr (INT4) {
+          const float4 qh =
+              *reinterpret_cast<const float4*>(&sm.qs[s][D / 2 + d]);
+          sc[s] += qh.x * f[4] + qh.y * f[5] + qh.z * f[6] + qh.w * f[7];
+        }
+      }
+    }
+  }
+  softmax_step<NS, F::AW>(sc, m, l, acc, qi, S, t.ks * sm_scale, t.ok,
+                          t.idx, in);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (s >= S) break;
+    sm.pw[warp][lane][s] = sc[s] * t.vs;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < F::VW; ++i) {
+    const int r = i * F::RPS + lane / F::LPR;   // the tile's value row
+    float f[F::AW];
+    widen<INT4>(t.v[i], f);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      if (s >= S) break;
+      const float p = sm.pw[warp][r][s];
+#pragma unroll
+      for (int e = 0; e < F::AW; ++e) acc[s][e] += p * f[e];
+    }
+  }
+  __syncwarp();   // pw is rewritten by the next tile
+}
+
+// Sums a lane's accumulators over the lanes of its column (those LPR lanes
+// apart) and stores them, as dims of row s, in acc_w[warp][s].
+template <int D, bool INT4, int NS>
+__device__ __forceinline__ void store_acc(Smem<D, NS>& sm, float (&a)[8],
+                                          int s, int warp, int lane) {
+  using F = Form<D, INT4>;
+#pragma unroll
+  for (int e = 0; e < F::AW; ++e)
+#pragma unroll
+    for (int o = F::LPR; o < 32; o <<= 1)
+      a[e] += __shfl_xor_sync(FULL, a[e], o);
+  if (lane < F::LPR) {
+    *reinterpret_cast<float4*>(&sm.acc_w[warp][s][lane * 4]) =
+        make_float4(a[0], a[1], a[2], a[3]);
+    if constexpr (INT4)
+      *reinterpret_cast<float4*>(&sm.acc_w[warp][s][D / 2 + lane * 4]) =
+          make_float4(a[4], a[5], a[6], a[7]);
+  }
+}
+
+// The slow path of a row with no allowed key in any split and no fresh
+// term: the uniform mean of v_scale * v_q over all K virtual positions,
+// as sum over the block's warps of acc_w[w][0][d], to be divided by K.
+template <int D, bool INT4, int NS>
+__device__ __forceinline__ void uniform_sum(Smem<D, NS>& sm, const Pool& pool,
+                                         int K, int warp, int lane) {
+  using F = Form<D, INT4>;
+  float a[8] = {};
+  Tile<D, INT4> t;
+  for (int j0 = warp * TILE; j0 < K; j0 += WARPS * TILE) {
+    t.template load_rows<false>(pool, sm.slots[warp], j0, K, lane);
+    sm.pw[warp][lane][0] = t.vs;   // 0 past K
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < F::VW; ++i) {
+      const int r = i * F::RPS + lane / F::LPR;
+      float f[F::AW];
+      widen<INT4>(t.v[i], f);
+      const float p = sm.pw[warp][r][0];
+#pragma unroll
+      for (int e = 0; e < F::AW; ++e) a[e] += p * f[e];
+    }
+    __syncwarp();
+  }
+  store_acc<D, INT4, NS>(sm, a, 0, warp, lane);
+  __syncthreads();
+}
+
+// The end of a block: each warp's state (sums over lanes, accumulators
+// over the lanes of a column) goes to shared memory; the block's (max,
+// sum, acc) is the output with one split, else this split's partials, and
+// the last split of this (b, h) to arrive merges all of them, in split
+// order, leaving the counter at zero for the next launch. The block that
+// writes the output folds in the fresh term (score s_fresh, value vf) and
+// closes each row whose max is still -1e30 (no allowed key) without it by
+// the uniform mean.
+template <typename T, int D, int NS, bool INT4>
+__device__ __forceinline__ void finish(
+    Smem<D, NS>& sm, float (&m)[NS], float (&l)[NS],
+    float (&acc)[NS][Form<D, INT4>::AW], const Pool& pool, int K,
+    const float* __restrict__ vf, T* __restrict__ out,
+    float* __restrict__ partial, int* __restrict__ counters, int S,
+    size_t bh, int warp, int lane, int tid) {
+  using F = Form<D, INT4>;
+  const int split = blockIdx.x, splits = gridDim.x;
+  const bool fresh = vf != nullptr;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (s >= S) break;
+    l[s] = warp_sum(l[s]);
+    float a[8];
+#pragma unroll
+    for (int e = 0; e < F::AW; ++e) a[e] = acc[s][e];
+    store_acc<D, INT4, NS>(sm, a, s, warp, lane);
+    if (lane == 0) {
+      sm.m_w[warp][s] = m[s];
+      sm.l_w[warp][s] = l[s];
+    }
+  }
+  __syncthreads();
+
+  bool empty = false;   // this thread left a row to the uniform mean
+  auto close = [&](int i, float mx, float lsum, float a) {
+    const int s = i / D;
+    if (fresh) {   // one more softmax term, always allowed
+      const float m2 = fmaxf(mx, sm.s_fresh);
+      const float c = expf(mx - m2), pf = expf(sm.s_fresh - m2);
+      lsum = lsum * c + pf;
+      a = a * c + pf * vf[bh * D + i % D];
+    } else if (!(mx > bt::kNeg)) {   // no allowed key in any split
+      sm.empty[s] = 1;
+      empty = true;
+      return;
+    }
+    out[bh * S * D + i] = bt::from_f32<T>(a / fmaxf(lsum, 1e-30f));
+  };
+
+  const size_t base = bh * splits + split;   // [B*H][splits]
+  float* part_acc = partial;
+  float* part_ml =
+      partial + (size_t)gridDim.z * gridDim.y * splits * S * D;
+  for (int i = tid; i < S * D; i += THREADS) {
+    const int s = i / D, d = i % D;
+    float mx = bt::kNeg;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm.m_w[w][s]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float c = expf(sm.m_w[w][s] - mx);
+      lsum += sm.l_w[w][s] * c;
+      a += sm.acc_w[w][s][d] * c;
+    }
+    if (splits == 1) {
+      close(i, mx, lsum, a);
+    } else {
+      part_acc[base * S * D + i] = a;
+      if (d == 0)
+        *reinterpret_cast<float2*>(part_ml + (base * S + s) * 2) =
+            make_float2(mx, lsum);
+    }
+  }
+  if (splits > 1) {
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      sm.last = atomicAdd(counters + bh, 1) == splits - 1;
+      if (sm.last) counters[bh] = 0;
+    }
+    __syncthreads();
+    if (!sm.last) return;
+    __threadfence();
+    for (int i = tid; i < S * D; i += THREADS) {
+      const int s = i / D;
+      float mx = bt::kNeg;
+      for (int z = 0; z < splits; ++z)
+        mx = fmaxf(mx, __ldcg(part_ml + ((bh * splits + z) * S + s) * 2));
+      float lsum = 0.f, a = 0.f;
+      for (int z = 0; z < splits; ++z) {
+        const float2 ml = __ldcg(reinterpret_cast<const float2*>(
+            part_ml + ((bh * splits + z) * S + s) * 2));
+        const float c = expf(ml.x - mx);
+        lsum += ml.y * c;
+        a += __ldcg(part_acc + (bh * splits + z) * S * D + i) * c;
+      }
+      close(i, mx, lsum, a);
+    }
+  }
+  if (!__syncthreads_or(empty)) return;
+  uniform_sum<D, INT4, NS>(sm, pool, K, warp, lane);
+  for (int i = tid; i < S * D; i += THREADS) {
+    if (!sm.empty[i / D]) continue;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) a += sm.acc_w[w][0][i % D];
+    out[bh * S * D + i] = bt::from_f32<T>(a / K);
+  }
+}
+
+// Registers: two tiles, S x AW accumulators and the softmax state a lane;
+// with one query row the smaller head dims fit four blocks an SM. At D =
+// 128 the INT8 form spills at three blocks' cap of 168 registers, so both
+// forms take two there (and then use ~240).
+constexpr int min_blocks(int D, int NS) {
+  return NS > 1 ? 2 : D == 128 ? 2 : 4;
+}
+
+// NS (1 or MAX_S) sizes the per-query arrays; S <= NS is a run-time value.
 // INT4: the pool holds D/2 packed bytes a slot (see the top of the file).
-template <typename T, int D, bool INT4>
-__global__ void __launch_bounds__(WARPS * 32)
+// With gridDim.x > 1 splits, partial holds [B*H][splits][S][D] float32 sums
+// followed by [B*H][splits][S][2] (max, sum), and counters one zero int per
+// (b, h), left at zero.
+template <typename T, int D, int NS, bool INT4>
+__global__ void __launch_bounds__(THREADS, min_blocks(D, NS))
 paged_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                   const float* __restrict__ ks, const int8_t* __restrict__ vq,
                   const float* __restrict__ vs,
@@ -209,249 +635,137 @@ paged_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                   const int* __restrict__ kv_idx,
                   const int* __restrict__ kv_valid,
                   const float* __restrict__ kf, const float* __restrict__ vf,
-                  T* __restrict__ out, int H, int S, int P, int ps,
-                  int n_virt, float sm_scale) {
-  constexpr int DPL = D / 32;   // output dims per lane
-  constexpr int RB = INT4 ? D / 2 : D;   // bytes of a slot's values
-  __shared__ float qs[MAX_S][D];
-  __shared__ float m_w[WARPS][MAX_S];
-  __shared__ float l_w[WARPS][MAX_S];
-  __shared__ float acc_w[WARPS][MAX_S][D];
-  __shared__ float s_fresh;
+                  T* __restrict__ out, float* __restrict__ partial,
+                  int* __restrict__ counters, int H, int S, int P, int ps,
+                  int n_virt, int slots_per_split, float sm_scale) {
+  using F = Form<D, INT4>;
+  using TileD = Tile<D, INT4>;
+  __shared__ Smem<D, NS> sm;
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t bh = static_cast<size_t>(b) * H + h;
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t bh = (size_t)b * H + h;
   const int K = n_virt * ps;
-  const bool fresh = kf != nullptr;
-
-  for (int i = threadIdx.x; i < S * D; i += blockDim.x)
-    qs[i / D][i % D] = bt::to_f32(q[bh * S * D + i]);
+  for (int i = tid; i < NS * D; i += THREADS) {
+    const int s = i / D;
+    sm.qs[s][i % D] = s < S ? bt::to_f32(q[bh * S * D + i]) : 0.f;
+  }
+  if (tid < NS) sm.empty[tid] = 0;
   __syncthreads();
-  if (fresh && warp == 0) {   // S == 1: the fresh key's score
+  if (kf != nullptr && warp == 0) {   // S == 1: the fresh key's score
     float a = 0.f;
-    for (int d = lane; d < D; d += 32) a += qs[0][d] * kf[bh * D + d];
+    for (int d = lane; d < D; d += 32) a += sm.qs[0][d] * kf[bh * D + d];
     a = warp_sum(a);
-    if (lane == 0) s_fresh = a * sm_scale;
+    if (lane == 0) sm.s_fresh = a * sm_scale;
   }
 
-  const int* pt_b = page_table + static_cast<size_t>(b) * n_virt;
-  const int* valid_b = kv_valid + static_cast<size_t>(b) * K;
+  const Pool pool{kq, ks, vq, vs, page_table + (size_t)b * n_virt,
+                  P, H, h, ps, ps % TILE == 0};
+  const int* valid_b = kv_valid + (size_t)b * K;
+  const int j_begin = split * slots_per_split;
+  const int j_end = min(K, j_begin + slots_per_split);
+  const int n_tiles = (j_end - j_begin + TILE - 1) / TILE;
 
-  int qi[MAX_S];
-  float m[MAX_S], l[MAX_S], acc[MAX_S][DPL];
+  int qi[NS], qmax = INT_MIN;
+  float m[NS], l[NS], acc[NS][F::AW];
 #pragma unroll
-  for (int s = 0; s < MAX_S; ++s) {
-    qi[s] = s < S ? q_idx[b * S + s] : 0;
+  for (int s = 0; s < NS; ++s) {
+    qi[s] = s < S ? q_idx[b * S + s] : INT_MIN;
+    qmax = max(qmax, qi[s]);
     m[s] = bt::kNeg;
     l[s] = 0.f;
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[s][e] = 0.f;
+    for (int e = 0; e < F::AW; ++e) acc[s][e] = 0.f;
   }
 
-  const int n_tiles = (K + 31) / 32;
-  for (int t = warp; t < n_tiles; t += WARPS) {
-    const int j = t * 32 + lane;   // this lane's virtual position
-    const bool in_range = j < K;
-    // this key's pool slot: (page * H + h) * ps + o in [P, H, ps]
-    unsigned long long slot = 0;
-    if (in_range) {
-      const int vp = j / ps;
-      int pg = pt_b[vp];
-      if (pg < 0 || pg >= P) pg = 0;   // never read outside the pool
-      slot = (static_cast<unsigned long long>(pg) * H + h) * ps + (j - vp * ps);
-    }
-    float sc[MAX_S];
-#pragma unroll
-    for (int s = 0; s < MAX_S; ++s) sc[s] = 0.f;
-    if (in_range) {
-      const int8_t* krow = kq + slot * RB;
-#pragma unroll
-      for (int d0 = 0; d0 < RB; d0 += 16) {
-        if constexpr (INT4) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(krow + d0);
-          const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const uint32_t lo = nibbles(w[c], false), hi = nibbles(w[c], true);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int d = d0 + c * 4 + e;
-              const float kl = bt::biased_byte<8>(lo, e);
-              const float kh = bt::biased_byte<8>(hi, e);
-#pragma unroll
-              for (int s = 0; s < MAX_S; ++s)
-                if (s < S) sc[s] += qs[s][d] * kl + qs[s][d + D / 2] * kh;
-            }
-          }
-        } else {
-          union {
-            int4 u;
-            int8_t b[16];
-          } raw;
-          raw.u = *reinterpret_cast<const int4*>(krow + d0);
-#pragma unroll
-          for (int e = 0; e < 16; ++e) {
-            const float kv = static_cast<float>(raw.b[e]);
-#pragma unroll
-            for (int s = 0; s < MAX_S; ++s)
-              if (s < S) sc[s] += qs[s][d0 + e] * kv;
-          }
-        }
-      }
-    }
-    const float k_mul = in_range ? ks[slot] * sm_scale : 0.f;
-    const float v_mul = in_range ? vs[slot] : 0.f;
-    const int kvi = in_range ? kv_idx[j] : 0;
-    const bool valid = in_range && valid_b[j] != 0;
-
-#pragma unroll
-    for (int s = 0; s < MAX_S; ++s) {
-      if (s >= S) break;
-      float v = sc[s] * k_mul;
-      if (!(valid && kvi <= qi[s])) v = bt::kNeg;
-      if (!in_range) v = -INFINITY;   // past the virtual capacity: no weight
-      const float m_new = fmaxf(m[s], warp_max(v));
-      const float corr = expf(m[s] - m_new);
-      const float p = expf(v - m_new);
-      l[s] = l[s] * corr + warp_sum(p);
-      m[s] = m_new;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[s][e] *= corr;
-      sc[s] = p * v_mul;
-    }
-
-    const int n_keys = min(32, K - t * 32);
-    for (int jj = 0; jj < n_keys; ++jj) {
-      const unsigned long long vslot = __shfl_sync(FULL, slot, jj);
-      float vv[DPL];
-      if constexpr (INT4) {   // this lane's dims, all in one half of D
-        const uint8_t* vrow = reinterpret_cast<const uint8_t*>(vq) +
-                              vslot * RB + (lane % 16) * DPL;
-        uint32_t w;   // the DPL bytes of this lane's dims
-        if constexpr (DPL == 4)
-          w = *reinterpret_cast<const uint32_t*>(vrow);
-        else if constexpr (DPL == 2)
-          w = *reinterpret_cast<const uint16_t*>(vrow);
-        else
-          w = *vrow;
-        const uint32_t nib = nibbles(w, lane >= 16);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) vv[e] = bt::biased_byte<8>(nib, e);
-      } else if constexpr (DPL == 4) {
-        const int8_t* vrow = vq + vslot * D + lane * DPL;
-        const char4 c = *reinterpret_cast<const char4*>(vrow);
-        vv[0] = c.x;
-        vv[1] = c.y;
-        vv[2] = c.z;
-        vv[3] = c.w;
-      } else {
-        const int8_t* vrow = vq + vslot * D + lane * DPL;
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) vv[e] = vrow[e];
-      }
-#pragma unroll
-      for (int s = 0; s < MAX_S; ++s) {
-        if (s >= S) break;
-        const float p = __shfl_sync(FULL, sc[s], jj);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[s][e] += p * vv[e];
-      }
-    }
+  // Tiles t = warp, warp + WARPS, ... of the split, in two register sets
+  // used in turn; the mask of the tile after the next waits in (idx_n,
+  // ok_n).
+  TileD A, B;
+  int idx_n = 0, ok_n = 0;
+  const auto j0_of = [&](int t) { return j_begin + t * TILE; };
+  const auto seen = [&](int idx, int ok) {   // by some query row, warp-wide
+    return __any_sync(FULL, ok && idx <= qmax);
+  };
+  int t = warp;
+  if (t < n_tiles) {
+    load_mask(A.idx, A.ok, kv_idx, valid_b, j0_of(t), j_end, lane);
+    if (t + WARPS < n_tiles)
+      load_mask(idx_n, ok_n, kv_idx, valid_b, j0_of(t + WARPS), j_end, lane);
+    A.live = seen(A.idx, A.ok);
+    if (A.live)
+      A.template load_rows<true>(pool, sm.slots[warp], j0_of(t), j_end, lane);
   }
-
-#pragma unroll
-  for (int s = 0; s < MAX_S; ++s) {
-    if (s >= S) break;
-    if (lane == 0) {
-      m_w[warp][s] = m[s];
-      l_w[warp][s] = l[s];
+  const auto step = [&](TileD& cur, TileD& nxt, int t) {
+    if (t + WARPS < n_tiles) {   // in flight during this tile's math
+      nxt.idx = idx_n;
+      nxt.ok = ok_n;
+      nxt.live = seen(nxt.idx, nxt.ok);
+      if (nxt.live)
+        nxt.template load_rows<true>(pool, sm.slots[warp], j0_of(t + WARPS),
+                                     j_end, lane);
+      if (t + 2 * WARPS < n_tiles)
+        load_mask(idx_n, ok_n, kv_idx, valid_b, j0_of(t + 2 * WARPS), j_end,
+                  lane);
     }
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc_w[warp][s][lane * DPL + e] = acc[s][e];
+    if (cur.live)
+      attend<D, INT4, NS>(cur, sm, m, l, acc, qi, S, sm_scale,
+                          j0_of(t) + lane < j_end, warp, lane);
+  };
+  for (; t < n_tiles; t += 2 * WARPS) {
+    step(A, B, t);
+    if (t + WARPS >= n_tiles) break;
+    step(B, A, t + WARPS);
   }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < S * D; i += blockDim.x) {
-    const int s = i / D, d = i % D;
-    float mx = bt::kNeg;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, m_w[w][s]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float c = expf(m_w[w][s] - mx);
-      lsum += l_w[w][s] * c;
-      a += acc_w[w][s][d] * c;
-    }
-    if (fresh) {   // one more softmax term: score s_fresh, value vf
-      const float m2 = fmaxf(mx, s_fresh);
-      const float c = expf(mx - m2), pf = expf(s_fresh - m2);
-      lsum = lsum * c + pf;
-      a = a * c + pf * vf[bh * D + d];
-    }
-    out[bh * S * D + i] = bt::from_f32<T>(a / fmaxf(lsum, 1e-30f));
-  }
+  finish<T, D, NS, INT4>(sm, m, l, acc, pool, K, vf, out, partial, counters,
+                         S, bh, warp, lane, tid);
 }
 
-template <typename T, int D, bool INT4>
-void launch_attn(const void* q, const void* kq, const void* ks, const void* vq,
-                 const void* vs, const void* pt, const void* q_idx,
-                 const void* kv_idx, const void* kv_valid, const void* kf,
-                 const void* vf, void* out, int B, int H, int S, int P,
-                 int ps, int n_virt, cudaStream_t stream) {
+// Pointers and shapes of one K6 launch.
+struct AttnArgs {
+  const void *q, *kq, *ks, *vq, *vs, *pt, *q_idx, *kv_idx, *kv_valid, *kf,
+      *vf;
+  void* out;
+  float* partial;
+  int* counters;
+  int B, H, S, P, ps, n_virt, splits, slots_per_split;
+};
+
+template <typename T, int D, int NS, bool INT4>
+void launch_attn(const AttnArgs& a, cudaStream_t stream) {
   const float sm_scale = 1.0f / sqrtf(static_cast<float>(D));
-  paged_attn_kernel<T, D, INT4><<<dim3(H, B), WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const int8_t*>(kq),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(vq),
-      static_cast<const float*>(vs), static_cast<const int*>(pt),
-      static_cast<const int*>(q_idx), static_cast<const int*>(kv_idx),
-      static_cast<const int*>(kv_valid), static_cast<const float*>(kf),
-      static_cast<const float*>(vf), static_cast<T*>(out), H, S, P, ps,
-      n_virt, sm_scale);
+  paged_attn_kernel<T, D, NS, INT4>
+      <<<dim3(a.splits, a.H, a.B), THREADS, 0, stream>>>(
+          static_cast<const T*>(a.q), static_cast<const int8_t*>(a.kq),
+          static_cast<const float*>(a.ks), static_cast<const int8_t*>(a.vq),
+          static_cast<const float*>(a.vs), static_cast<const int*>(a.pt),
+          static_cast<const int*>(a.q_idx), static_cast<const int*>(a.kv_idx),
+          static_cast<const int*>(a.kv_valid),
+          static_cast<const float*>(a.kf), static_cast<const float*>(a.vf),
+          static_cast<T*>(a.out), a.partial, a.counters, a.H, a.S, a.P, a.ps,
+          a.n_virt, a.slots_per_split, sm_scale);
 }
 
 template <typename T, bool INT4>
-int attn_dispatch_d(const void* q, const void* kq, const void* ks,
-                    const void* vq, const void* vs, const void* pt,
-                    const void* q_idx, const void* kv_idx,
-                    const void* kv_valid, const void* kf, const void* vf,
-                    void* out, int B, int H, int S, int D, int P, int ps,
-                    int n_virt, cudaStream_t st) {
+int attn_dispatch(const AttnArgs& a, int D, cudaStream_t st) {
+  const bool one = a.S == 1;
   switch (D) {
     case 32:
-      launch_attn<T, 32, INT4>(q, kq, ks, vq, vs, pt, q_idx, kv_idx, kv_valid,
-                               kf, vf, out, B, H, S, P, ps, n_virt, st);
+      one ? launch_attn<T, 32, 1, INT4>(a, st)
+          : launch_attn<T, 32, MAX_S, INT4>(a, st);
       break;
     case 64:
-      launch_attn<T, 64, INT4>(q, kq, ks, vq, vs, pt, q_idx, kv_idx, kv_valid,
-                               kf, vf, out, B, H, S, P, ps, n_virt, st);
+      one ? launch_attn<T, 64, 1, INT4>(a, st)
+          : launch_attn<T, 64, MAX_S, INT4>(a, st);
       break;
     case 128:
-      launch_attn<T, 128, INT4>(q, kq, ks, vq, vs, pt, q_idx, kv_idx,
-                                kv_valid, kf, vf, out, B, H, S, P, ps, n_virt,
-                                st);
+      one ? launch_attn<T, 128, 1, INT4>(a, st)
+          : launch_attn<T, 128, MAX_S, INT4>(a, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool INT4>
-int attn_dispatch_t(const void* q, const void* kq, const void* ks,
-                    const void* vq, const void* vs, const void* pt,
-                    const void* q_idx, const void* kv_idx,
-                    const void* kv_valid, const void* kf, const void* vf,
-                    void* out, int B, int H, int S, int D, int P, int ps,
-                    int n_virt, int q_bf16, cudaStream_t st) {
-  if (q_bf16)
-    return attn_dispatch_d<__nv_bfloat16, INT4>(q, kq, ks, vq, vs, pt, q_idx,
-                                                kv_idx, kv_valid, kf, vf, out,
-                                                B, H, S, D, P, ps, n_virt, st);
-  return attn_dispatch_d<float, INT4>(q, kq, ks, vq, vs, pt, q_idx, kv_idx,
-                                      kv_valid, kf, vf, out, B, H, S, D, P,
-                                      ps, n_virt, st);
 }
 
 }  // namespace
@@ -502,24 +816,37 @@ extern "C" int bt_paged_page_copy_int8(void* kpool, void* kspool, void* vpool,
 
 // K6. q [B, H, S, D] (float if q_bf16 == 0, else bf16), S <= 8, D in {32,
 // 64, 128}; kq/vq of one layer: int8 [P, H, ps, D], or with int4 != 0
-// packed uint8 [P, H, ps, D/2]; ks/vs f32 [P, H, ps]; page_table int32
-// [B, n_virt]; q_idx int32 [B, S]; kv_idx int32 [K]; kv_valid int32 [B, K]
-// with K = n_virt * ps; kf/vf f32 [B, H, D] or null (only with S == 1);
-// out [B, H, S, D] like q.
+// packed uint8 [P, H, ps, D/2], 16-byte aligned; ks/vs f32 [P, H, ps]
+// (P * H * ps < 2^32 slots); page_table int32 [B, n_virt]; q_idx int32
+// [B, S]; kv_idx int32 [K]; kv_valid int32 [B, K] with K = n_virt * ps;
+// kf/vf f32 [B, H, D], both or neither (only with S == 1); out
+// [B, H, S, D] like q. The K virtual slots are cut into `splits` runs of
+// slots_per_split (a multiple of 32; splits * slots_per_split >= K >
+// (splits - 1) * slots_per_split); with splits > 1, workspace holds
+// B*H*splits*S*(D + 2) floats and counters B*H zero ints, left at zero.
 extern "C" int bt_paged_decode_attention_int8(
     const void* q, const void* kq, const void* ks, const void* vq,
     const void* vs, const void* page_table, const void* q_idx,
     const void* kv_idx, const void* kv_valid, const void* kf, const void* vf,
-    void* out, int B, int H, int S, int D, int P, int ps, int n_virt,
-    int q_bf16, int int4, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S < 1 || S > MAX_S || (kf != nullptr && S != 1))
+    void* out, void* workspace, void* counters, int B, int H, int S, int D,
+    int P, int ps, int n_virt, int splits, int slots_per_split, int q_bf16,
+    int int4, void* stream) {
+  const long K = (long)n_virt * ps;
+  if (S < 1 || S > MAX_S || (kf != nullptr && S != 1) ||
+      (kf == nullptr) != (vf == nullptr) || K < 1 || splits < 1 ||
+      slots_per_split % TILE != 0 || (long)splits * slots_per_split < K ||
+      (long)(splits - 1) * slots_per_split >= K ||
+      (splits > 1 && (workspace == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0) return 0;
+  const AttnArgs a{q, kq, ks, vq, vs, page_table, q_idx, kv_idx, kv_valid,
+                   kf, vf, out, static_cast<float*>(workspace),
+                   static_cast<int*>(counters), B, H, S, P, ps, n_virt,
+                   splits, slots_per_split};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (int4)
-    return attn_dispatch_t<true>(q, kq, ks, vq, vs, page_table, q_idx, kv_idx,
-                                 kv_valid, kf, vf, out, B, H, S, D, P, ps,
-                                 n_virt, q_bf16, st);
-  return attn_dispatch_t<false>(q, kq, ks, vq, vs, page_table, q_idx, kv_idx,
-                                kv_valid, kf, vf, out, B, H, S, D, P, ps,
-                                n_virt, q_bf16, st);
+    return q_bf16 ? attn_dispatch<__nv_bfloat16, true>(a, D, st)
+                  : attn_dispatch<float, true>(a, D, st);
+  return q_bf16 ? attn_dispatch<__nv_bfloat16, false>(a, D, st)
+                : attn_dispatch<float, false>(a, D, st);
 }

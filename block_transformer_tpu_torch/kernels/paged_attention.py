@@ -16,7 +16,11 @@ pages point there and are masked). The CUDA kernels are in
   page table, optionally with the current step's not-yet-written ``fresh``
   K/V as one extra softmax term (S == 1). One entry serves both pool
   widths, as the Pallas kernel does: the wrapper picks the kernel's INT8
-  or packed-INT4 form by the pool's dtype.
+  or packed-INT4 form by the pool's dtype. The kernel splits the
+  ``n_virt * ps`` virtual slots over blocks as K2's ``plan`` splits a
+  cache (``kernels/decode_attention.py``) and merges the splits in the
+  same launch through ``build.scratch``; it skips the tiles of 32 slots
+  that no query row may see.
 - K7 ``paged_write_layers_int8``: K5 for every layer in one launch.
 - K8 ``paged_page_copy_int8``: admission's page-by-page copy of prefilled
   rows into their pool pages. It copies bytes, so it takes a packed INT4
@@ -48,7 +52,7 @@ import functools
 
 import torch
 
-from block_transformer_tpu_torch.kernels import build
+from block_transformer_tpu_torch.kernels import build, decode_attention
 from block_transformer_tpu_torch.kernels.flash_attention import index_vectors
 from block_transformer_tpu_torch.ops import masks as masks_lib
 from block_transformer_tpu_torch.ops.attention import attention_xla
@@ -316,17 +320,28 @@ def paged_decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
     if not _aligned(k_q, v_q):
         raise ValueError("paged_decode_attention_int8: pools must be 16-byte "
                          "aligned")
-    q_idx, kv_idx, kv_valid = index_vectors(mask, B, S, n_virt * ps, q.device)
+    if P * H * ps >= 2 ** 32:
+        raise ValueError("paged_decode_attention_int8: the kernel indexes a "
+                         f"layer's slots in 32 bits, pool {tuple(k_q.shape)}")
+    K = n_virt * ps
+    q_idx, kv_idx, kv_valid = index_vectors(mask, B, S, K, q.device)
     out = torch.empty_like(q)
-    null = ctypes.c_void_p(None)
-    err = _fn("bt_paged_decode_attention_int8", 12, 9)(
-        build.ptr(q), build.ptr(k_q[layer]), build.ptr(k_s[layer]),
-        build.ptr(v_q[layer]), build.ptr(v_s[layer]), build.ptr(page_table),
-        build.ptr(q_idx), build.ptr(kv_idx), build.ptr(kv_valid),
-        build.ptr(fresh[0]) if fresh else null,
-        build.ptr(fresh[1]) if fresh else null, build.ptr(out),
-        B, H, S, D, P, ps, n_virt, int(q.dtype == torch.bfloat16),
-        int(kv_bits(k_q) == 4), build.stream(q.device))
+    dev = q.device.index or 0
+    p = decode_attention.plan(B, H, K, build.sm_count(dev))
+    stream = build.raw_stream(dev)
+    ws = ctr = None
+    if p.splits > 1:
+        ws, ctr = build.scratch(dev, stream, decode_attention.scratch_floats(
+            p, B, H, S, D), B * H)
+        ws, ctr = ws.data_ptr(), ctr.data_ptr()
+    kf, vf = (t.data_ptr() for t in fresh) if fresh else (None, None)
+    err = _fn("bt_paged_decode_attention_int8", 14, 11)(
+        q.data_ptr(), k_q[layer].data_ptr(), k_s[layer].data_ptr(),
+        v_q[layer].data_ptr(), v_s[layer].data_ptr(), page_table.data_ptr(),
+        q_idx.data_ptr(), kv_idx.data_ptr(), kv_valid.data_ptr(), kf, vf,
+        out.data_ptr(), ws, ctr, B, H, S, D, P, ps, n_virt, p.splits,
+        p.slots_per_split, int(q.dtype == torch.bfloat16),
+        int(kv_bits(k_q) == 4), stream)
     build.check(err, "paged_decode_attention_int8")
     paged_decode_attention_int8.launches += 1
     paged_decode_attention_int8.form_launches[f"int{kv_bits(k_q)}"] += 1

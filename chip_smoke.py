@@ -27,7 +27,7 @@ one process it:
    K2 row naming its split of the cache and each K3 row its route; K5-K8 at
    the serving engine's shapes (16 slots, 12 layers, 16 heads of 128,
    capacity 640 contiguous, 3 pages of 256 paged), K6 and K8 also on the
-   packed INT4 pool;
+   packed INT4 pool, each K6 row naming its split of the virtual slots;
 4. checks the port on the card against the same port on the CPU (plain
    versions) at a small configuration in float32: forward logits, greedy
    tokens of INT8-weight generation with the INT8, INT4 and bf16 global
@@ -48,7 +48,11 @@ one process it:
    contiguous INT8 and INT4, paged INT8 and INT4: a short warm-up, then a
    timed ``run()`` between launch-count resets; asserts every request is
    served and every kernel of the path ran, and logs how far the
-   contiguous and paged caches of one width agree;
+   contiguous and paged caches of one width agree; then runs one
+   block-decoder decode step from identical prefilled K/V through the
+   contiguous and the paged stack of each width (K2 + K5 against K6 with
+   the fresh term + K7; the INT4 cache against K6 INT4) and asserts the
+   outputs agree within ``TOL`` of their largest magnitude;
 7. generates greedily with the ``vanilla_410`` baseline (INT8 weights, INT8
    KV cache) at the same B, prompt and new tokens, the same way, and prints
    the block/vanilla throughput ratio as a smoke figure.
@@ -86,6 +90,7 @@ from block_transformer_tpu_torch.kernels import dequant_matmul as k1  # noqa: E4
 from block_transformer_tpu_torch.kernels import flash_attention as k3  # noqa: E402
 from block_transformer_tpu_torch.kernels import paged_attention as kp  # noqa: E402
 from block_transformer_tpu_torch.models import block_transformer as bt  # noqa: E402
+from block_transformer_tpu_torch.models import neox  # noqa: E402
 from block_transformer_tpu_torch.models import vanilla  # noqa: E402
 from block_transformer_tpu_torch.ops import masks  # noqa: E402
 from block_transformer_tpu_torch.ops import quant  # noqa: E402
@@ -704,7 +709,10 @@ def phase_k6(rows, cfg, int4=False):
     label = ("B=16 H=16 S=1 D=128 packed pool [12,49,16,256] n_virt=3"
              if int4 else
              "B=16 H=16 S=1 D=128 pool [12,49,16,256] n_virt=3 fresh")
-    record(rows, tag, label, err, ms, plain_ms, lib_ms, nbytes, ops)
+    p = k2.plan(B, H, K, build.sm_count(0))
+    record(rows, tag, label, err, ms, plain_ms, lib_ms, nbytes, ops,
+           extra={"decode_plan": f"splits {p.splits} x {p.slots_per_split} "
+                                 "slots"})
     del k_deq, v_deq
 
 
@@ -1029,6 +1037,71 @@ def phase_engine(kind: str, cfg, params):
     return launches, [r.generated for r in reqs]
 
 
+def phase_cache_agreement(cfg, params):
+    """One full-width decode step of the block decoder (INT8 weights, the
+    engine's 16 slots, 3 pages of 256 slots a row) from identical prefilled
+    K/V, through the contiguous stack and the paged one: INT8 (K5 writes,
+    K2 attends) against the paged INT8 pool (K6 with the fresh term, then
+    K7), and the contiguous INT4 cache against the paged INT4 pool (K6 INT4).
+    A random 512-position prefill fills the contiguous cache, K8 copies its
+    pages into the pool; the step runs at ragged frontiers. Asserts that
+    the outputs agree within TOL * max|out|."""
+    dev, bf16 = "cuda", torch.bfloat16
+    bcfg, bd = cfg.block_decoder, params["block_decoder"]
+    B, ps, n_virt, S0 = ENGINE_B, pg.ENGINE_PAGE_SIZE, 3, 512
+    cap, n = ps * n_virt, cfg.n_embedding_tokens
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn((B, S0, bcfg.hidden_size), generator=g, device=dev,
+                    dtype=bf16)
+    x_step = torch.randn((B, n, bcfg.hidden_size), generator=g, device=dev,
+                         dtype=bf16)
+    valid = torch.zeros((B, cap), dtype=torch.int32, device=dev)
+    for b in range(B):
+        valid[b, 8 * b:S0] = 1                 # left pad of 8*b positions
+    prefill = masks.block_decode_mask(0, cap, S0, valid, n)
+    wp = (S0 - 200 + 13 * torch.arange(B, device=dev)).to(torch.int32)
+    step_valid = valid.clone()
+    cols = torch.arange(cap, device=dev)[None]
+    step_valid[cols >= wp[:, None]] = 0        # the rows' frontiers
+    step_valid[cols == wp[:, None]] = 1        # the step's own slot
+    step = masks.AttnMask((wp // n)[:, None].to(torch.int32),
+                          (torch.arange(cap, device=dev) // n).to(torch.int32),
+                          step_valid)
+    positions = wp[:, None] + torch.arange(n, dtype=torch.int32, device=dev)
+    pt = (1 + torch.randperm(B * n_virt, generator=g, device=dev)).reshape(
+        B, n_virt).to(torch.int32)
+    for bits in (8, 4):
+        contig = neox.QuantKVCache.create(bcfg, B, cap, bits=bits, device=dev)
+        _, contig = neox.neox_stack(bd, x, cfg=bcfg, mask=prefill,
+                                    positions=torch.arange(
+                                        S0, dtype=torch.int32, device=dev),
+                                    cache=contig)
+        paged = neox.PagedKVCache.create(bcfg, B, cap, n_pages=B * n_virt + 1,
+                                         page_size=ps, bits=bits, device=dev)
+        paged.page_table.copy_(pt)
+        kp.paged_page_copy_int8(paged.k, paged.k_scale, paged.v,
+                                paged.v_scale, pt, contig.k, contig.k_scale,
+                                contig.v, contig.v_scale)
+        outs = [neox.neox_stack(bd, x_step, cfg=bcfg, mask=step,
+                                positions=positions, cache=c, write_pos=wp)[0]
+                for c in (contig, paged)]
+        for o in outs:
+            if not bool(torch.isfinite(o).all()):
+                raise AssertionError(f"cache agreement int{bits}: not finite")
+        delta = (outs[0].float() - outs[1].float()).abs()
+        diff, scale = delta.max().item(), outs[0].float().abs().max().item()
+        name = "int8 vs paged" if bits == 8 else "int4 vs paged-int4"
+        log(f"one block-decoder step from identical K/V, {name}: max |diff| "
+            f"{diff:.4e}, max |out| {scale:.4e}, ratio {diff / scale:.3e} "
+            f"(limit TOL {TOL}); mean |diff| {delta.mean().item():.4e}, mean "
+            f"|out| {outs[0].float().abs().mean().item():.4e}, "
+            f"{(delta > 0).float().mean().item():.3f} of outputs differ")
+        if diff > TOL * scale:
+            raise AssertionError(f"cache agreement {name}: {diff:.4e} > "
+                                 f"{TOL} * {scale:.4e}")
+        del contig, paged, outs
+
+
 def log_agreement(a: str, b: str, x_tokens, y_tokens) -> None:
     """How far the greedy tokens of engine caches ``a`` and ``b`` agree."""
     pairs = [(p, q) for x, y in zip(x_tokens, y_tokens)
@@ -1102,6 +1175,7 @@ def main() -> None:
             for kind in pg.ENGINE_KINDS:
                 launches[f"engine {kind}"], tokens[kind] = phase_engine(
                     kind, cfg, params)
+            phase_cache_agreement(cfg, params)
         del params
     for a, b in (("int8", "paged"), ("int4", "paged-int4")):
         log_agreement(a, b, tokens[a], tokens[b])

@@ -18,7 +18,10 @@ magnitude (K4's tensor-core route also rounds each scaled weight to bf16,
 tensor cores, float32 x and ragged shapes to the CUDA cores; K3 cases
 assert the route ``route`` took (bf16 with D = 64 or 128 on the tensor
 cores, float32 and other head dims on the CUDA cores). K2 cases cover one
-split and several (``plan``), with splits whose every slot is masked. The
+split and several (``plan``), with splits whose every slot is masked; K6
+cases too (K2's ``plan`` over the virtual slots), with splits whose every
+tile is skipped, rows with no allowed key, page ids outside [0, P), and
+the merge counters left at zero after each launch. The
 pool writes and page copies (K5, K7, K8) are compared bit for bit, outside
 page 0 where dead rows may collide.
 """
@@ -504,43 +507,90 @@ def test_k8_matches_plain(G, nv, P, H, ps, D, pt):
     _same_pools(got, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,S,D,ps,n_virt,fresh", [
-    (3, 2, 1, 128, 16, 3, True),
-    (3, 2, 1, 128, 16, 3, False),
-    (2, 3, 4, 64, 10, 4, False),       # ps = 10: tiles cross pages
-    (4, 2, 1, 32, 48, 2, True),
-    (1, 2, 8, 128, 256, 3, False),     # S = 8, several tiles per warp
-])
-def test_k6_matches_plain(B, H, S, D, ps, n_virt, fresh, dtype):
-    g = _card()
-    L = 2
+def _k6_case(g, B, S, ps, n_virt, P, fresh):
+    """(page table, the same with two page ids outside [0, P) when B > 2,
+    mask) of a K6 case: row 0 holds one page (its tail on the null page)
+    and sees fewer than ps slots, so with several splits the splits past
+    its first page have no allowed key and every tile of them is skipped;
+    row 1 (B > 2) has no allowed pool key; the last row is left-padded.
+    ``fresh``: the deferred write's mask, q_idx - 1."""
     cap = ps * n_virt
-    P = B * n_virt + 1
-    pools = _pools(g, L, P, H, ps, D)
     pt = (1 + torch.randperm(B * n_virt, generator=g, device="cuda")).reshape(
         B, n_virt).to(torch.int32)
-    pt[0, 1:] = 0                          # row 0's tail on the null page
+    pt[0, 1:] = 0
     lengths = torch.randint(S + 1, cap, (B,), generator=g, device="cuda")
     lengths[0] = min(ps, cap) - 1
     valid = (torch.arange(cap, device="cuda")[None]
              < lengths[:, None]).to(torch.int32)
-    valid[-1, :3] = 0                      # left pad
+    valid[-1, :3] = 0
+    wild = pt.clone()
     if B > 2:
-        valid[1] = 0                       # a row with no allowed pool key
+        valid[1] = 0
+        wild[1, 0], wild[2, -1] = -2, P + 3   # read as the null page
     q_idx = (lengths[:, None] - S + torch.arange(S, device="cuda")[None])
     if fresh:
-        q_idx = q_idx - 1                  # the deferred write's mask
+        q_idx = q_idx - 1
     mask = masks.AttnMask(q_idx.to(torch.int32),
                           torch.arange(cap, dtype=torch.int32, device="cuda"),
                           valid)
+    return torch.where((wild < 0) | (wild >= P), 0, wild), wild, mask
+
+
+def _k6_launch(q, pools, layer, wild, mask, fresh=None):
+    """K6 on the card: asserts its split (several where B * H leaves the
+    card's SMs short of 4 blocks each, and then some split with no allowed
+    key for a row that sees others), one launch on its pool width, and the
+    merge counters left at zero."""
+    B, H, S, D = q.shape
+    cap = wild.shape[1] * pools[0].shape[3]
+    p = k2.plan(B, H, cap, build.sm_count(0))
+    assert (p.splits == 1) == (B * H >= k2.BLOCKS_PER_SM * build.sm_count(0))
+    if p.splits > 1:
+        seen = mask.allowed().any(1)                        # [B, cap]
+        per = [seen[:, z * p.slots_per_split:(z + 1) * p.slots_per_split]
+               .any(-1) for z in range(p.splits)]
+        assert any(bool((seen.any(-1) & ~part).any()) for part in per)
+    fn = kp.paged_decode_attention_int8
+    form = f"int{quant.kv_bits(pools[0])}"
+    before = (fn.launches, dict(fn.form_launches))
+    got = fn(q, *pools, layer, wild, mask, fresh=fresh)
+    assert fn.launches == before[0] + 1
+    assert fn.form_launches == dict(before[1], **{form: before[1][form] + 1})
+    torch.cuda.synchronize()
+    _, ctr = build.scratch(0, build.raw_stream(0), 0, 0)
+    assert not bool(ctr.any())
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,S,D,ps,n_virt,fresh", [
+    (3, 2, 1, 128, 16, 3, True),       # fresh over 2 splits
+    (3, 2, 1, 128, 16, 3, False),
+    (2, 3, 4, 64, 10, 4, False),       # ps = 10: tiles cross pages
+    (4, 2, 1, 32, 48, 2, True),
+    (1, 2, 8, 128, 256, 3, False),     # S = 8, the engine's pages
+    (3, 2, 1, 128, 256, 3, True),      # fresh over 24 splits
+    (3, 4, 8, 64, 10, 8, False),       # S = 8 across pages, no-key row
+    (3, 4, 8, 32, 32, 3, False),
+    (40, 16, 1, 64, 16, 4, True),      # B * H fills the card: one split
+    (40, 16, 1, 32, 16, 4, False),     # one split, a row with no key
+    (40, 16, 8, 128, 32, 2, False),
+])
+def test_k6_matches_plain(B, H, S, D, ps, n_virt, fresh, dtype):
+    """INT8 pools: the row with no allowed pool key takes the fresh value
+    with ``fresh`` and the uniform mean of every virtual slot without it;
+    with B > 2 two page ids lie outside [0, P)."""
+    g = _card()
+    L = 2
+    P = B * n_virt + 1
+    pools = _pools(g, L, P, H, ps, D)
+    pt, wild, mask = _k6_case(g, B, S, ps, n_virt, P, fresh)
     q = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
     pair = None
     if fresh:
         pair = tuple(torch.randn((B, H, D), generator=g, device="cuda") * 0.1
                      for _ in range(2))
-    got = kp.paged_decode_attention_int8(q, *pools, L - 1, pt, mask,
-                                         fresh=pair)
+    got = _k6_launch(q, pools, L - 1, wild, mask, pair)
     want = kp.paged_decode_attention_int8_plain(q, *pools, L - 1, pt, mask,
                                                 fresh=pair)
     _close(got, want, dtype)
@@ -563,38 +613,25 @@ def _packed_pools(g, L, P, H, ps, D):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("S", [1, 8])
-def test_k6_int4_matches_plain(S, D, dtype):
+@pytest.mark.parametrize("B,H,ps,n_virt", [
+    (3, 2, 16, 3),      # 2 splits, the second skipped for row 0
+    (3, 2, 256, 3),     # the engine's pages, 24 splits
+    (3, 2, 10, 5),      # tiles cross pages
+    (40, 16, 16, 4),    # one split
+])
+def test_k6_int4_matches_plain(B, H, ps, n_virt, S, D, dtype):
     """Packed pools, no fresh term (the INT4 pool writes first): row 0's
-    tail on the null page, row 1 with no allowed key, rows 1 and 2 with page
-    ids outside [0, P), which the kernel reads as the null page."""
+    tail on the null page, row 1 with no allowed key (the uniform mean),
+    rows 1 and 2 with page ids outside [0, P), which the kernel reads as
+    the null page."""
     g = _card()
-    L, B, H, ps, n_virt = 2, 3, 2, 16, 3
-    cap, P = ps * n_virt, B * n_virt + 1
+    L = 2
+    P = B * n_virt + 1
     pools = _packed_pools(g, L, P, H, ps, D)
-    pt = (1 + torch.randperm(B * n_virt, generator=g, device="cuda")).reshape(
-        B, n_virt).to(torch.int32)
-    pt[0, 1:] = 0
-    lengths = torch.randint(S + 1, cap, (B,), generator=g, device="cuda")
-    lengths[0] = ps - 1
-    valid = (torch.arange(cap, device="cuda")[None]
-             < lengths[:, None]).to(torch.int32)
-    valid[1] = 0
-    valid[2, :3] = 0
-    q_idx = (lengths[:, None] - S + torch.arange(S, device="cuda")[None])
-    mask = masks.AttnMask(q_idx.to(torch.int32),
-                          torch.arange(cap, dtype=torch.int32, device="cuda"),
-                          valid)
+    pt, wild, mask = _k6_case(g, B, S, ps, n_virt, P, False)
     q = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
-    wild = pt.clone()
-    wild[1, 0], wild[2, -1] = -2, P + 3
-    null = torch.where((wild < 0) | (wild >= P), 0, wild)
-    fn = kp.paged_decode_attention_int8
-    before = (fn.launches, dict(fn.form_launches))
-    got = fn(q, *pools, L - 1, wild, mask)
-    assert fn.launches == before[0] + 1
-    assert fn.form_launches == dict(before[1],
-                                    int4=before[1]["int4"] + 1)
-    want = kp.paged_decode_attention_int8_plain(q, *pools, L - 1, null, mask)
+    got = _k6_launch(q, pools, L - 1, wild, mask)
+    want = kp.paged_decode_attention_int8_plain(q, *pools, L - 1, pt, mask)
     _close(got, want, dtype)
 
 

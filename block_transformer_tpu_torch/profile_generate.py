@@ -236,6 +236,7 @@ def device_breakdown(fn):
 OWN_KERNELS = ("tc_matmul_kernel", "int8_matmul_kernel", "int4_matmul_kernel",
                "splitk_reduce_kernel",
                "decode_attn_int8_kernel", "decode_attn_kernel",
+               "decode_attn_warp_kernel",
                "flash_attn_kernel",
                "flash_attn_tc_kernel",
                "paged_write_kernel", "page_copy_kernel", "paged_attn_kernel")
@@ -251,6 +252,8 @@ def print_breakdown(per) -> None:
     print(f"{'device us':>12} {'launches':>9}  kernel")
     for name, (us, n) in ranked[:25] + own:
         print(f"{us:12.1f} {n:9d}  {name[:110]}")
+    print(f"{sum(us for us, _ in per.values()):12.1f} "
+          f"{sum(n for _, n in per.values()):9d}  (every kernel)")
 
 
 def profile_engine(kind: str, cfg, params, runs: int, seed: int) -> None:

@@ -21,13 +21,16 @@ one process it:
    prefix step and the M = 4096 prefill, each row naming the route, tile
    and split ``plan`` gave it; K2 at the block decoder's decode step and K3
    at the prefill's first and last query tiles); K2's bf16 form at the
-   block decoder's decode step over a bf16 cache and at the token
-   decoder's local cache; K2 and K3 also at the ``vanilla_410`` baseline's
-   decode step (D = 64, capacity 2176) and prompt (Q = 2048 causal), each
-   K2 row naming its split of the cache and each K3 row its route; K5-K8 at
-   the serving engine's shapes (16 slots, 12 layers, 16 heads of 128,
-   capacity 640 contiguous, 3 pages of 256 paged), K6 and K8 also on the
-   packed INT4 pool, each K6 row naming its split of the virtual slots;
+   block decoder's decode step over a bf16 cache (split route) and at the
+   token decoder's local cache, its token step and its prefix step (warp
+   route); K2 and K3 also at the ``vanilla_410`` baseline's decode step
+   (D = 64, capacity 2176) and prompt (Q = 2048 causal), each K2 row
+   naming its route and split of the cache and each K3 row its route;
+   K5-K8 at the serving engine's shapes (16 slots, 12 layers, 16 heads of
+   128, capacity 640 contiguous, 3 pages of 256 paged), K6 and K8 also on
+   the packed INT4 pool, each K6 row naming its split of the virtual slots;
+   then an empty kernel's launch, timed the same way, printed on its own
+   line as ``launch_floor_ms`` beside the card's name and power limit;
 4. checks the port on the card against the same port on the CPU (plain
    versions) at a small configuration in float32: forward logits, greedy
    tokens of INT8-weight generation with the INT8, INT4 and bf16 global
@@ -58,16 +61,20 @@ one process it:
    the block/vanilla throughput ratio as a smoke figure.
 
 Every timed full-width run of steps 5-7 asserts that K1, K3 and K4
-launched by the tensor-core route only. The last three lines are the
+launched by the tensor-core route only, and every one with a token decoder
+that K2's bf16 form took the warp route there (its split route runs only on
+the bf16 global cache). The last three lines are the
 ``nvidia-smi`` line, a JSON object listing each kernel's launches (from the
 run of step 5, 6 or 7 named by the row's ``path``; a K6 or K8 row counts
-the launches on its pool width), error and times, and
+the launches on its pool width, and a K2 bf16 row gives those of its own
+route as ``route_launches``), error and times, and
 ``{"ok": true, "device": {...}}``.
 Any failure raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -217,12 +224,14 @@ def bound(nbytes: float, flops: float):
                                        else "operations")
 
 
-def attention_need(mask: masks.AttnMask, H: int, D: int):
-    """What masked attention needs on this mask's data, summed over heads:
-    (key rows read, value rows read, operations). A key is read when some
-    query of its batch row may see it; a query with no allowed key takes
-    the uniform mean of all values, so its batch row reads every value."""
-    allowed = mask.allowed()                   # [B, Q, K]
+def attention_need(mask: masks.AttnMask, H: int, D: int, B: int = 1):
+    """What masked attention needs on this mask's data for B batch rows,
+    summed over heads: (key rows read, value rows read, operations). A key
+    is read when some query of its batch row may see it; a query with no
+    allowed key takes the uniform mean of all values, so its batch row
+    reads every value."""
+    allowed = mask.allowed()                   # [B, Q, K] (B = 1: shared)
+    allowed = allowed.expand(max(B, allowed.shape[0]), -1, -1)
     K = allowed.shape[-1]
     seen = allowed.any(1)                      # [B, K]
     empty = ~allowed.any(-1)                   # [B, Q]
@@ -371,7 +380,12 @@ def k2_row(rows, label, cache, q, mask, iters, path=None):
                   k2.decode_attention_stacked_plain))
     L, B, H, cap, _ = cache[0].shape
     S, D = q.shape[2], q.shape[3]
+    route = k2.route(cap, S, D, cache[0].dtype)
+    before = dict(k2.decode_attention_stacked.route_launches)
     got = fn(q, *cache, L // 2, mask)
+    if not int8 and (k2.decode_attention_stacked.route_launches[route]
+                     != before[route] + 1):
+        raise AssertionError(f"{tag} {label}: not the {route} route")
     err = compare(f"{tag} {label}", got, plain(q, *cache, L // 2, mask))
     it = iter(range(10 ** 9))
     nxt = lambda: next(it) % L                 # noqa: E731
@@ -392,15 +406,18 @@ def k2_row(rows, label, cache, q, mask, iters, path=None):
             q, k, v, attn_mask=allowed)
 
     lib_ms = time_ms(library, iters)
-    k_rows, v_rows, ops = attention_need(mask, H, D)
+    k_rows, v_rows, ops = attention_need(mask, H, D, B)
     row_bytes = D + 4 if int8 else 2 * D       # values (+ scale) of a slot
+    mask_ints = sum(t.numel() for t in mask if t is not None)
     nbytes = (2 * B * H * S * D * 2 + (k_rows + v_rows) * row_bytes
-              + (B * S + cap + B * cap) * 4)
-    p = k2.plan(B, H, cap, build.sm_count(0))
+              + mask_ints * 4)
+    if route == "warp":
+        how = "one warp a (b, h), 4 a block"
+    else:
+        p = k2.plan(B, H, cap, build.sm_count(0))
+        how = f"splits {p.splits} x {p.slots_per_split} slots"
     record(rows, tag, label, err, ms, plain_ms, lib_ms, nbytes, ops,
-           path=path,
-           extra={"decode_plan": f"splits {p.splits} x {p.slots_per_split} "
-                                 "slots"})
+           path=path, extra={"decode_route": route, "decode_plan": how})
     del layers
 
 
@@ -440,9 +457,11 @@ def phase_k2(rows, cfg, vcfg):
 def phase_k2_bf16(rows, cfg):
     """K2's bf16 form at the block decoder's decode step over a bf16 global
     cache (B=8, H=16, S=1, D=128, 12 layers of capacity 640 filled to 530,
-    as ``phase_k2``; one row with no allowed key) and at the token
-    decoder's local cache (B=8, H=16, D=128, 12 layers of capacity
-    n_exp + block_length = 6; the last token step, S=1 at position 4)."""
+    as ``phase_k2``; one row with no allowed key: the split route) and at
+    the token decoder's local cache (B=8, H=16, D=128, 12 layers of
+    capacity n_exp + block_length = 6, the token decoder's own mask: the
+    warp route), at its last token step (S=1 at position 4) and its prefix
+    step (S=n_exp=2 at positions 0-1)."""
     dev, bf16 = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(9)
     B, H, D = BATCH, cfg.block_decoder.num_heads, cfg.block_decoder.head_dim
@@ -467,7 +486,25 @@ def phase_k2_bf16(rows, cfg):
     q = torch.randn((B, H, 1, D), generator=g, device=dev, dtype=bf16)
     mask = masks.decode_mask(cap - 2, cap, 1, device=dev)
     k2_row(rows, f"token decoder's local cache B=8 H={H} S=1 D={D} "
-           f"cap={cap}", (k, v), q, mask, 50)
+           f"cap={cap}", (k, v), q, mask, 50, path="generation")
+    S = cfg.n_expanded_emb
+    q = torch.randn((B, H, S, D), generator=g, device=dev, dtype=bf16)
+    mask = masks.decode_mask(0, cap, S, device=dev)
+    k2_row(rows, f"token decoder's local cache, prefix step B=8 H={H} "
+           f"S={S} D={D} cap={cap}", (k, v), q, mask, 50, path="generation")
+
+
+def launch_floor_ms(iters: int = 200) -> float:
+    """Device ms of one launch of an empty kernel (one warp), timed as the
+    kernel rows are: the least a launch of any kernel costs on the card."""
+    fn = build.load("decode_attention").bt_empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        build.check(fn(build.raw_stream(0)), "bt_empty_launch")
+
+    return time_ms(launch, iters)
 
 
 def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None):
@@ -889,12 +926,15 @@ def reset_launches():
             fn.form_launches = dict.fromkeys(fn.form_launches, 0)
     for fn in ROUTED.values():
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+    k2.decode_attention_stacked.route_launches = dict.fromkeys(
+        k2.decode_attention_stacked.route_launches, 0)
 
 
 def read_launches(path: str) -> dict:
     """{tag: launches} since the last reset (a K6/K8 tag: its pool width's
-    launches); fails if a kernel of ``path`` did not run, or one it must
-    not run did."""
+    launches; "K2 bf16 warp" and "K2 bf16 split": K2 bf16's by route);
+    fails if a kernel of ``path`` did not run, or one it must not run
+    did."""
     launches = {tag: fn.launches if form is None else fn.form_launches[form]
                 for fn, tag, *_, form in KERNELS}
     routes = {tag: dict(fn.route_launches) for tag, fn in ROUTED.items()}
@@ -910,6 +950,17 @@ def read_launches(path: str) -> dict:
         if by_route["fma"] or by_route["tc"] != launches[tag]:
             raise AssertionError(f"{tag} took the CUDA-core route on the "
                                  f"{path} path: {by_route}")
+    # K2 bf16 serves the token decoder's local cache by the warp route, and
+    # only the bf16 global cache by the split route
+    k2_routes = dict(k2.decode_attention_stacked.route_launches)
+    log(f"K2 bf16 by route in the timed {path} run: {json.dumps(k2_routes)}")
+    if "K2 bf16" in PATH_KERNELS[path] and k2_routes["warp"] <= 0:
+        raise AssertionError(f"K2 bf16 did not take the warp route on the "
+                             f"local cache of the {path} path: {k2_routes}")
+    if (k2_routes["split"] > 0) != (path == "generation kv bf16"):
+        raise AssertionError(f"K2 bf16's split route on the {path} path: "
+                             f"{k2_routes}")
+    launches.update({f"K2 bf16 {r}": n for r, n in k2_routes.items()})
     return launches
 
 
@@ -1157,6 +1208,8 @@ def main() -> None:
     phase_k7(rows, cfg)
     phase_k8(rows, cfg)
     phase_k8(rows, cfg, int4=True)
+    floor = launch_floor_ms()
+    log(json.dumps({"launch_floor_ms": floor, "card": smi}))
     phase_small_reference()
     phase_small_quantized()
     phase_small_engine()
@@ -1187,7 +1240,11 @@ def main() -> None:
             f"{q} {tok_s[(q, 'int8')] / tok_s['vanilla']:.3f}"
             for q in ("int8", "int4", "mixed48")))
     for row in rows:
-        row["launches"] = launches[row["path"]][row.pop("tag")]
+        tag = row.pop("tag")
+        row["launches"] = launches[row["path"]][tag]
+        if tag == "K2 bf16":   # the launches of the row's own route
+            row["route_launches"] = launches[row["path"]][
+                f"K2 bf16 {row['decode_route']}"]
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

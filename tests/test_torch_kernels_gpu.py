@@ -1,7 +1,9 @@
 """The port's CUDA kernels K1-K8 against their plain PyTorch versions, on
 the card, at small and ragged shapes; and the launch counters. K2 is held
-in both its forms (INT8 and the bf16/float32 cache), K6 on INT8 and packed
-INT4 pools, K8 on both pool widths.
+in both its forms (INT8 and the bf16/float32 cache; the latter by its
+warp route at caps up to 32 and its split route past them, each case
+asserting the route), K6 on INT8 and packed INT4 pools, K8 on both pool
+widths.
 
 Marked ``gpu``: each test skips, from inside its body, when no CUDA device
 is present. This file imports torch and the port only (no JAX), so on a
@@ -311,6 +313,100 @@ def test_k2_float_cache_counters_are_left_at_zero():
     assert not bool(ctr.any())
     with pytest.raises(TypeError, match="both"):
         k2.decode_attention_stacked(q.float(), k, v, 0, mask)
+
+
+def _k2_mask(case, B, S, cap, length):
+    """``case``: "1d" (the token decoder's mask: [S] q_idx at positions
+    length..length+S-1, no kv_valid) or "2d" ([B, S] q_idx, each row at
+    its own position, and a kv_valid: row 0 left-padded, the last row with
+    no valid slot)."""
+    if case == "1d":
+        return masks.decode_mask(length, cap, S, device="cuda")
+    q_idx = (torch.arange(S, device="cuda")[None]
+             + torch.arange(B, device="cuda")[:, None] % 3 + length - 2)
+    valid = torch.ones((B, cap), dtype=torch.int32, device="cuda")
+    valid[0, :min(2, cap - 1)] = 0
+    valid[-1] = 0
+    return masks.AttnMask(q_idx.int(), torch.arange(cap, dtype=torch.int32,
+                                                    device="cuda"), valid)
+
+
+def _k2_routed(q, k, v, layer, mask, route):
+    """decode_attention_stacked(); asserts it launched once, by ``route``."""
+    return _routed(k2.decode_attention_stacked, route,
+                   lambda: k2.decode_attention_stacked(q, k, v, layer, mask))
+
+
+@pytest.mark.parametrize("case", ["1d", "2d"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 2, 3, 8])
+@pytest.mark.parametrize("cap", [1, 5, 6, 9, 31, 32])
+def test_k2_warp_route_matches_plain(cap, S, D, dtype, case):
+    """The warp route at every cap it takes, layer 1 of 2; queries start
+    at position cap - S, so with S > cap the first rows see no slot (the
+    uniform mean), as does the "2d" case's last batch row."""
+    g = _card()
+    B, H, L = 5, 3, 2
+    k, v = (torch.randn((L, B, H, cap, D), generator=g, device="cuda"
+                        ).to(dtype) for _ in range(2))
+    q = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
+    mask = _k2_mask(case, B, S, cap, cap - S)
+    got = _k2_routed(q, k, v, 1, mask, "warp")
+    _close(got, k2.decode_attention_stacked_plain(q, k, v, 1, mask), dtype)
+
+
+def test_k2_warp_route_blocks_of_several_warps():
+    """B*H = 15 (b, h) warps in blocks of 4: the last block is partly
+    empty."""
+    g = _card()
+    B, H, S, D, cap = 3, 5, 2, 128, 6
+    k, v = (torch.randn((1, B, H, cap, D), generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    q = torch.randn((B, H, S, D), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    mask = masks.decode_mask(0, cap, S, device="cuda")
+    got = _k2_routed(q, k, v, 0, mask, "warp")
+    _close(got, k2.decode_attention_stacked_plain(q, k, v, 0, mask),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("B,H,cap,length", [
+    (3, 4, 33, 20),           # one slot past the warp route; two splits
+    (8, 16, 640, 530),        # the block decoder's decode step
+    (3, 4, 2176, 2100),       # the baseline's capacity, many tiles a split
+])
+def test_k2_split_route_ring_matches_plain(B, H, cap, length, S, D, dtype):
+    """The float split route's cp.async ring, with the "2d" mask; the merge
+    counters are left at zero."""
+    g = _card()
+    L = 2
+    k, v = (torch.randn((L, B, H, cap, D), generator=g, device="cuda"
+                        ).to(dtype) for _ in range(2))
+    q = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
+    mask = _k2_mask("2d", B, S, cap, length)
+    got = _k2_routed(q, k, v, 1, mask, "split")
+    _close(got, k2.decode_attention_stacked_plain(q, k, v, 1, mask), dtype)
+    _, ctr = build.scratch(0, build.raw_stream(0), 0, 0)
+    assert not bool(ctr.any())
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_k2_int8_batched_q_idx(S):
+    """The INT8 form with a [B, S] q_idx (row stride S), as the engine
+    gives it, against its plain version."""
+    g = _card()
+    B, H, D, cap = 4, 4, 128, 640
+    kq, ks, vq, vs = _int8_cache(g, 1, B, H, cap, D)
+    q = torch.randn((B, H, S, D), generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    mask = _k2_mask("2d", B, S, cap, 500)
+    got = k2.decode_attention_int8_stacked(q, kq, ks, vq, vs, 0, mask)
+    _close(got, k2.decode_attention_int8_stacked_plain(q, kq, ks, vq, vs, 0,
+                                                       mask), torch.bfloat16)
 
 
 def _k3_routed(q, k, v, mask, route):

@@ -33,9 +33,11 @@ on admission while the other slots' caches persist.
 
 The engine's state lives on ``device`` ("cuda" by default) and is updated
 in place; ``params`` must already be there (the engine never moves them).
-Sampling draws from a ``torch.Generator`` seeded from ``seed``. Not ported:
-serving over a mesh (``mesh``), ``overlap_streams > 1`` and W8A8
-(``ops_linear.kv_mode``); the engine raises for the first two.
+Sampling draws from a ``torch.Generator`` seeded from ``seed``. Admission
+and decode declare the KV mode of the W8A8 decisions (``ops.linear.kv_mode``:
+the cache kind, and ``int8`` for either paged pool), as the JAX engine does.
+Not ported: serving over a mesh (``mesh``) and ``overlap_streams > 1``; the
+engine raises for both.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from block_transformer_tpu_torch.inference import generate as gen
 from block_transformer_tpu_torch.kernels import paged_attention
 from block_transformer_tpu_torch.models import embedder as emb
 from block_transformer_tpu_torch.models import neox
+from block_transformer_tpu_torch.ops import linear as linear_ops
 from block_transformer_tpu_torch.ops import masks
 
 
@@ -150,6 +153,9 @@ class ContinuousBatchingEngine:
         cap = max_blocks * n
         self.cap = cap = _round_up(cap, 128) if cap >= 128 else cap
         self.kv_kind = kv_cache
+        # the KV mode admission and decode declare for the W8A8 decisions:
+        # a paged pool declares int8 at either width, as the JAX engine does
+        self._kv_mode = "int8" if kv_cache.startswith("paged") else kv_cache
         bcfg = cfg.block_decoder
 
         if kv_cache.startswith("paged"):
@@ -402,7 +408,9 @@ class ContinuousBatchingEngine:
         slots = np.asarray([s for s, _, _, _ in padded], np.int64)
         lens = np.asarray([N for _, _, _, N in padded], np.int32)
         dev = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
-        self._prefill(dev(slots), dev(lens), dev(ids), dev(att), dev(bam))
+        with linear_ops.kv_mode(self._kv_mode):
+            self._prefill(dev(slots), dev(lens), dev(ids), dev(att),
+                          dev(bam))
         sl = dev(slots[:G])
         self.slot_len[sl] = dev(lens[:G])
         self.alive[sl] = True
@@ -442,7 +450,8 @@ class ContinuousBatchingEngine:
         """Decode one window and return its token / eos tensors with the
         slot -> request snapshot they belong to."""
         wl = window_len or self.sync_blocks
-        tokens, has_eos = self._decode_window(wl)
+        with linear_ops.kv_mode(self._kv_mode):
+            tokens, has_eos = self._decode_window(wl)
         for s in self.active:
             self._dispatched[s] = self._dispatched.get(s, 0) + wl
         self.stats.steps += 1

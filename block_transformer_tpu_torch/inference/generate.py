@@ -1,9 +1,10 @@
 """Two-level autoregressive generation (port of
 ``block_transformer_tpu/inference/generate.py``, main path).
 
-- The prompt's block embeddings go through the block decoder in one fresh
-  prefill pass that fills the global KV cache (bf16, INT8 or INT4:
-  ``kv_cache``).
+- The prompt's block embeddings go through the block decoder and fill the
+  global KV cache (bf16, INT8 or INT4: ``kv_cache``): in one fresh pass by
+  default, or streamed in chunks through the cache (``fresh_prefill=False``,
+  the JAX package's ``BT_FRESH_PREFILL=0``).
 - The outer loop runs once per block: the token decoder decodes up to
   ``block_length`` tokens against a small local cache made fresh for each
   block, the new block is embedded, and the block decoder appends it to
@@ -28,6 +29,7 @@ from block_transformer_tpu_torch.config import BlockTransformerConfig
 from block_transformer_tpu_torch.models import embedder as emb
 from block_transformer_tpu_torch.models import neox
 from block_transformer_tpu_torch.models import token_decoder as td
+from block_transformer_tpu_torch.ops import linear as linear_ops
 from block_transformer_tpu_torch.ops import masks
 
 
@@ -119,11 +121,20 @@ def _block_decoder_step(params, cfg: BlockTransformerConfig, inputs_embeds,
 
 def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
                    attention_mask, block_attention_mask, *, capacity: int,
-                   kv_cache: str = "bf16", prefill_chunk_blocks: int = 128):
-    """Embed the prompt blocks and run them through the block decoder in one
-    fresh pass (``neox_prefill_fresh``), attention tiled by
-    ``prefill_chunk_blocks`` blocks of queries. Returns (next_embeds
-    [B, n, ph] at the last prompt block, cache, kv_valid [B, capacity])."""
+                   kv_cache: str = "bf16", prefill_chunk_blocks: int = 128,
+                   fresh_prefill: bool = True):
+    """Embed the prompt blocks and run them through the block decoder.
+    Returns (next_embeds [B, n, ph] at the last prompt block, cache,
+    kv_valid [B, capacity]).
+
+    ``fresh_prefill`` (the default): one fresh pass (``neox_prefill_fresh``),
+    attention tiled by ``prefill_chunk_blocks`` blocks of queries, reading
+    the K/V just computed while the cache is only written. Otherwise the
+    streaming prefill: the prompt goes through ``_block_decoder_step`` in
+    chunks of ``prefill_chunk_blocks`` blocks, each attending to the cache
+    (dequantized for INT8 / INT4); a longer prompt is padded to a whole
+    number of chunks (the padded tail is invalid, and the cache's length is
+    rewound to the prompt's, so decode overwrites it)."""
     B, N, L = input_ids.shape
     n = cfg.n_embedding_tokens
     ph = cfg.embedder.projection_hidden_size
@@ -138,14 +149,40 @@ def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
     prompt_valid = block_attention_mask.to(torch.int32).repeat_interleave(
         n, dim=1)
     S = N * n
-    mask = masks.block_decode_mask(0, S, S, prompt_valid, n)
-    positions = torch.arange(S, dtype=torch.int32, device=device)
-    hidden, cache = neox.neox_prefill_fresh(
-        params["block_decoder"], inputs_embeds, cfg=cfg.block_decoder,
-        mask=mask, positions=positions, cache=cache,
-        q_tile=max(1, prefill_chunk_blocks) * n)
-    kv_valid[:, :S] = prompt_valid
-    return hidden[:, -n:, :], cache, kv_valid
+    if fresh_prefill:
+        mask = masks.block_decode_mask(0, S, S, prompt_valid, n)
+        positions = torch.arange(S, dtype=torch.int32, device=device)
+        hidden, cache = neox.neox_prefill_fresh(
+            params["block_decoder"], inputs_embeds, cfg=cfg.block_decoder,
+            mask=mask, positions=positions, cache=cache,
+            q_tile=max(1, prefill_chunk_blocks) * n)
+        kv_valid[:, :S] = prompt_valid
+        return hidden[:, -n:, :], cache, kv_valid
+    chunk = max(1, prefill_chunk_blocks) * n
+    if S <= chunk:
+        hidden, cache, kv_valid = _block_decoder_step(
+            params, cfg, inputs_embeds, cache, kv_valid, prompt_valid)
+        return hidden[:, -n:, :], cache, kv_valid
+    n_chunks = -(-S // chunk)
+    pad_to = n_chunks * chunk
+    if capacity < pad_to:
+        raise ValueError(
+            f"max_blocks capacity {capacity} < padded prefill {pad_to}; "
+            f"raise max_blocks or lower prefill_chunk_blocks")
+    x_pad = torch.nn.functional.pad(inputs_embeds, (0, 0, 0, pad_to - S))
+    v_pad = torch.nn.functional.pad(prompt_valid, (0, pad_to - S))
+    last = (S - n) // chunk            # the chunk holding the last block
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        hidden, cache, kv_valid = _block_decoder_step(
+            params, cfg, x_pad[:, sl], cache, kv_valid, v_pad[:, sl])
+        if c == last:
+            off = S - n - c * chunk
+            next_embeds = hidden[:, off:off + n, :]
+    # rewind the write frontier to the prompt: the first generated block
+    # overwrites the padded slots
+    kv_valid[:, S:] = 0
+    return next_embeds, cache._replace(length=S), kv_valid
 
 
 def generate_blocks(params, cfg: BlockTransformerConfig, input_ids,
@@ -154,52 +191,63 @@ def generate_blocks(params, cfg: BlockTransformerConfig, input_ids,
                     top_k: int = 0, top_p: float = 1.0,
                     generator: Optional[torch.Generator] = None,
                     prefill_chunk_blocks: int = 128, kv_cache: str = "bf16",
+                    fresh_prefill: bool = True,
                     device="cuda") -> GenerationResult:
     """Block-format generation: input_ids / attention_mask [B, N, L] and
     block_attention_mask [B, N] (tensors or arrays, moved to ``device``);
-    generates until ``max_blocks`` blocks in all or every row finished."""
+    generates until ``max_blocks`` blocks in all or every row finished.
+    ``kv_cache`` is declared as the KV mode of the W8A8 decisions
+    (``ops.linear.kv_mode``), as in the JAX package."""
     if cfg.block_decoder_cls != "gpt-neo-x":
         raise NotImplementedError(f"block decoder {cfg.block_decoder_cls!r}")
-    input_ids = torch.as_tensor(input_ids, device=device).to(torch.int32)
-    attention_mask = torch.as_tensor(attention_mask, device=device)
-    block_attention_mask = torch.as_tensor(block_attention_mask, device=device)
-    B, N, L = input_ids.shape
-    n = cfg.n_embedding_tokens
-    ph = cfg.embedder.projection_hidden_size
-    # capacity rounded up to a multiple of 128 (extra slots stay invalid)
-    capacity = max_blocks * n
-    if capacity >= 128:
-        capacity = -(-capacity // 128) * 128
+    with linear_ops.kv_mode(kv_cache):
+        input_ids = torch.as_tensor(input_ids, device=device).to(torch.int32)
+        attention_mask = torch.as_tensor(attention_mask, device=device)
+        block_attention_mask = torch.as_tensor(block_attention_mask,
+                                               device=device)
+        B, N, L = input_ids.shape
+        n = cfg.n_embedding_tokens
+        ph = cfg.embedder.projection_hidden_size
+        # capacity rounded up to a multiple of 128 (extra slots stay invalid)
+        capacity = max_blocks * n
+        if capacity >= 128:
+            capacity = -(-capacity // 128) * 128
 
-    next_embeds, cache, kv_valid = prefill_blocks(
-        params, cfg, input_ids, attention_mask, block_attention_mask,
-        capacity=capacity, kv_cache=kv_cache,
-        prefill_chunk_blocks=prefill_chunk_blocks)
+        next_embeds, cache, kv_valid = prefill_blocks(
+            params, cfg, input_ids, attention_mask, block_attention_mask,
+            capacity=capacity, kv_cache=kv_cache,
+            prefill_chunk_blocks=prefill_chunk_blocks,
+            fresh_prefill=fresh_prefill)
 
-    tokens = torch.zeros((B, max_blocks, L), dtype=torch.int32, device=device)
-    tokens[:, :N] = input_ids
-    unfinished = torch.ones(B, dtype=torch.int32, device=device)
-    n_blocks = N
-    while n_blocks < max_blocks and bool(unfinished.any()):
-        alive = unfinished.bool()
-        new_tokens, inner_alive = decode_block_tokens(
-            params, cfg, next_embeds.reshape(B, n, ph), greedy=greedy,
-            temperature=temperature, generator=generator, top_k=top_k,
-            top_p=top_p)
-        new_tokens = torch.where(alive[:, None], new_tokens, cfg.pad_token_id)
-        # finished if an EOS was emitted in this block
-        unfinished = unfinished * inner_alive.to(torch.int32)
-        tokens[:, n_blocks] = new_tokens
-        # re-embed the generated block; zero embeddings for finished rows
-        new_block_emb = emb.embed_blocks(params["embedder"], cfg.embedder,
-                                         cfg.block_length, new_tokens)
-        new_block_emb = new_block_emb.masked_fill(~alive[:, None, None], 0.0)
-        hidden, cache, kv_valid = _block_decoder_step(
-            params, cfg, new_block_emb.reshape(B, n, ph).to(next_embeds.dtype),
-            cache, kv_valid, unfinished[:, None].expand(B, n))
-        next_embeds = hidden[:, -n:, :]
-        n_blocks += 1
-    return GenerationResult(tokens, n_blocks, unfinished)
+        tokens = torch.zeros((B, max_blocks, L), dtype=torch.int32,
+                             device=device)
+        tokens[:, :N] = input_ids
+        unfinished = torch.ones(B, dtype=torch.int32, device=device)
+        n_blocks = N
+        while n_blocks < max_blocks and bool(unfinished.any()):
+            alive = unfinished.bool()
+            new_tokens, inner_alive = decode_block_tokens(
+                params, cfg, next_embeds.reshape(B, n, ph), greedy=greedy,
+                temperature=temperature, generator=generator, top_k=top_k,
+                top_p=top_p)
+            new_tokens = torch.where(alive[:, None], new_tokens,
+                                     cfg.pad_token_id)
+            # finished if an EOS was emitted in this block
+            unfinished = unfinished * inner_alive.to(torch.int32)
+            tokens[:, n_blocks] = new_tokens
+            # re-embed the generated block; zero embeddings for finished rows
+            new_block_emb = emb.embed_blocks(params["embedder"],
+                                             cfg.embedder, cfg.block_length,
+                                             new_tokens)
+            new_block_emb = new_block_emb.masked_fill(
+                ~alive[:, None, None], 0.0)
+            hidden, cache, kv_valid = _block_decoder_step(
+                params, cfg,
+                new_block_emb.reshape(B, n, ph).to(next_embeds.dtype),
+                cache, kv_valid, unfinished[:, None].expand(B, n))
+            next_embeds = hidden[:, -n:, :]
+            n_blocks += 1
+        return GenerationResult(tokens, n_blocks, unfinished)
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +284,7 @@ def generate(params, cfg: BlockTransformerConfig, input_ids,
              attention_mask=None, max_length: int = 100, greedy: bool = True,
              temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
              generator: Optional[torch.Generator] = None,
-             device="cuda") -> np.ndarray:
+             fresh_prefill: bool = True, device="cuda") -> np.ndarray:
     """Flat token ids in, flat token ids out (prompt + generated, cut at
     ``max_length``)."""
     d = preprocess_inputs(cfg, input_ids, attention_mask)
@@ -246,6 +294,7 @@ def generate(params, cfg: BlockTransformerConfig, input_ids,
     res = generate_blocks(params, cfg, d["input_ids"], d["attention_mask"],
                           d["block_attention_mask"], max_blocks=max_blocks,
                           greedy=greedy, temperature=temperature, top_k=top_k,
-                          top_p=top_p, generator=generator, device=device)
+                          top_p=top_p, generator=generator,
+                          fresh_prefill=fresh_prefill, device=device)
     toks = res.tokens[:, :res.n_blocks].reshape(B, -1).cpu().numpy()
     return toks[:, pad_len:][:, :max_length]

@@ -2,6 +2,7 @@
 
     python -m block_transformer_tpu_torch.profile_generate [--runs 5]
         [--quantize int8|int4|mixed48] [--kv int8|int4|bf16]
+        [--w8a8 on|off] [--fresh_prefill 0|1]
     python -m block_transformer_tpu_torch.profile_generate
         --engine int8|int4|paged|paged-int4
     python -m block_transformer_tpu_torch.profile_generate --vanilla
@@ -19,7 +20,12 @@ clock with the device synchronized:
 - ``--runs`` timed ``generate_blocks`` runs: median and quartiles of the
   seconds and of the generated tokens per second (prefill included);
 - ``--runs`` timed ``prefill_blocks`` runs alone (the decode loop is the
-  difference).
+  difference), under the KV mode ``generate_blocks`` declares.
+
+``--fresh_prefill 0`` takes the streaming prefill (chunks of 128 blocks
+through the cache) instead of the fresh one. ``--w8a8 off`` keeps every INT8
+linear on K1 (``ops.linear.w8a8_disabled``), in every mode; by default INT8
+linears at prefill-sized M take W8A8 (``ops.linear._use_w8a8``).
 
 With ``--vanilla`` it runs the baseline instead: ``vanilla_410`` (random
 bf16 weights, INT8 or INT4 weights, an INT8 KV cache), greedy, for B=8
@@ -43,6 +49,7 @@ run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import time
@@ -57,6 +64,7 @@ from block_transformer_tpu_torch.inference import generate as gen
 from block_transformer_tpu_torch.models import block_transformer as bt
 from block_transformer_tpu_torch.models import neox
 from block_transformer_tpu_torch.models import vanilla
+from block_transformer_tpu_torch.ops import linear as linear_ops
 from block_transformer_tpu_torch.ops import quant
 
 MODEL, VANILLA_MODEL = "block_main_b4_1.2b", "vanilla_410"
@@ -239,7 +247,8 @@ OWN_KERNELS = ("tc_matmul_kernel", "int8_matmul_kernel", "int4_matmul_kernel",
                "decode_attn_warp_kernel",
                "flash_attn_kernel",
                "flash_attn_tc_kernel",
-               "paged_write_kernel", "page_copy_kernel", "paged_attn_kernel")
+               "paged_write_kernel", "page_copy_kernel", "paged_attn_kernel",
+               "w8a8_quant_kernel", "w8a8_mm_kernel")
 
 
 def print_breakdown(per) -> None:
@@ -256,7 +265,8 @@ def print_breakdown(per) -> None:
           f"{sum(n for _, n in per.values()):9d}  (every kernel)")
 
 
-def profile_engine(kind: str, cfg, params, runs: int, seed: int) -> None:
+def profile_engine(kind: str, cfg, params, runs: int, seed: int,
+                   w8a8: str = "on") -> None:
     eng = make_engine(params, cfg, kind)
     requests = engine_requests(cfg, seed=seed)
     serve(eng, requests)                           # warm-up
@@ -265,7 +275,8 @@ def profile_engine(kind: str, cfg, params, runs: int, seed: int) -> None:
     per, busy_us = device_breakdown(lambda: serve(eng, requests))
     wall = statistics.median(secs)
     print(json.dumps({
-        "model": MODEL, "engine": kind, "n_slots": ENGINE_SLOTS,
+        "model": MODEL, "engine": kind, "w8a8": w8a8,
+        "n_slots": ENGINE_SLOTS,
         "traffic": ENGINE_TRAFFIC, "max_blocks": ENGINE_MAX_BLOCKS,
         "generated_tokens": [r["tokens"] for r in out],
         "run_s": quartiles(secs),
@@ -277,7 +288,8 @@ def profile_engine(kind: str, cfg, params, runs: int, seed: int) -> None:
     print_breakdown(per)
 
 
-def profile_vanilla(quantize: str, runs: int, seed: int) -> None:
+def profile_vanilla(quantize: str, runs: int, seed: int,
+                    w8a8: str = "on") -> None:
     cfg, params = vanilla_model(seed, quantize=quantize)
     ids = torch.as_tensor(np.random.default_rng(seed).integers(
         1, cfg.vocab_size, (BATCH, PROMPT_TOKENS)), dtype=torch.int32,
@@ -299,6 +311,7 @@ def profile_vanilla(quantize: str, runs: int, seed: int) -> None:
     generated = BATCH * NEW_TOKENS               # bench.py's count
     print(json.dumps({
         "model": VANILLA_MODEL, "quantize": quantize, "kv_cache": "int8",
+        "w8a8": w8a8,
         "batch": BATCH, "prompt_tokens": PROMPT_TOKENS,
         "decode_steps": NEW_TOKENS, "generated_tokens": generated,
         "generate_s": quartiles(total),
@@ -324,29 +337,45 @@ def main() -> None:
                     help=f"run the {VANILLA_MODEL} baseline instead")
     ap.add_argument("--vanilla_quantize", choices=("int8", "int4"),
                     default="int8", help="weights of the baseline")
+    ap.add_argument("--w8a8", choices=("on", "off"), default="on",
+                    help="W8A8 for INT8 linears at prefill-sized M")
+    ap.add_argument("--fresh_prefill", type=int, choices=(0, 1), default=1,
+                    help="0: the streaming (chunked) prefill")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate: no CUDA device")
+    with (linear_ops.w8a8_disabled() if args.w8a8 == "off"
+          else contextlib.nullcontext()):
+        profile(args)
+
+
+def profile(args) -> None:
     if args.vanilla:
-        profile_vanilla(args.vanilla_quantize, args.runs, args.seed)
+        profile_vanilla(args.vanilla_quantize, args.runs, args.seed,
+                        args.w8a8)
         return
     cfg, params = main_path_model(args.seed, quantize=args.quantize)
     if args.engine:
-        profile_engine(args.engine, cfg, params, args.runs, args.seed)
+        profile_engine(args.engine, cfg, params, args.runs, args.seed,
+                       args.w8a8)
         return
     ids, att, bam = ragged_prompts(cfg, seed=args.seed)
     N = ids.shape[1]
     max_blocks = N + NEW_TOKENS // cfg.block_length
     dev = [torch.as_tensor(a, device="cuda") for a in (ids, att, bam)]
 
+    fresh = bool(args.fresh_prefill)
+
     def run():
         return gen.generate_blocks(params, cfg, *dev, max_blocks=max_blocks,
-                                   kv_cache=args.kv, device="cuda")
+                                   kv_cache=args.kv, fresh_prefill=fresh,
+                                   device="cuda")
 
     def prefill():
-        return gen.prefill_blocks(params, cfg, *dev,
-                                  capacity=-(-max_blocks // 128) * 128,
-                                  kv_cache=args.kv)
+        with linear_ops.kv_mode(args.kv):
+            return gen.prefill_blocks(params, cfg, *dev,
+                                      capacity=-(-max_blocks // 128) * 128,
+                                      kv_cache=args.kv, fresh_prefill=fresh)
 
     res = run()
     generated = BATCH * (res.n_blocks - N) * cfg.block_length
@@ -356,7 +385,7 @@ def main() -> None:
     wall = statistics.median(total)
     print(json.dumps({
         "model": MODEL, "quantize": args.quantize, "kv_cache": args.kv,
-        "batch": BATCH,
+        "w8a8": args.w8a8, "fresh_prefill": fresh, "batch": BATCH,
         "prompt_tokens": PROMPT_TOKENS,
         "new_tokens_per_row": NEW_TOKENS, "generated_tokens": generated,
         "generate_s": quartiles(total),

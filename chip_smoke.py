@@ -7,9 +7,9 @@ Needs one CUDA card; exits non-zero, printing no result, without one. In
 one process it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the CUDA kernels K1-K8 from ``block_transformer_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel) and prints ptxas's register and
-   spill lines;
+2. builds the CUDA kernels K1-K8, W8A8-q and W8A8-mm from
+   ``block_transformer_tpu_torch/csrc`` (one ``nvcc`` per source, in
+   parallel) and prints ptxas's register and spill lines;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes its main path gives it, in bf16, and times kernel, plain version,
    one PyTorch library call computing the same function (a yardstick only:
@@ -26,6 +26,10 @@ one process it:
    route); K2 and K3 also at the ``vanilla_410`` baseline's decode step
    (D = 64, capacity 2176) and prompt (Q = 2048 causal), each K2 row
    naming its route and split of the cache and each K3 row its route;
+   W8A8-q and W8A8-mm (bit for bit) at the prefill's linears, the block
+   decoder's four at M = 4096 and the baseline's qkv at M = 16384, beside
+   ``torch._int_mm`` and K1 at the same shape, then the W8A8 pair against
+   K1 at M from 256 to 4096 (``w8a8_crossover``, one JSON line);
    K5-K8 at the serving engine's shapes (16 slots, 12 layers, 16 heads of
    128, capacity 640 contiguous, 3 pages of 256 paged), K6 and K8 also on
    the packed INT4 pool, each K6 row naming its split of the virtual slots;
@@ -35,16 +39,21 @@ one process it:
    versions) at a small configuration in float32: forward logits, greedy
    tokens of INT8-weight generation with the INT8, INT4 and bf16 global
    caches, of INT4- and mixed48-weight INT8-KV generation, of the vanilla
-   baseline (INT8 and INT4 weights, INT8 KV), and of the serving engine
+   baseline (INT8 and INT4 weights, INT8 KV), of the serving engine
    with each of its four quantized caches (contiguous INT8 and INT4, paged
-   INT8 and INT4);
+   INT8 and INT4), of ``block_main_b4_5`` (INT8) with W8A8 at every M, and
+   of the streaming prefill on the bf16, INT8 and INT4 caches;
 5. generates with ``block_main_b4_1.2b`` at full width (random weights from
    a seed, bf16), greedy, B=8, p2048/d128: INT8 weights with the INT8,
    bf16 and INT4 global caches, then INT4 weights (no K1 launch) and
    mixed48 weights (block decoder and head INT8, token decoder INT4) with
-   the INT8 cache: each one warm-up run, then a timed run between
-   launch-count resets, asserting every kernel of the path ran in it (and
-   none it must not run);
+   the INT8 cache, and INT8 weights with the streaming prefill (4 chunks
+   of 128 blocks through the INT8 cache): each one warm-up run, then a
+   timed run between launch-count resets, asserting every kernel of the
+   path ran in it (and none it must not run), and that W8A8 took the 48
+   prefill linears of each fresh prefill with INT8 block-decoder weights
+   (M = 4096; none of the streaming chunks, M = 1024 under the INT8 cache)
+   and K1 every other INT8 linear;
 6. serves with ``ContinuousBatchingEngine`` at the same width (INT8
    weights), 16 slots, 24 requests submitted together (8 of 512 prompt
    tokens and 32 new ones, then 16 of 2048 and 128), once with each cache:
@@ -60,14 +69,16 @@ one process it:
    KV cache) at the same B, prompt and new tokens, the same way, and prints
    the block/vanilla throughput ratio as a smoke figure.
 
-Every timed full-width run of steps 5-7 asserts that K1, K3 and K4
-launched by the tensor-core route only, and every one with a token decoder
-that K2's bf16 form took the warp route there (its split route runs only on
-the bf16 global cache). The last three lines are the
-``nvidia-smi`` line, a JSON object listing each kernel's launches (from the
-run of step 5, 6 or 7 named by the row's ``path``; a K6 or K8 row counts
-the launches on its pool width, and a K2 bf16 row gives those of its own
-route as ``route_launches``), error and times, and
+Every timed full-width run of steps 5-7 asserts that W8A8-q and W8A8-mm
+launched once for each INT8 linear that took W8A8 and K1 once for each
+other one (the baseline: its 96 prefill linears at M = 16384 by W8A8),
+that K1, K3 and K4 launched by the tensor-core route only, and every one
+with a token decoder that K2's bf16 form took the warp route there (its
+split route runs only on the bf16 global cache). The last three lines are
+the ``nvidia-smi`` line, a JSON object listing each kernel's launches (from
+the run of step 5, 6 or 7 named by the row's ``path``; a K6 or K8 row
+counts the launches on its pool width, and a K2 bf16 row gives those of its
+own route as ``route_launches``), error and times, and
 ``{"ok": true, "device": {...}}``.
 Any failure raises.
 """
@@ -96,15 +107,19 @@ from block_transformer_tpu_torch.kernels import decode_attention as k2  # noqa: 
 from block_transformer_tpu_torch.kernels import dequant_matmul as k1  # noqa: E402
 from block_transformer_tpu_torch.kernels import flash_attention as k3  # noqa: E402
 from block_transformer_tpu_torch.kernels import paged_attention as kp  # noqa: E402
+from block_transformer_tpu_torch.kernels import w8a8  # noqa: E402
 from block_transformer_tpu_torch.models import block_transformer as bt  # noqa: E402
 from block_transformer_tpu_torch.models import neox  # noqa: E402
 from block_transformer_tpu_torch.models import vanilla  # noqa: E402
+from block_transformer_tpu_torch.ops import linear as linear_ops  # noqa: E402
 from block_transformer_tpu_torch.ops import masks  # noqa: E402
 from block_transformer_tpu_torch.ops import quant  # noqa: E402
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s and
+# int8 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 TOL = 2e-2      # max |kernel - plain| / max |plain| in bf16 (~2^-8 rounding
                 # of outputs and probabilities, summed in another order)
 
@@ -115,6 +130,9 @@ DECODE_CU = "block_transformer_tpu_torch/csrc/decode_attention.cu"
 DECODE_PY = "block_transformer_tpu/ops/decode_attention.py"
 PAGED_CU = "block_transformer_tpu_torch/csrc/paged_attention.cu"
 PAGED_PY = "block_transformer_tpu/ops/paged_attention.py"
+W8A8_CU = "block_transformer_tpu_torch/csrc/w8a8.cu"
+# not a TPU kernel: XLA ops in the JAX package (_w8a8_dot)
+W8A8_JAX = "block_transformer_tpu/ops/linear.py:219"
 # (wrapper, tag, source, TPU kernel replaced, the run whose launches count,
 # the pool width whose launches a K6/K8 row counts, else None: all)
 KERNELS = [
@@ -141,26 +159,33 @@ KERNELS = [
      "engine paged", "int8"),
     (kp.paged_page_copy_int8, "K8 int4", PAGED_CU, f"{PAGED_PY}:646",
      "engine paged-int4", "int4"),
+    (w8a8.w8a8_quant, "W8A8-q", W8A8_CU, W8A8_JAX, "generation", None),
+    (w8a8.w8a8_matmul_stacked, "W8A8-mm", W8A8_CU, W8A8_JAX, "generation",
+     None),
 ]
+W8A8 = ("W8A8-q", "W8A8-mm")
 # the kernels each main path must launch; every path with a token decoder
 # runs K2's bf16 form on its local cache
 PATH_KERNELS = {
-    "generation": ("K1", "K2", "K2 bf16", "K3"),
+    "generation": ("K1", "K2", "K2 bf16", "K3", *W8A8),
+    "generation streaming": ("K1", "K2", "K2 bf16", "K3"),
     "generation int4": ("K2", "K2 bf16", "K3", "K4"),
-    "generation mixed48": ("K1", "K2", "K2 bf16", "K3", "K4"),
-    "generation kv bf16": ("K1", "K2 bf16", "K3"),
-    "generation kv int4": ("K1", "K2 bf16", "K3"),
-    "engine int8": ("K1", "K2", "K2 bf16", "K3", "K5"),
-    "engine int4": ("K1", "K2 bf16", "K3"),
-    "engine paged": ("K1", "K2 bf16", "K3", "K6", "K7", "K8"),
-    "engine paged-int4": ("K1", "K2 bf16", "K3", "K6 int4", "K8 int4"),
-    "vanilla": ("K1", "K2", "K3"),
+    "generation mixed48": ("K1", "K2", "K2 bf16", "K3", "K4", *W8A8),
+    "generation kv bf16": ("K1", "K2 bf16", "K3", *W8A8),
+    "generation kv int4": ("K1", "K2 bf16", "K3", *W8A8),
+    "engine int8": ("K1", "K2", "K2 bf16", "K3", "K5", *W8A8),
+    "engine int4": ("K1", "K2 bf16", "K3", *W8A8),
+    "engine paged": ("K1", "K2 bf16", "K3", "K6", "K7", "K8", *W8A8),
+    "engine paged-int4": ("K1", "K2 bf16", "K3", "K6 int4", "K8 int4",
+                          *W8A8),
+    "vanilla": ("K1", "K2", "K3", *W8A8),
 }
 # the kernels a main path must not launch: INT4 weights leave K1 no linear;
 # the INT4 and bf16 caches take no INT8 cache kernel; the baseline has no
 # bf16 cache
 PATH_ABSENT = {
-    "generation int4": ("K1",),
+    "generation streaming": W8A8,   # chunks of M = 1024 < 2048 (INT8 KV)
+    "generation int4": ("K1", *W8A8),
     "generation kv bf16": ("K2",),
     "generation kv int4": ("K2", "K5"),
     "engine int4": ("K2", "K5", "K6", "K6 int4"),
@@ -218,8 +243,10 @@ def time_ms(fn, iters: int) -> float:
     return time_ms_host(fn, iters)[0]
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    """(ms, "bytes" or "operations"): the larger of nbytes over the memory
+    rate and flops over ``peak`` (the bf16 tensor-core rate by default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -253,7 +280,7 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def record(rows, tag, label, err, ms, plain_ms, library_ms, nbytes, flops,
-           plan=None, host_us=None, extra=None, path=None):
+           plan=None, host_us=None, extra=None, path=None, peak=BF16_FLOPS):
     """One kernel row of the kernel ``tag`` in KERNELS; ``plan`` (K1, K4) is
     the dequant-matmul's launch, ``host_us`` the wrapper's host time a call,
     ``extra`` more keys (K2's split, K3's route), ``path`` the main path
@@ -261,7 +288,7 @@ def record(rows, tag, label, err, ms, plain_ms, library_ms, nbytes, flops,
     KERNELS)."""
     fn, _, source, replaces, own_path, _ = next(k for k in KERNELS
                                                 if k[1] == tag)
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops, peak)
     row = {"name": f"{tag} {fn.__name__} [{label}]", "tag": tag,
            "route": "cuda",
            "path": path or own_path, "source": source, "replaces": replaces, "launches": None,
@@ -276,8 +303,9 @@ def record(rows, tag, label, err, ms, plain_ms, library_ms, nbytes, flops,
         row["host_us"] = host_us
         note = f", route {row['matmul_route']}, host {host_us:.1f} us/call"
     rows.append(row)
+    lib = "none" if library_ms is None else f"{library_ms:.5f} ms"
     log(f"{tag} [{label}]: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-        f"library {library_ms:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+        f"library {lib}, bound {bound_ms:.5f} ms ({bound_by}), "
         f"max_abs_err {err:.3e}{note}")
 
 
@@ -355,6 +383,104 @@ def phase_k4(rows, cfg):
                plain_ms, lib_ms, nbytes, 2 * M * K * N,
                matmul_plan(M, K // 2, N), host_us)
         del w_p, scale, w_deq
+
+
+def exact_pair(name, got, want) -> None:
+    """Bit for bit, as the W8A8 kernels must be."""
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{name}: kernel and plain differ")
+
+
+def int_mm_ms(xq, w_q, nxt):
+    """(ms, layout) of ``torch._int_mm(xq, w_q[layer])`` cycling through the
+    layers (M > 16, K and N multiples of 8): the faster of the row-major
+    weights as they are and a column-major copy, each where the library
+    takes it."""
+    best = None
+    for layout in ("row-major", "column-major"):
+        ws = [w if layout == "row-major" else w.t().contiguous().t()
+              for w in w_q]
+        try:
+            torch._int_mm(xq, ws[0])
+        except RuntimeError as e:                  # a layout it refuses
+            log(f"torch._int_mm refuses {layout} weights: {e}")
+            continue
+        ms = time_ms(lambda: torch._int_mm(xq, ws[nxt()]), 20)
+        if best is None or ms < best[0]:
+            best = (ms, layout)
+    if best is None:
+        raise AssertionError("torch._int_mm takes neither layout")
+    return best
+
+
+def w8a8_pair(x, w_q, scale, layer):
+    xq, sx = w8a8.w8a8_quant(x)
+    return w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, layer, x.dtype)
+
+
+def phase_w8a8(rows, cfg, vcfg, smi):
+    """W8A8-q and W8A8-mm at the prefill's linears: the block decoder's
+    (M = B x 512 prompt blocks = 4096: qkv, attn-out, mlp-up, mlp-down) and
+    the baseline's qkv (M = 8 x 2048 = 16384), cycling through a 12-layer
+    stack; each bit-exact against its plain version and timed beside it,
+    beside ``torch._int_mm`` (W8A8-mm's library yardstick; W8A8-q has none)
+    and beside K1 at the same shape. Then the crossover on the block
+    decoder's four shapes: the W8A8 pair against K1 at M from 256 to 4096,
+    printed as one JSON line with the card."""
+    dev, bf16 = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(13)
+    h, m = cfg.block_decoder.hidden_size, cfg.block_decoder.intermediate_size
+    vh, L = vcfg.hidden_size, 12
+    Mb = BATCH * PROMPT_TOKENS // cfg.block_length * cfg.n_embedding_tokens
+    shapes = [("qkv", Mb, h, 3 * h, "generation"),
+              ("attn_out", Mb, h, h, "generation"),
+              ("mlp_up", Mb, h, m, "generation"),
+              ("mlp_down", Mb, m, h, "generation"),
+              ("baseline qkv", BATCH * PROMPT_TOKENS, vh, 3 * vh, "vanilla")]
+    crossover = []
+    for label, M, K, N, path in shapes:
+        w_q, scale = quant.quantize_int8(torch.randn(
+            (L, K, N), generator=g, device=dev, dtype=bf16) * 0.02)
+        x = torch.randn((M, K), generator=g, device=dev, dtype=bf16)
+        xq, sx = w8a8.w8a8_quant(x)
+        exact_pair(f"W8A8-q {label}", (xq, sx), w8a8.w8a8_quant_plain(x))
+        got = w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, L - 1, bf16)
+        exact_pair(f"W8A8-mm {label}", (got,), (
+            w8a8.w8a8_matmul_stacked_plain(xq, sx, w_q, scale, L - 1, bf16),))
+        del got
+        it = iter(range(10 ** 9))
+        nxt = lambda: next(it) % L             # noqa: E731
+        q_ms = time_ms(lambda: w8a8.w8a8_quant(x), 20)
+        q_plain = time_ms(lambda: w8a8.w8a8_quant_plain(x), 5)
+        mm_ms = time_ms(lambda: w8a8.w8a8_matmul_stacked(
+            xq, sx, w_q, scale, nxt(), bf16), 20)
+        mm_plain = time_ms(lambda: w8a8.w8a8_matmul_stacked_plain(
+            xq, sx, w_q, scale, nxt(), bf16), 3)
+        lib_ms, layout = int_mm_ms(xq, w_q, nxt)
+        k1_ms = time_ms(lambda: k1.int8_matmul_stacked(x, w_q, scale, nxt()),
+                        10)
+        extra = {"k1_ms": k1_ms, "pair_ms": q_ms + mm_ms}
+        record(rows, "W8A8-q", f"{label} M={M} K={K}", 0.0, q_ms, q_plain,
+               None, M * K * 2 + M * K + M * 4, 0, path=path, extra=extra)
+        p = w8a8.plan(M, K, N, build.sm_count(0))
+        record(rows, "W8A8-mm", f"{label} M={M} K={K} N={N}", 0.0, mm_ms,
+               mm_plain, lib_ms, M * K + K * N + M * 4 + N * 4 + M * N * 2,
+               2 * M * K * N, path=path, peak=INT8_OPS,
+               extra={**extra, "w8a8_plan": f"{'x'.join(map(str, p.tile))} "
+                                             f"splits {p.splits}",
+                      "int_mm_layout": layout})
+        if path == "generation":
+            for Mc in (256, 384, 512, 1024, 2048, 4096):
+                xc = x[:Mc]
+                crossover.append({
+                    "shape": label, "M": Mc, "K": K, "N": N,
+                    "k1_ms": time_ms(lambda: k1.int8_matmul_stacked(
+                        xc, w_q, scale, nxt()), 10),
+                    "w8a8_ms": time_ms(lambda: w8a8_pair(
+                        xc, w_q, scale, nxt()), 10)})
+        del w_q, scale, x, xq
+    log(json.dumps({"w8a8_crossover": crossover, "card": smi}))
 
 
 def int8_layers(g, L, B, H, cap, D):
@@ -919,6 +1045,100 @@ def phase_small_quantized():
             f"on the card and the CPU ({toks[1].shape[1]} per row)")
 
 
+class W8A8Decisions:
+    """Records every W8A8 decision taken inside, as (M, taken): the card's
+    INT8 linears each ask ``ops.linear._use_w8a8`` once."""
+
+    def __enter__(self):
+        self.seen, self._use = [], linear_ops._use_w8a8
+
+        def use(m):
+            taken = self._use(m)
+            self.seen.append((m, taken))
+            return taken
+
+        linear_ops._use_w8a8 = use
+        return self
+
+    def __exit__(self, *exc):
+        linear_ops._use_w8a8 = self._use
+
+    def check(self, path: str, launches: dict, taken_at=None) -> None:
+        """W8A8-q and W8A8-mm launched once for each decision taken and K1
+        once for each one left to it; ``taken_at``: (count, M) the run must
+        have taken (all at that M)."""
+        taken = [m for m, t in self.seen if t]
+        left = [m for m, t in self.seen if not t]
+        log(f"W8A8 in the timed {path} run: {len(taken)} linears (M "
+            f"{sorted(set(taken))}), {len(left)} to K1 (M "
+            f"{sorted(set(left))})")
+        if not launches["W8A8-q"] == launches["W8A8-mm"] == len(taken):
+            raise AssertionError(f"{path}: W8A8 launches {launches['W8A8-q']}"
+                                 f" / {launches['W8A8-mm']} for {len(taken)} "
+                                 "linears that took it")
+        if launches["K1"] != len(left):
+            raise AssertionError(f"{path}: K1 launches {launches['K1']} for "
+                                 f"{len(left)} linears left to it")
+        if taken_at is not None and (len(taken), set(taken)) != (
+                taken_at[0], {taken_at[1]} if taken_at[0] else set()):
+            raise AssertionError(f"{path}: W8A8 took {len(taken)} linears at "
+                                 f"M {sorted(set(taken))}, not {taken_at[0]}"
+                                 f" at M {taken_at[1]}")
+
+
+def phase_small_w8a8():
+    """W8A8 and the streaming prefill on the card (kernels) against the CPU
+    (plain versions), float32, greedy tokens equal: ``block_main_b4_5``
+    (random weights, INT8, INT8 KV) with W8A8 forced at every M, the CPU
+    run taking W8A8's plain versions through the port's card gate, opened
+    for it; then ``generate_blocks(fresh_prefill=False)`` on the bf16, INT8
+    and INT4 caches at the small configuration, 12 prompt blocks in chunks
+    of 5 (padded to 15 of 16 slots)."""
+    cfg = config.get_config("block_main_b4_5")
+    params = quant.quantize_block_transformer(
+        bt.init_block_transformer_params(5, cfg, device="cpu"), bits=8)
+    rng = np.random.default_rng(5)
+    B, N, L = 2, 12, cfg.block_length
+    ids = rng.integers(1, cfg.vocab_size, (B, N, L)).astype(np.int32)
+    att = np.ones_like(ids)
+    ids[1, :2], att[1, :2] = 0, 0
+    bam = att.any(-1).astype(np.int32)
+    run = lambda p, d: gen.generate_blocks(  # noqa: E731
+        p, cfg, ids, att, bam, max_blocks=N + 4, kv_cache="int8", device=d)
+    with linear_ops.w8a8_min_m(1):
+        before = w8a8.w8a8_matmul_stacked.launches
+        card = run(to_card(params), "cuda")
+        launched = w8a8.w8a8_matmul_stacked.launches - before
+        gate = linear_ops._on_card
+        linear_ops._on_card = lambda x: True
+        try:
+            cpu = run(params, "cpu")
+        finally:
+            linear_ops._on_card = gate
+    if launched <= 0 or card.n_blocks != cpu.n_blocks or not torch.equal(
+            card.tokens.cpu(), cpu.tokens):
+        raise AssertionError(f"small block_main_b4_5 W8A8: card and CPU "
+                             f"tokens differ ({launched} W8A8-mm launches)")
+    log(f"small block_main_b4_5 INT8 with W8A8 at every M: greedy tokens "
+        f"equal on the card and the CPU ({card.n_blocks} blocks, "
+        f"{launched} W8A8-mm launches)")
+
+    cfg, qparams = small_config()
+    ids = rng.integers(1, cfg.vocab_size, (B, N, L)).astype(np.int32)
+    for kv in ("bf16", "int8", "int4"):
+        run = lambda p, d: gen.generate_blocks(  # noqa: E731
+            p, cfg, ids, att, bam, max_blocks=N + 4, kv_cache=kv,
+            prefill_chunk_blocks=5, fresh_prefill=False, device=d)
+        t_cpu, t_gpu = run(qparams, "cpu"), run(to_card(qparams), "cuda")
+        if t_cpu.n_blocks != t_gpu.n_blocks or not torch.equal(
+                t_cpu.tokens, t_gpu.tokens.cpu()):
+            raise AssertionError(f"small streaming prefill kv {kv}: card "
+                                 "and CPU tokens differ")
+        log(f"small generation kv {kv}, streaming prefill (chunks of 5 "
+            f"blocks): greedy tokens equal on the card and the CPU "
+            f"({t_gpu.n_blocks} blocks)")
+
+
 def reset_launches():
     for fn, *_ in KERNELS:
         fn.launches = 0
@@ -964,17 +1184,24 @@ def read_launches(path: str) -> dict:
     return launches
 
 
-def generation_path(quantize: str, kv: str) -> str:
+def generation_path(quantize: str, kv: str, fresh: bool = True) -> str:
+    if not fresh:
+        return "generation streaming"
     if kv != "int8":
         return f"generation kv {kv}"
     return "generation" if quantize == "int8" else f"generation {quantize}"
 
 
-def phase_generation(cfg, params, quantize: str, kv: str = "int8"):
+def phase_generation(cfg, params, quantize: str, kv: str = "int8",
+                     fresh: bool = True):
     """Full-width generation with ``quantize`` weights and the ``kv`` global
-    cache; returns the launches of the timed run and its tokens per
-    second."""
-    path = generation_path(quantize, kv)
+    cache, the fresh prefill or (``fresh=False``) the streaming one in 4
+    chunks of 128 blocks; returns the launches of the timed run and its
+    tokens per second. Asserts the W8A8 decisions: an INT8 block decoder's
+    fresh prefill takes W8A8 for its 48 linears (12 layers x 4) at M =
+    4096, the streaming chunks (M = 1024 under the INT8 cache) take none,
+    and every other INT8 linear takes K1."""
+    path = generation_path(quantize, kv, fresh)
     torch.cuda.reset_peak_memory_stats()
     ids, att, bam = pg.ragged_prompts(cfg, BATCH, PROMPT_TOKENS, seed=0)
     L, N = cfg.block_length, ids.shape[1]
@@ -983,18 +1210,22 @@ def phase_generation(cfg, params, quantize: str, kv: str = "int8"):
     def run():
         return gen.generate_blocks(params, cfg, ids, att, bam,
                                    max_blocks=max_blocks, kv_cache=kv,
-                                   device="cuda")
+                                   fresh_prefill=fresh, device="cuda")
 
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     reset_launches()
-    t0 = time.perf_counter()
-    res = run()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    with W8A8Decisions() as decisions:
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
     launches = read_launches(path)
+    layers = cfg.block_decoder.num_layers
+    decisions.check(path, launches, None if quantize == "int4" else (
+        4 * layers, BATCH * N * cfg.n_embedding_tokens) if fresh else (0, 0))
 
     toks = res.tokens
     if tuple(toks.shape) != (BATCH, max_blocks, L):
@@ -1005,7 +1236,8 @@ def phase_generation(cfg, params, quantize: str, kv: str = "int8"):
         raise AssertionError("prompt blocks were not kept")
     generated = BATCH * (res.n_blocks - N) * L
     log(f"{MODEL} generate_blocks B={BATCH} p{PROMPT_TOKENS}/d{NEW_TOKENS} "
-        f"{quantize} weights + {kv} KV: {res.n_blocks - N} blocks generated; "
+        f"{quantize} weights + {kv} KV, {'fresh' if fresh else 'streaming'} "
+        f"prefill: {res.n_blocks - N} blocks generated; "
         f"warm-up run {warm_s:.2f} s; timed run {secs:.3f} s = "
         f"{generated / secs:.1f} tok/s (prefill included); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1030,11 +1262,14 @@ def phase_vanilla(cfg, params):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     reset_launches()
-    t0 = time.perf_counter()
-    toks = run()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    with W8A8Decisions() as decisions:
+        t0 = time.perf_counter()
+        toks = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
     launches = read_launches("vanilla")
+    decisions.check("vanilla", launches,
+                    (4 * cfg.num_layers, BATCH * PROMPT_TOKENS))
     if tuple(toks.shape) != (BATCH, NEW_TOKENS + 1):
         raise AssertionError(f"vanilla tokens shape {tuple(toks.shape)}")
     if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
@@ -1058,8 +1293,10 @@ def phase_engine(kind: str, cfg, params):
     requests = pg.engine_requests(cfg, seed=0)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    res = pg.serve(eng, requests)
+    with W8A8Decisions() as decisions:
+        res = pg.serve(eng, requests)
     launches = read_launches(f"engine {kind}")
+    decisions.check(f"engine {kind}", launches)
     reqs = res["requests"]
     early = 0
     for r, (_, budget) in zip(reqs, requests):
@@ -1183,7 +1420,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     took = build.build_all(["dequant_matmul", "decode_attention",
-                            "flash_attention", "paged_attention"])
+                            "flash_attention", "paged_attention", "w8a8"])
     log(f"kernel build {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in took.items())})")
     for name, text in build.build_logs.items():
@@ -1202,6 +1439,7 @@ def main() -> None:
     phase_k2_bf16(rows, cfg)
     phase_k3(rows, cfg, vcfg)
     phase_k4(rows, cfg)
+    phase_w8a8(rows, cfg, vcfg, smi)
     phase_k5(rows, cfg)
     phase_k6(rows, cfg)
     phase_k6(rows, cfg, int4=True)
@@ -1213,6 +1451,7 @@ def main() -> None:
     phase_small_reference()
     phase_small_quantized()
     phase_small_engine()
+    phase_small_w8a8()
     launches, tok_s, tokens = {}, {}, {}
     for quantize in ("int8", "int4", "mixed48"):
         t0 = time.perf_counter()
@@ -1225,6 +1464,8 @@ def main() -> None:
             launches[generation_path(quantize, kv)], tok_s[(quantize, kv)] = (
                 phase_generation(cfg, params, quantize, kv))
         if quantize == "int8":
+            launches["generation streaming"], _ = phase_generation(
+                cfg, params, quantize, "int8", fresh=False)
             for kind in pg.ENGINE_KINDS:
                 launches[f"engine {kind}"], tokens[kind] = phase_engine(
                     kind, cfg, params)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1-K8 against their plain PyTorch versions, on
-the card, at small and ragged shapes; and the launch counters. K2 is held
+"""The port's CUDA kernels K1-K8, W8A8-q and W8A8-mm against their plain
+PyTorch versions, on the card, at small and ragged shapes (W8A8 also at the
+prefill's M = 4096, bit for bit); and the launch counters. K2 is held
 in both its forms (INT8 and the bf16/float32 cache; the latter by its
 warp route at caps up to 32 and its split route past them, each case
 asserting the route), K6 on INT8 and packed INT4 pools, K8 on both pool
@@ -36,6 +37,7 @@ from block_transformer_tpu_torch.kernels import decode_attention as k2
 from block_transformer_tpu_torch.kernels import dequant_matmul as k1
 from block_transformer_tpu_torch.kernels import flash_attention as k3
 from block_transformer_tpu_torch.kernels import paged_attention as kp
+from block_transformer_tpu_torch.kernels import w8a8
 from block_transformer_tpu_torch.ops import masks
 from block_transformer_tpu_torch.ops import quant
 
@@ -781,3 +783,130 @@ def test_k5_to_k8_launch_counters():
              kp.paged_page_copy_int8.launches,
              kp.paged_decode_attention_int8.launches)
     assert after == tuple(n + 1 for n in before)
+
+
+# ---------------------------------------------------------------------------
+# W8A8-q and W8A8-mm: bit-exact against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K", [(1, 2048), (17, 8192), (300, 112),
+                                 (5, 16), (4096, 2048), (64, 1024)])
+def test_w8a8_quant_bit_exact(M, K, dtype):
+    """Random rows (one zero, one of tiny values, one large), K from one
+    vector of 16 up, not always a multiple of the block's 128 threads'
+    vectors."""
+    g = _card()
+    x = torch.randn((M, K), generator=g, device="cuda")
+    x[0] *= 300.0
+    if M > 2:
+        x[1] = 0.0
+        x[2] *= 1e-30
+    x = x.to(dtype)
+    before = w8a8.w8a8_quant.launches
+    xq, sx = w8a8.w8a8_quant(x)
+    assert w8a8.w8a8_quant.launches == before + 1
+    xq_p, sx_p = w8a8.w8a8_quant_plain(x)
+    assert xq.dtype == torch.int8 and sx.dtype == torch.float32
+    assert torch.equal(sx, sx_p) and torch.equal(xq, xq_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 16, 17, 384, 4096])
+@pytest.mark.parametrize("K,N", [(2048, 384), (2048, 6144), (8192, 2048),
+                                 (2048, 2048), (8192, 384)])
+def test_w8a8_matmul_bit_exact(M, K, N, dtype):
+    """Layer 1 of a 2-layer stack (the layer by pointer offset), xq and sx
+    from W8A8-q; splits from ``plan`` (split K at small M, none at the
+    prefill's M = 4096)."""
+    g = _card()
+    x = torch.randn((M, K), generator=g, device="cuda").to(dtype)
+    w_q = torch.randint(-127, 128, (2, K, N), generator=g, device="cuda",
+                        dtype=torch.int8)
+    scale = 0.001 + 0.01 * torch.rand((2, N), generator=g, device="cuda")
+    xq, sx = w8a8.w8a8_quant(x)
+    before = w8a8.w8a8_matmul_stacked.launches
+    got = w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, 1, dtype)
+    assert w8a8.w8a8_matmul_stacked.launches == before + 1
+    want = w8a8.w8a8_matmul_stacked_plain(xq, sx, w_q, scale, 1, dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N", [(70, 96, 48), (130, 80, 144),
+                                   (3, 4096, 16)])
+def test_w8a8_matmul_ragged_tiles(M, K, N):
+    """M, N and K not multiples of the 128 x 128 x 64 tile (K and N of 16):
+    the zero-filled edges."""
+    g = _card()
+    xq = torch.randint(-127, 128, (M, K), generator=g, device="cuda",
+                       dtype=torch.int8)
+    sx = torch.rand((M,), generator=g, device="cuda")
+    w_q = torch.randint(-127, 128, (3, K, N), generator=g, device="cuda",
+                        dtype=torch.int8)
+    scale = torch.rand((3, N), generator=g, device="cuda")
+    for layer in (0, 2):
+        got = w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, layer,
+                                       torch.bfloat16)
+        assert torch.equal(got, w8a8.w8a8_matmul_stacked_plain(
+            xq, sx, w_q, scale, layer, torch.bfloat16))
+
+
+def test_w8a8_counters_are_left_at_zero():
+    """A split launch (M = 16) leaves the shared arrival counters at zero:
+    the next split launch on the same stream is right too."""
+    g = _card()
+    xq = torch.randint(-127, 128, (16, 2048), generator=g, device="cuda",
+                       dtype=torch.int8)
+    sx = torch.rand((16,), generator=g, device="cuda")
+    w_q = torch.randint(-127, 128, (1, 2048, 384), generator=g,
+                        device="cuda", dtype=torch.int8)
+    scale = torch.rand((1, 384), generator=g, device="cuda")
+    assert w8a8.plan(16, 2048, 384, build.sm_count(0)).splits > 1
+    want = w8a8.w8a8_matmul_stacked_plain(xq, sx, w_q, scale, 0,
+                                          torch.float32)
+    for _ in range(3):
+        got = w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, 0, torch.float32)
+        assert torch.equal(got, want)
+    _, ctr = build.scratch(0, build.raw_stream(0), 0, 0)
+    torch.cuda.synchronize()
+    assert not ctr.any()
+
+
+def test_w8a8_wrappers_raise():
+    """What the kernels do not take raises; nothing falls back."""
+    g = _card()
+    xq = torch.randint(-127, 128, (8, 64), generator=g, device="cuda",
+                       dtype=torch.int8)
+    sx = torch.rand((8,), device="cuda")
+    w_q = torch.randint(-127, 128, (2, 64, 32), generator=g, device="cuda",
+                        dtype=torch.int8)
+    scale = torch.rand((2, 32), device="cuda")
+    mm = w8a8.w8a8_matmul_stacked
+    with pytest.raises(ValueError, match="multiples of 16"):
+        mm(xq[:, :56].contiguous(), sx, w_q[:, :56].contiguous(), scale, 0,
+           torch.float32)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        mm(xq, sx, w_q[:, :, :24].contiguous(), scale[:, :24].contiguous(),
+           0, torch.float32)
+    with pytest.raises(ValueError, match="layer"):
+        mm(xq, sx, w_q, scale, 2, torch.float32)
+    with pytest.raises(TypeError):
+        mm(xq.float(), sx, w_q, scale, 0, torch.float32)
+    with pytest.raises(TypeError):
+        mm(xq, sx, w_q, scale, 0, torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        mm(xq, sx, w_q.transpose(1, 2).contiguous().transpose(1, 2), scale,
+           0, torch.float32)
+    with pytest.raises(ValueError, match="aligned"):
+        mm(xq[1:], sx[1:], w_q, scale, 0, torch.float32)
+    x = torch.randn((4, 64), device="cuda")
+    with pytest.raises(TypeError):
+        w8a8.w8a8_quant(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        w8a8.w8a8_quant(x.t())
+    with pytest.raises(ValueError):
+        w8a8.w8a8_quant(x[None])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        w8a8.w8a8_quant(x[:, :56].contiguous())
+    with pytest.raises(ValueError, match="aligned"):
+        w8a8.w8a8_quant(torch.randn(80, device="cuda")[1:65].view(4, 16))

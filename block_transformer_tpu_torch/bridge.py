@@ -14,6 +14,11 @@ KV caches differ in one field type: JAX's INT4 caches and pools hold
 the port packs two to a byte along D (``ops.quant.pack_kv_int4``, uint8
 ``[..., D/2]``). ``cache_to_numpy`` hands such values back unpacked as
 int8, for ``.astype(jnp.int4)`` on the JAX side.
+
+A train state crosses too: JAX's ``TrainState`` holds optax's chain state
+``(clip, (adam, masked decay, schedule))`` from ``make_optimizer``, whose
+Adam moments ``mu`` / ``nu`` are trees shaped like the parameters and whose
+two step counts are equal; the port's ``AdamWState`` keeps one count.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import torch
 
 from block_transformer_tpu_torch.models import neox
 from block_transformer_tpu_torch.ops import quant
+from block_transformer_tpu_torch.train import optimizer as opt
+from block_transformer_tpu_torch.train import train_step as ts
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -53,13 +60,15 @@ def params_from_numpy(tree, device="cuda", dtype=None):
     """A JAX parameter tree (after ``jax.device_get``) -> the port's tree.
     int8 stays int8; bf16 and f32 stay as they are unless ``dtype`` is given,
     which then applies to every floating leaf except the float32 scales of
-    a quantized linear (the kernels read them as float32)."""
-    if isinstance(tree, dict):
-        quantized = any(k.startswith("kernel_q") for k in tree)
-        return {k: params_from_numpy(
-                    v, device, None if quantized and k == "scale" else dtype)
-                for k, v in tree.items()}
-    return tensor_from_numpy(tree, device, dtype)
+    a quantized linear (the kernels read them as float32:
+    ``quant.cast_floats``)."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return tensor_from_numpy(node, device)
+
+    out = conv(tree)
+    return out if dtype is None else quant.cast_floats(out, dtype)
 
 
 def params_to_numpy(tree):
@@ -104,3 +113,34 @@ def cache_to_numpy(cache) -> dict:
     out = {f: conv(getattr(cache, f)) for f in cache._fields if f != "length"}
     out["length"] = np.int32(cache.length)
     return out
+
+
+def train_state_from_numpy(state, device="cuda") -> ts.TrainState:
+    """A JAX ``TrainState`` (after ``jax.device_get``) built with
+    ``make_optimizer`` -> the port's ``TrainState``."""
+    _, (adam, _, sched) = state.opt_state
+    count = int(np.asarray(adam.count))
+    if int(np.asarray(sched.count)) != count:
+        raise ValueError(f"Adam count {count} and schedule count "
+                         f"{int(np.asarray(sched.count))} differ")
+    return ts.TrainState(
+        params_from_numpy(state.params, device),
+        opt.AdamWState(count, params_from_numpy(adam.mu, device),
+                       params_from_numpy(adam.nu, device)),
+        int(np.asarray(state.step)))
+
+
+def train_state_to_numpy(state: ts.TrainState, like):
+    """The port's ``TrainState`` -> ``like`` (a JAX ``TrainState`` of the
+    same parameter tree and optimizer) with every field replaced by the
+    port's values as numpy arrays; optax's namedtuples are kept through
+    ``_replace``, so no optax import is needed."""
+    clip, (adam, masked, sched) = like.opt_state
+    count = np.int32(state.opt_state.count)
+    adam = adam._replace(count=count,
+                         mu=params_to_numpy(state.opt_state.mu),
+                         nu=params_to_numpy(state.opt_state.nu))
+    return like._replace(params=params_to_numpy(state.params),
+                         opt_state=(clip, (adam, masked,
+                                           sched._replace(count=count))),
+                         step=np.int32(state.step))

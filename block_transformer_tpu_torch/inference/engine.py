@@ -510,6 +510,7 @@ class ContinuousBatchingEngine:
                     self.cache.page_table[s] = 0
             self.stats.prompts_finished += 1
 
+    @torch.no_grad()
     def step(self):
         """Admit waiting prompts, then decode one window and consume it."""
         self._admit()
@@ -517,6 +518,7 @@ class ContinuousBatchingEngine:
             return
         self._consume(self._dispatch(self._target_window() or 1))
 
+    @torch.no_grad()
     def run(self, max_steps: int = 10_000) -> List[Request]:
         """Drive windows until all submitted work finishes (or max_steps);
         returns the completed requests. Window i+1 is dispatched before

@@ -16,6 +16,10 @@ stop once every row has finished. EOS semantics are the JAX package's: a
 row finishes when a generated block holds EOS; the EOS and everything after
 it in the block come out as pad; finished rows emit pad blocks and zero
 block embeddings.
+
+The entry points run under ``torch.no_grad()``: the kernels they launch
+have no backward (their wrappers refuse inputs that require grad), and
+a caller's parameters may require grad.
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ def _sample(logits: torch.Tensor, greedy: bool, temperature: float,
         torch.int32)
 
 
+@torch.no_grad()
 def decode_block_tokens(params, cfg: BlockTransformerConfig, block_embeddings,
                         *, greedy: bool = True, temperature: float = 1.0,
                         generator: Optional[torch.Generator] = None,
@@ -119,6 +124,7 @@ def _block_decoder_step(params, cfg: BlockTransformerConfig, inputs_embeds,
     return hidden, cache, kv_valid
 
 
+@torch.no_grad()
 def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
                    attention_mask, block_attention_mask, *, capacity: int,
                    kv_cache: str = "bf16", prefill_chunk_blocks: int = 128,
@@ -185,6 +191,7 @@ def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
     return next_embeds, cache._replace(length=S), kv_valid
 
 
+@torch.no_grad()
 def generate_blocks(params, cfg: BlockTransformerConfig, input_ids,
                     attention_mask, block_attention_mask, *, max_blocks: int,
                     greedy: bool = True, temperature: float = 1.0,
@@ -280,6 +287,7 @@ def preprocess_inputs(cfg: BlockTransformerConfig, input_ids,
             "block_attention_mask": bam, "initial_block_padding": pad_len}
 
 
+@torch.no_grad()
 def generate(params, cfg: BlockTransformerConfig, input_ids,
              attention_mask=None, max_length: int = 100, greedy: bool = True,
              temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,

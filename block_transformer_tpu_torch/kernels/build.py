@@ -10,7 +10,8 @@ starts one ``nvcc`` per source, all at once, to build them in parallel.
 
 Every C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after the launch; ``check`` raises when that
-is not 0.
+is not 0. No kernel has a backward: every wrapper first calls
+``no_backward``, which refuses inputs that require grad under grad mode.
 """
 
 from __future__ import annotations
@@ -91,6 +92,27 @@ def load(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and one of ``tensors`` (None skipped) requires grad:
+    autograd would want a backward through the op."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def no_backward(what: str, *tensors) -> None:
+    """Raise when autograd would need a backward of kernel ``what``: its
+    output is written through a raw pointer and has no ``grad_fn``, so a loss
+    downstream would get no gradient through it, silently. Every wrapper
+    calls this first, on the CPU too, so both devices refuse the same
+    calls; run inference under ``torch.no_grad()``, and training through
+    the plain ops (``ops.attention.attention`` does so under autograd)."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, but the kernel has no backward "
+            "(call it under torch.no_grad(), or use the plain op to train)")
 
 
 def ptr(t) -> ctypes.c_void_p:

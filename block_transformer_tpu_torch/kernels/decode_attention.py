@@ -157,6 +157,7 @@ def decode_attention_int8_stacked(q: torch.Tensor, k_q: torch.Tensor,
                                   mask: masks_lib.AttnMask) -> torch.Tensor:
     """q [B, H, S, D] (S <= 8); k_q/v_q int8 [L, B, H, cap, D]; k_s/v_s f32
     [L, B, H, cap]; mask at cache granularity -> [B, H, S, D] in q.dtype."""
+    build.no_backward("decode_attention_int8", q, k_s, v_s)
     if not q.is_cuda:
         return decode_attention_int8_stacked_plain(q, k_q, k_s, v_q, v_s,
                                                    layer, mask)
@@ -243,6 +244,7 @@ def decode_attention_stacked(q: torch.Tensor, k: torch.Tensor,
     """q [B, H, S, D] (S <= 8); k/v [L, B, H, cap, D] bf16 or float32 (on
     the card: of q's dtype); mask at cache granularity -> [B, H, S, D] in
     q.dtype."""
+    build.no_backward("decode_attention", q, k, v)
     if not q.is_cuda:
         return decode_attention_stacked_plain(q, k, v, layer, mask)
     B, H, S, D = q.shape

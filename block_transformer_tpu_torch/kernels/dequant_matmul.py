@@ -152,6 +152,7 @@ def _launch(name: str, fn, x, w, scale, layer: int, out, ints) -> None:
 def int8_matmul_stacked(x: torch.Tensor, w_q: torch.Tensor,
                         scale: torch.Tensor, layer: int) -> torch.Tensor:
     """x [M, K] (f32/bf16); w_q int8 [L, K, N]; scale f32 [L, N] -> [M, N]."""
+    build.no_backward("int8_matmul", x, w_q, scale)
     if not x.is_cuda:
         return int8_matmul_stacked_plain(x, w_q, scale, layer)
     M, K = x.shape
@@ -202,6 +203,7 @@ def int4_matmul_stacked(x: torch.Tensor, w_p: torch.Tensor,
     """x [M, K] (f32/bf16); w_p int8 [L, K/2, N] split-half packed; scale
     f32 [L, G, N] group-wise or [L, N] per-channel -> [M, N]. A group may
     not straddle the two halves: G == 1, or K/G divides K/2."""
+    build.no_backward("int4_matmul", x, w_p, scale)
     if not x.is_cuda:
         return int4_matmul_stacked_plain(x, w_p, scale, layer)
     M, K = x.shape

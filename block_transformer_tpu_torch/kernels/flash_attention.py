@@ -84,6 +84,7 @@ def index_vectors(mask: masks_lib.AttnMask, B: int, Q: int, K: int, device):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: masks_lib.AttnMask) -> torch.Tensor:
     """q [B, H, Q, D]; k, v [B, H, K, D]; mask: AttnMask -> [B, H, Q, D]."""
+    build.no_backward("flash_attention", q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, mask)
     B, H, Q, D = q.shape

@@ -165,6 +165,7 @@ def paged_write_int8(k_pool: torch.Tensor, ks_pool: torch.Tensor,
 
     Pools int8 [L, P, H, ps, D] / f32 [L, P, H, ps]; page/off int32 [B];
     kq/vq int8 [B, H, D]; ks/vs f32 [B, H]. Returns the four pools."""
+    build.no_backward("paged_write_int8", ks_pool, vs_pool, ks, vs)
     if not kq.is_cuda:
         return paged_write_int8_plain(k_pool, ks_pool, v_pool, vs_pool, layer,
                                       page, off, kq, ks, vq, vs)
@@ -205,6 +206,7 @@ def paged_write_layers_int8(k_pool: torch.Tensor, ks_pool: torch.Tensor,
 
     kq/vq int8 [L, B, H, D]; ks/vs f32 [L, B, H]; page/off int32 [B].
     Returns the four pools."""
+    build.no_backward("paged_write_layers_int8", ks_pool, vs_pool, ks, vs)
     if not kq.is_cuda:
         return paged_write_layers_int8_plain(k_pool, ks_pool, v_pool, vs_pool,
                                              page, off, kq, ks, vq, vs)
@@ -291,6 +293,8 @@ def paged_decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
     positions ([B, n_virt * ps]); fresh: None, or the current step's
     dequantized (kf, vf) f32 [B, H, D] (S == 1; the caller passes
     ``mask.q_idx - 1``). Returns [B, H, S, D] in q.dtype."""
+    build.no_backward("paged_decode_attention_int8", q, k_s, v_s,
+                      *(fresh or ()))
     if not q.is_cuda:
         return paged_decode_attention_int8_plain(q, k_q, k_s, v_q, v_s, layer,
                                                  page_table, mask, fresh=fresh)
@@ -385,6 +389,8 @@ def paged_page_copy_int8(k_pool: torch.Tensor, ks_pool: torch.Tensor,
     [L, G, H, nv * ps]) page by page into ``pool[:, pt_rows[g, j]]``, in
     place. pt_rows int32 [G, nv]. Packed INT4 rows (uint8 [..., D/2]) go
     into a packed pool byte for byte. Returns the four pools."""
+    build.no_backward("paged_page_copy_int8", ks_pool, vs_pool, row_ks,
+                      row_vs)
     if not k_pool.is_cuda:
         return paged_page_copy_int8_plain(k_pool, ks_pool, v_pool, vs_pool,
                                           pt_rows, row_k, row_ks, row_v,

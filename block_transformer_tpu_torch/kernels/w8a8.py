@@ -106,6 +106,7 @@ def _aligned(*ptrs) -> bool:
 def w8a8_quant(x: torch.Tensor):
     """x [M, K] (f32/bf16) -> (xq int8 [M, K], sx f32 [M]). On the card K
     must be a multiple of 16 (as W8A8-mm's) and x 16-byte aligned."""
+    build.no_backward("w8a8_quant", x)
     if not x.is_cuda:
         return w8a8_quant_plain(x)
     if x.dim() != 2:
@@ -142,6 +143,7 @@ def w8a8_matmul_stacked(xq: torch.Tensor, sx: torch.Tensor,
     """xq int8 [M, K]; sx f32 [M]; w_q int8 [L, K, N]; scale f32 [L, N] ->
     [M, N] in ``dtype`` (f32/bf16). On the card K and N must be multiples of
     16 and every operand 16-byte aligned."""
+    build.no_backward("w8a8_matmul", sx, scale)
     if not xq.is_cuda:
         return w8a8_matmul_stacked_plain(xq, sx, w_q, scale, layer, dtype)
     M, K = xq.shape

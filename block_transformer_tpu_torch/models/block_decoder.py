@@ -23,12 +23,14 @@ def init_block_decoder_params(gen: torch.Generator, cfg: NeoXConfig,
 
 
 def block_decoder_forward(params, cfg: NeoXConfig, inputs_embeds,
-                          block_attention_mask, n_embedding_tokens: int):
-    """inputs_embeds [B, N * n_emb, hidden]; block_attention_mask [B, N]."""
+                          block_attention_mask, n_embedding_tokens: int,
+                          remat: bool = False):
+    """inputs_embeds [B, N * n_emb, hidden]; block_attention_mask [B, N];
+    ``remat`` checkpoints each layer (``neox.neox_stack``)."""
     S = inputs_embeds.shape[1]
     mask = masks.block_decoder_train_mask(block_attention_mask,
                                           n_embedding_tokens)
     positions = torch.arange(S, dtype=torch.int32, device=inputs_embeds.device)
     hidden, _ = neox.neox_stack(params, inputs_embeds, cfg=cfg, mask=mask,
-                                positions=positions)
+                                positions=positions, remat=remat)
     return hidden

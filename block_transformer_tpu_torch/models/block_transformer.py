@@ -59,12 +59,13 @@ def _token_ce(logits, labels, weight):
 
 def block_transformer_forward(params, cfg: BlockTransformerConfig, input_ids,
                               attention_mask, block_attention_mask,
-                              labels=None, compute_logits: bool = None
-                              ) -> BlockTransformerOutput:
+                              labels=None, compute_logits: bool = None,
+                              remat: bool = False) -> BlockTransformerOutput:
     """input_ids / attention_mask [B, N, L]; block_attention_mask [B, N];
     labels [B, N, L] with -100 on ignored positions, or None. Returns the
     logits [B, N-1, L, V] when ``compute_logits`` (default: no labels) and
-    the token loss when labels are given."""
+    the token loss when labels are given. ``remat`` checkpoints each layer
+    of both stacks (the training forward: ``train.train_step``)."""
     if labels is not None and (cfg.use_block_decoding_loss
                                or cfg.use_auto_encoding_loss):
         raise NotImplementedError("auxiliary losses are not ported")
@@ -80,7 +81,8 @@ def block_transformer_forward(params, cfg: BlockTransformerConfig, input_ids,
     inputs_embeds = block_embeds.reshape(B, N * n_emb, ph)
     hidden = bd.block_decoder_forward(params["block_decoder"],
                                       cfg.block_decoder, inputs_embeds,
-                                      block_attention_mask, n_emb)
+                                      block_attention_mask, n_emb,
+                                      remat=remat)
 
     # block i's output conditions block i+1's tokens
     Bb = B * (N - 1)
@@ -95,7 +97,8 @@ def block_transformer_forward(params, cfg: BlockTransformerConfig, input_ids,
     td_att = torch.cat([torch.ones_like(att_s[:, :1]), att_s], dim=1)
     logits = td.token_decoder_train_forward(
         params["token_decoder"], cfg.token_decoder, td_ids, td_att,
-        block_embeddings, cfg.expansion_ratio, cfg.block_length)
+        block_embeddings, cfg.expansion_ratio, cfg.block_length,
+        remat=remat)
 
     token_loss = loss_by_pos = None
     if labels is not None and cfg.use_token_decoding_loss:

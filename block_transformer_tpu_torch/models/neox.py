@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from block_transformer_tpu_torch.config import NeoXConfig
 from block_transformer_tpu_torch.kernels import decode_attention
@@ -370,11 +371,16 @@ def layer_view(layers, i: int):
 
 def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
                mask: masks_lib.AttnMask, positions: torch.Tensor,
-               cache=None, write_pos=None):
+               cache=None, write_pos=None, remat: bool = False):
     """Run the stack over hidden states x [B, S, h]; with a cache, the new
     K/V are written at ``write_pos``: ``cache.length`` by default, an int,
     or a [B] int32 tensor of per-row offsets. Returns (final-normed hidden
-    states, updated cache or None)."""
+    states, updated cache or None).
+
+    ``remat`` (no cache: the training forward) checkpoints each layer, as
+    the JAX package's ``jax.checkpoint`` of the layer body: the backward
+    recomputes the layer instead of keeping its activations. No op draws
+    random numbers, so the values are unchanged."""
     max_pos = cfg.max_position_embeddings
     if cache is not None:
         cap = cache.k.shape[3]
@@ -388,9 +394,21 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
         return _paged_stack(params, x, cfg=cfg, mask=mask, positions=positions,
                             cache=cache, write_pos=write_pos, cos=cos,
                             sin=sin)
+    layers = params["layers"]
+    if cache is None:
+        def layer(h, i):
+            p = layer_view(layers, i)
+            q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
+                                positions=positions)
+            return layer_finish(p, h, attention(q, k, v, mask), cfg=cfg)
+
+        h = x
+        for i in range(cfg.num_layers):
+            h = (checkpoint(layer, h, i, use_reentrant=False) if remat
+                 else layer(h, i))
+        return layer_norm(h, params["final_ln"], cfg.layer_norm_eps), None
     if isinstance(write_pos, int):
         _check_room(cache, x.shape[1], write_pos)
-    layers = params["layers"]
     B, S = x.shape[:2]
     rows = (torch.arange(B, dtype=torch.int32, device=x.device)
             if torch.is_tensor(write_pos) else None)
@@ -399,9 +417,7 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
         p = layer_view(layers, i)
         q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
                             positions=positions)
-        if cache is None:
-            attn = attention(q, k, v, mask)
-        elif isinstance(cache, QuantKVCache):
+        if isinstance(cache, QuantKVCache):
             _write_layer(cache, i, write_pos, k, v, rows)
             if cache.bits == 8 and S <= decode_attention.MAX_S:
                 attn = decode_attention.decode_attention_int8_stacked(
@@ -421,8 +437,7 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
                 attn = attention(q, cache.k[i].to(q.dtype),
                                  cache.v[i].to(q.dtype), mask)
         h = layer_finish(p, h, attn, cfg=cfg)
-    if cache is not None:
-        cache = cache._replace(length=cache.length + S)
+    cache = cache._replace(length=cache.length + S)
     return layer_norm(h, params["final_ln"], cfg.layer_norm_eps), cache
 
 

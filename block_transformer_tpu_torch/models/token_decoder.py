@@ -55,10 +55,12 @@ def expand_block_embeddings(params, cfg: TokenDecoderConfig, block_embeddings,
 
 def token_decoder_train_forward(params, cfg: TokenDecoderConfig, input_ids,
                                 attention_mask, block_embeddings,
-                                expansion_ratio: int, block_length: int):
+                                expansion_ratio: int, block_length: int,
+                                remat: bool = False):
     """Teacher-forced forward over one block per row. input_ids [Bb, L+1] =
     [BOS, x1..xL]; attention_mask [Bb, L+1]; block_embeddings [Bb, n_emb,
-    projection_hidden]. Returns float32 logits [Bb, L, vocab] for x1..xL."""
+    projection_hidden]. Returns float32 logits [Bb, L, vocab] for x1..xL;
+    ``remat`` checkpoints each layer of the stack."""
     _check(cfg)
     L = input_ids.shape[1] - 1
     if L != block_length:
@@ -73,7 +75,7 @@ def token_decoder_train_forward(params, cfg: TokenDecoderConfig, input_ids,
                                           n_prefix=n_exp)
     positions = torch.arange(n_exp + L - 1, dtype=torch.int32, device=x.device)
     hidden, _ = neox.neox_stack(params, x, cfg=cfg.neox, mask=mask,
-                                positions=positions)
+                                positions=positions, remat=remat)
     hidden = hidden[:, n_exp - 1:, :]                  # [Bb, L, h]
     return neox.lm_logits(params, hidden)
 

@@ -39,6 +39,7 @@ def vanilla_forward(params, cfg: NeoXConfig, input_ids: torch.Tensor,
     return neox.lm_logits(params, hidden)
 
 
+@torch.no_grad()
 def vanilla_prefill(params, cfg: NeoXConfig, input_ids: torch.Tensor, cache,
                     attention_mask=None):
     """Prefill the cache with a prompt [B, S]; returns (last-position logits
@@ -61,6 +62,7 @@ def vanilla_prefill(params, cfg: NeoXConfig, input_ids: torch.Tensor, cache,
     return neox.lm_logits(params, hidden[:, -1, :]), cache
 
 
+@torch.no_grad()
 def vanilla_decode_step(params, cfg: NeoXConfig, token_ids: torch.Tensor,
                         cache):
     """token_ids [B] -> (logits [B, V], cache)."""

@@ -8,6 +8,11 @@ kernel K3, whose wrapper runs its plain version on the CPU; smaller Q (the
 token decoder's tiny local-cache attention) stays on ``attention_xla``, as
 it stays on XLA in the JAX package.
 
+Under autograd (grad mode on and q, k or v requiring grad) every query
+block stays on the plain path, as the JAX package trains with
+``attn_impl="xla"``: K3 has no backward, and its wrapper refuses such
+inputs. Inference runs under ``torch.no_grad()`` and keeps K3.
+
 ``attention_xla_chunked`` is the JAX package's online-softmax form of
 ``attention_xla`` over key tiles. As there, it is opt-in, inside
 ``chunked_prefill_attention(tile)`` (the JAX package's
@@ -105,8 +110,9 @@ def _use_chunked(Q: int, K: int) -> bool:
 
 def attention(q, k, v, mask: masks_lib.AttnMask):
     # imported here: the kernel module imports attention_xla from this one
-    from block_transformer_tpu_torch.kernels import flash_attention
-    if q.shape[2] >= 8 and flash_attention.supported_head_dim(q.shape[-1]):
+    from block_transformer_tpu_torch.kernels import build, flash_attention
+    if (q.shape[2] >= 8 and flash_attention.supported_head_dim(q.shape[-1])
+            and not build.needs_grad(q, k, v)):
         return flash_attention.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), mask)
     if _use_chunked(q.shape[2], k.shape[2]):

@@ -18,6 +18,10 @@ as ``jnp.round`` does, so the results equal the JAX package's bit for bit.
 A stacked ``[L, K, N]`` kernel is quantized per layer, as JAX's ``vmap``
 does: INT8 gives ``[L, N]`` scales, INT4 ``[L, K/2, N]`` bytes and
 ``[L, G, N]`` scales.
+
+QAT (``fake_quant_*``) trains against the same grid: each chosen kernel is
+quantized and dequantized in the forward, with a straight-through gradient
+(``_ste``), and stays a float ``kernel`` node.
 """
 
 from __future__ import annotations
@@ -25,11 +29,20 @@ from __future__ import annotations
 import torch
 
 
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, an IEEE float32 division on every device: CUDA divides by a
+    Python scalar through its reciprocal, 1 ulp off for some x, which moves
+    a weight across a rounding boundary now and then (the grid would then
+    differ between the card and the CPU), so d goes as a tensor on x's
+    device."""
+    return x / x.new_full((), d)
+
+
 def quantize_int8(w: torch.Tensor):
     """w [..., K, N] float -> (w_q int8 [..., K, N], scale f32 [..., N])."""
     wf = w.float()
     a = wf.abs().amax(dim=-2)
-    scale = torch.clamp(a, min=1e-8) / 127.0
+    scale = _div(torch.clamp(a, min=1e-8), 127.0)
     w_q = torch.clamp(torch.round(wf / scale.unsqueeze(-2)), -127, 127)
     return w_q.to(torch.int8), scale
 
@@ -57,7 +70,7 @@ def quantize_int4(w: torch.Tensor, group_size: int = 128):
     lead = w.shape[:-2]
     wf = w.float()
     a = wf.reshape(*lead, K // gs, gs, N).abs().amax(dim=-2)     # [..., G, N]
-    scale = torch.clamp(a, min=1e-8) / 7.0
+    scale = _div(torch.clamp(a, min=1e-8), 7.0)
     q = torch.clamp(torch.round(wf / scale.repeat_interleave(gs, dim=-2)),
                     -7, 7).to(torch.int32)
     half = K // 2
@@ -150,6 +163,11 @@ def _is_linear(node) -> bool:
     return isinstance(node, dict) and "kernel" in node
 
 
+def _skipped(path, skip_paths) -> bool:
+    return any(all(s in path for s in sp) if isinstance(sp, tuple)
+               else sp in path for sp in skip_paths)
+
+
 def quantize_linear(node: dict, bits: int = 8, group_size: int = 128) -> dict:
     """{'kernel': [..., K, N], 'bias'?} -> {'kernel_q8' | 'kernel_q4',
     'scale', 'bias'?}."""
@@ -171,14 +189,10 @@ def quantize_model_params(params, bits: int = 8, skip_paths=(),
     A node is left in float when its path of keys matches an entry of
     ``skip_paths``: a string that is one of the keys, or a tuple of strings
     that all are."""
-    def skipped(path) -> bool:
-        return any(all(s in path for s in sp) if isinstance(sp, tuple)
-                   else sp in path for sp in skip_paths)
-
     def walk(node, path):
         if _is_linear(node):
-            return node if skipped(path) else quantize_linear(node, bits,
-                                                              group_size)
+            return node if _skipped(path, skip_paths) else quantize_linear(
+                node, bits, group_size)
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         return node
@@ -209,3 +223,113 @@ def quantize_block_transformer(params, bits: int = 8, group_size: int = 128,
         out["token_decoder"]["embed_out"] = quantize_linear(
             params["token_decoder"]["embed_out"], lm_head_bits, group_size)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Fake quantization (QAT): a straight-through quantize -> dequantize on the
+# grid quantize_block_transformer rounds onto
+# ---------------------------------------------------------------------------
+
+# QAT recipes (the JAX package's ``scripts/qat_finetune.py``), each the
+# arguments of both fake_quant_block_transformer and quantize_block_transformer
+RECIPES = {
+    "mixed48": dict(bits=8, token_decoder_bits=4, lm_head_bits=8,
+                    group_size=128),
+    "int4g128": dict(bits=4, group_size=128),
+    "int8": dict(bits=8),
+}
+
+
+def _qdq_int8(w: torch.Tensor) -> torch.Tensor:
+    """w [..., K, N] -> the same values as ``dequantize_int8(*quantize_int8(
+    w), w.dtype)``: per-output-channel scales, per layer of a stack."""
+    wf = w.float()
+    scale = _div(torch.clamp(wf.abs().amax(dim=-2, keepdim=True), min=1e-8),
+                 127.0)
+    q = torch.clamp(torch.round(wf / scale), -127, 127)
+    return (q * scale).to(w.dtype)
+
+
+def _qdq_int4(w: torch.Tensor, group_size: int = 128) -> torch.Tensor:
+    """w [..., K, N] -> the same values as ``dequantize_int4(*quantize_int4(
+    w, group_size), w.dtype)`` (the packing is lossless, so it is left
+    out)."""
+    K, N = w.shape[-2:]
+    gs = _int4_group_size(K, group_size)
+    lead = w.shape[:-2]
+    wg = w.float().reshape(*lead, K // gs, gs, N)
+    scale = _div(torch.clamp(wg.abs().amax(dim=-2, keepdim=True), min=1e-8),
+                 7.0)
+    q = torch.clamp(torch.round(wg / scale), -7, 7)
+    return (q * scale).reshape(w.shape).to(w.dtype)
+
+
+def _ste(w: torch.Tensor, qdq: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: the forward sees ``qdq`` (as ``w + (qdq -
+    w)``, JAX's arithmetic), the backward the identity."""
+    return w + (qdq - w).detach()
+
+
+def fake_quant_linear(node: dict, bits: int, group_size: int = 128) -> dict:
+    """{'kernel': [..., K, N], ...} -> the same node with its kernel fake
+    quantized (a stacked ``[L, K, N]`` kernel per layer, as JAX's ``vmap``
+    does)."""
+    kernel = node["kernel"]
+    if bits == 8:
+        fq = _qdq_int8(kernel)
+    elif bits == 4:
+        fq = _qdq_int4(kernel, group_size)
+    else:
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    out = dict(node)
+    out["kernel"] = _ste(kernel, fq)
+    return out
+
+
+def fake_quant_model_params(params, bits: int = 8, skip_paths=(),
+                            group_size: int = 128):
+    """``quantize_model_params``'s selection (and ``skip_paths`` rule), each
+    chosen kernel fake quantized in place of packed."""
+    def walk(node, path):
+        if _is_linear(node):
+            return node if _skipped(path, skip_paths) else fake_quant_linear(
+                node, bits, group_size)
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return node
+
+    return walk(params, ())
+
+
+def fake_quant_block_transformer(params, bits: int = 8, group_size: int = 128,
+                                 token_decoder_bits: int = None,
+                                 lm_head_bits: int = None):
+    """The QAT transform: ``quantize_block_transformer``'s kernels and grid
+    with the same arguments, as a quantize -> dequantize in the forward
+    with straight-through gradients. Train with ``make_train_step(...,
+    param_transform=...)``; ``quantize_block_transformer`` with the same
+    arguments then rounds the master weights onto the grid the loss saw."""
+    td_bits = bits if token_decoder_bits is None else token_decoder_bits
+    out = dict(params)
+    out["block_decoder"] = fake_quant_model_params(
+        params["block_decoder"], bits, group_size=group_size)
+    skip = ("embed_out",) if lm_head_bits is not None else ()
+    out["token_decoder"] = fake_quant_model_params(
+        params["token_decoder"], td_bits, skip_paths=skip,
+        group_size=group_size)
+    if lm_head_bits is not None:
+        out["token_decoder"] = dict(out["token_decoder"])
+        out["token_decoder"]["embed_out"] = fake_quant_linear(
+            params["token_decoder"]["embed_out"], lm_head_bits, group_size)
+    return out
+
+
+def cast_floats(tree, dtype):
+    """Every floating leaf of a parameter tree cast to ``dtype``, except the
+    float32 scales of quantized linears (the kernels read them as float32):
+    float32 master weights, once quantized, served in bf16."""
+    if isinstance(tree, dict):
+        quantized = any(k.startswith("kernel_q") for k in tree)
+        return {k: v if quantized and k == "scale" else cast_floats(v, dtype)
+                for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree

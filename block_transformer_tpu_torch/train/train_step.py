@@ -1,0 +1,93 @@
+"""The single-device train step (port of
+``block_transformer_tpu/train/train_step.py``: ``TrainState``,
+``make_loss_fn``, ``make_train_step``, ``create_train_state``).
+
+One call computes the token loss and its metrics, the gradients of every
+parameter by autograd, the optimizer's update and the gradients' global
+norm. The forward is the model's own (``block_transformer_forward`` with
+labels); under autograd its attention stays on the plain path
+(``ops.attention``), as the JAX package trains with ``attn_impl="xla"``,
+and ``remat`` (the default) checkpoints each layer of both stacks.
+``param_transform`` maps the parameters before the forward: QAT passes
+``ops.quant.fake_quant_block_transformer`` with its recipe, and the
+straight-through estimator carries the gradients to the float master
+weights.
+
+Unlike JAX's functional step, this one updates ``state.params`` and the
+optimizer's moments in place and returns a state that shares them: at
+``block_main_b4_1.2b`` the parameters, gradients and the two moments are
+~23 GB in float32, and a second copy of the state would not be cheap.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from block_transformer_tpu_torch.config import BlockTransformerConfig
+from block_transformer_tpu_torch.models import block_transformer as bt
+from block_transformer_tpu_torch.train import optimizer as opt
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt_state: Any
+    step: int
+
+
+def make_loss_fn(cfg: BlockTransformerConfig, remat: bool = True,
+                 param_transform=None):
+    """loss_fn(params, batch) -> (loss, metrics): the token loss and the
+    metrics the reference logs (``loss``, ``token_decoding_loss``,
+    ``loss_by_position``). ``batch`` holds ``input_ids``, ``attention_mask``,
+    ``labels`` [B, N, L] and ``block_attention_mask`` [B, N]
+    (``data.packing.make_train_batch``)."""
+    def loss_fn(params, batch):
+        if param_transform is not None:
+            params = param_transform(params)
+        out = bt.block_transformer_forward(
+            params, cfg, batch["input_ids"], batch["attention_mask"],
+            batch["block_attention_mask"], labels=batch["labels"],
+            compute_logits=False, remat=remat)
+        metrics = {"loss": out.loss,
+                   "token_decoding_loss": out.token_decoding_loss,
+                   "loss_by_position": out.loss_by_position}
+        return out.loss, metrics
+
+    return loss_fn
+
+
+def make_train_step(cfg: BlockTransformerConfig, tx, remat: bool = True,
+                    param_transform=None):
+    """train_step(state, batch) -> (state, metrics): metrics are the loss
+    function's, detached, plus ``grad_norm`` (the global norm of the raw
+    gradients)."""
+    loss_fn = make_loss_fn(cfg, remat, param_transform=param_transform)
+
+    def train_step(state: TrainState, batch):
+        items = list(opt.tree_items(state.params))
+        live = {path: p.detach().requires_grad_(True) for path, p in items}
+        with torch.enable_grad():
+            loss, metrics = loss_fn(opt.tree_unflatten(live), batch)
+            grads = dict(zip(live, torch.autograd.grad(
+                loss, list(live.values()))))
+        with torch.no_grad():
+            updates, opt_state = tx.update(opt.tree_unflatten(grads),
+                                           state.opt_state, state.params)
+            for (_, p), u in zip(items, opt.tree_leaves(updates)):
+                p.add_(u)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["grad_norm"] = opt.global_norm(grads.values())
+        return TrainState(state.params, opt_state, state.step + 1), metrics
+
+    return train_step
+
+
+def create_train_state(gen, cfg: BlockTransformerConfig, tx,
+                       dtype=torch.float32, device="cuda") -> TrainState:
+    """Random parameters drawn from ``gen`` (a ``torch.Generator`` on
+    ``device``, or an int seed) and the optimizer's initial state."""
+    params = bt.init_block_transformer_params(gen, cfg, dtype=dtype,
+                                              device=device)
+    return TrainState(params, tx.init(params), 0)

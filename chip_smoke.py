@@ -42,7 +42,11 @@ one process it:
    baseline (INT8 and INT4 weights, INT8 KV), of the serving engine
    with each of its four quantized caches (contiguous INT8 and INT4, paged
    INT8 and INT4), of ``block_main_b4_5`` (INT8) with W8A8 at every M, and
-   of the streaming prefill on the bf16, INT8 and INT4 caches;
+   of the streaming prefill on the bf16, INT8 and INT4 caches; then the
+   quantization workflow at ``block_main_b4_5``: two train steps, plain
+   and QAT ``mixed48`` (loss, grad_norm and every parameter leaf within
+   1e-5 relative of the CPU's), and GPTQ INT4 trees (at least 99.9% of Q
+   equal to the CPU's, the rest one step apart, the differences counted);
 5. generates with ``block_main_b4_1.2b`` at full width (random weights from
    a seed, bf16), greedy, B=8, p2048/d128: INT8 weights with the INT8,
    bf16 and INT4 global caches, then INT4 weights (no K1 launch) and
@@ -67,9 +71,21 @@ one process it:
    outputs agree within ``TOL`` of their largest magnitude;
 7. generates greedily with the ``vanilla_410`` baseline (INT8 weights, INT8
    KV cache) at the same B, prompt and new tokens, the same way, and prints
-   the block/vanilla throughput ratio as a smoke figure.
+   the block/vanilla throughput ratio as a smoke figure;
+8. trains ``block_main_b4_1.2b`` at full width (random float32 weights from
+   a seed, two sequences of 2048 tokens, remat, TF32 off): 3 steps, then 3
+   QAT ``mixed48`` steps from a fresh optimizer, each logged with its ms,
+   tokens per second, peak memory and loss, asserting finite losses and
+   that no kernel launched (K3 included: attention under autograd stays on
+   the plain path); quantizes the fine-tuned weights with the recipe and
+   generates from them as in step 5 (W8A8 at the prefill and K1 for the
+   INT8 block decoder and head, K4 for the INT4 token decoder); then runs
+   GPTQ INT4 g128 on the card from the same two sequences, logging each
+   trunk's calibration and rounding seconds and the layer-output error of
+   GPTQ and RTN for the first and last layers' four linears, and generates
+   from the GPTQ tree (K4 only, no K1).
 
-Every timed full-width run of steps 5-7 asserts that W8A8-q and W8A8-mm
+Every timed full-width run of steps 5-8 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
 other one (the baseline: its 96 prefill linears at M = 16384 by W8A8),
 that K1, K3 and K4 launched by the tensor-core route only, and every one
@@ -86,7 +102,9 @@ Any failure raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -99,6 +117,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from block_transformer_tpu_torch import config  # noqa: E402
+from block_transformer_tpu_torch.data import packing  # noqa: E402
 from block_transformer_tpu_torch import profile_generate as pg  # noqa: E402
 from block_transformer_tpu_torch.config import NeoXConfig  # noqa: E402
 from block_transformer_tpu_torch.inference import generate as gen  # noqa: E402
@@ -109,11 +128,15 @@ from block_transformer_tpu_torch.kernels import flash_attention as k3  # noqa: E
 from block_transformer_tpu_torch.kernels import paged_attention as kp  # noqa: E402
 from block_transformer_tpu_torch.kernels import w8a8  # noqa: E402
 from block_transformer_tpu_torch.models import block_transformer as bt  # noqa: E402
+from block_transformer_tpu_torch.models import embedder as emb  # noqa: E402
 from block_transformer_tpu_torch.models import neox  # noqa: E402
 from block_transformer_tpu_torch.models import vanilla  # noqa: E402
 from block_transformer_tpu_torch.ops import linear as linear_ops  # noqa: E402
 from block_transformer_tpu_torch.ops import masks  # noqa: E402
+from block_transformer_tpu_torch.ops import gptq  # noqa: E402
 from block_transformer_tpu_torch.ops import quant  # noqa: E402
+from block_transformer_tpu_torch.train import optimizer as opt  # noqa: E402
+from block_transformer_tpu_torch.train import train_step as ts  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s and
 # int8 tensor-core operations/s
@@ -124,6 +147,8 @@ TOL = 2e-2      # max |kernel - plain| / max |plain| in bf16 (~2^-8 rounding
                 # of outputs and probabilities, summed in another order)
 
 MODEL, VANILLA_MODEL, BATCH = pg.MODEL, pg.VANILLA_MODEL, pg.BATCH
+GROUP_SIZE = pg.GROUP_SIZE
+CARD = "cuda"
 PROMPT_TOKENS, NEW_TOKENS = pg.PROMPT_TOKENS, pg.NEW_TOKENS
 MATMUL_CU = "block_transformer_tpu_torch/csrc/dequant_matmul.cu"
 DECODE_CU = "block_transformer_tpu_torch/csrc/decode_attention.cu"
@@ -1193,14 +1218,15 @@ def generation_path(quantize: str, kv: str, fresh: bool = True) -> str:
 
 
 def phase_generation(cfg, params, quantize: str, kv: str = "int8",
-                     fresh: bool = True):
+                     fresh: bool = True, weights: str = None):
     """Full-width generation with ``quantize`` weights and the ``kv`` global
     cache, the fresh prefill or (``fresh=False``) the streaming one in 4
     chunks of 128 blocks; returns the launches of the timed run and its
     tokens per second. Asserts the W8A8 decisions: an INT8 block decoder's
     fresh prefill takes W8A8 for its 48 linears (12 layers x 4) at M =
     4096, the streaming chunks (M = 1024 under the INT8 cache) take none,
-    and every other INT8 linear takes K1."""
+    and every other INT8 linear takes K1. ``weights`` names where the
+    weights came from in the log (default: random, ``quantize`` RTN)."""
     path = generation_path(quantize, kv, fresh)
     torch.cuda.reset_peak_memory_stats()
     ids, att, bam = pg.ragged_prompts(cfg, BATCH, PROMPT_TOKENS, seed=0)
@@ -1236,7 +1262,8 @@ def phase_generation(cfg, params, quantize: str, kv: str = "int8",
         raise AssertionError("prompt blocks were not kept")
     generated = BATCH * (res.n_blocks - N) * L
     log(f"{MODEL} generate_blocks B={BATCH} p{PROMPT_TOKENS}/d{NEW_TOKENS} "
-        f"{quantize} weights + {kv} KV, {'fresh' if fresh else 'streaming'} "
+        f"{weights or quantize} weights + {kv} KV, "
+        f"{'fresh' if fresh else 'streaming'} "
         f"prefill: {res.n_blocks - N} blocks generated; "
         f"warm-up run {warm_s:.2f} s; timed run {secs:.3f} s = "
         f"{generated / secs:.1f} tok/s (prefill included); peak memory "
@@ -1405,9 +1432,285 @@ def log_agreement(a: str, b: str, x_tokens, y_tokens) -> None:
         f"{len(prefix)} requests equal")
 
 
+# the train phase: two sequences of 2048 tokens, float32 master weights, TF32
+# off; 3 plain steps, then a QAT fine-tune of 3 steps with a fresh optimizer
+TRAIN_SEQS, TRAIN_TOKENS, TRAIN_STEPS = 2, 2048, 3
+TRAIN_LR = dict(peak_lr=1e-4, warmup_steps=1, total_steps=10)
+QAT_RECIPE = "mixed48"
+CARD_CPU_RTOL = 1e-5    # train steps, card against CPU, float32: loss,
+                        # grad_norm, Adam's moments (each leaf, Frobenius)
+UPDATE_RTOL = 1e-4      # each parameter leaf: |card - CPU| within
+                        # CARD_CPU_RTOL |p0| + UPDATE_RTOL |update|, over the
+                        # coordinates whose gradient is zero or above float32
+NOISE_FLOOR = 1e-6      # noise, sqrt(nu) > NOISE_FLOOR * max sqrt(nu) (the
+                        # CPU's nu): Adam turns a gradient that is zero in
+                        # exact arithmetic (the key bias off RoPE's dims)
+                        # into the sign of its rounding noise
+GPTQ_EQUAL = 0.999      # gptq_round on one (W, H), card against CPU: share
+                        # of Q equal, the rest one step apart
+GPTQ_TREE_RTOL = 0.02   # whole GPTQ trees, card against CPU: mean layer-
+                        # output error within 2% relative
+
+
+def train_batch(cfg, seed: int, tokens: int = TRAIN_TOKENS,
+                rows: int = TRAIN_SEQS):
+    """The train step's batch (numpy): ``rows`` rows of random tokens, row 1
+    left-padded by 96 tokens."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, (rows, tokens))
+    att = np.ones_like(ids)
+    ids[1, :96], att[1, :96] = 0, 0
+    return packing.make_train_batch(ids, att, cfg.block_length)
+
+
+def calibration(batch):
+    """A train batch as GPTQ's calibration batches (block format)."""
+    return [(batch["input_ids"], batch["attention_mask"],
+             batch["block_attention_mask"])]
+
+
+def train_steps(cfg, state, tx, batch, n: int, transform, what: str):
+    """``n`` train steps on the card, each timed (host clock, the device
+    synchronized) with its peak memory and loss; asserts finite losses and
+    that no kernel launched (K3 included: attention under autograd takes
+    the plain path)."""
+    step = ts.make_train_step(cfg, tx, param_transform=transform)
+    dev_batch = packing.to_device(batch, CARD)
+    tokens = dev_batch["input_ids"].numel()
+    before = {tag: fn.launches for fn, tag, *_ in KERNELS}
+    for _ in range(n):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, dev_batch)
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"{MODEL} train step {state.step} ({what}, B={TRAIN_SEQS} x "
+            f"{TRAIN_TOKENS} tokens, remat, float32, TF32 off): "
+            f"{secs * 1e3:.1f} ms = {tokens / secs:.1f} tokens/s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss "
+            f"{loss:.6f}, grad_norm {norm:.6f}, lr "
+            f"{tx.schedule(state.step - 1):.3e}")
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"train step {state.step} ({what}): loss "
+                                 f"{loss}, grad_norm {norm}")
+    after = {tag: fn.launches for fn, tag, *_ in KERNELS}
+    moved = {t: after[t] - before[t] for t in after if after[t] != before[t]}
+    log(f"kernel launches during the {what} train steps: {moved or 'none'} "
+        f"(K3: {after['K3'] - before['K3']})")
+    if moved:
+        raise AssertionError(f"kernels launched under autograd: {moved}")
+    return state
+
+
+def phase_train_quantize(cfg):
+    """The quantization workflow at full width: random float32
+    ``block_main_b4_1.2b``, TRAIN_STEPS plain train steps, then TRAIN_STEPS
+    QAT steps (``mixed48``) from a fresh optimizer; the QAT weights
+    quantized with the recipe (RTN) and served; GPTQ INT4 g128 of the same
+    weights, calibrated on the train batch, and served. Returns the
+    launches of both generation runs."""
+    tx, _ = opt.make_optimizer(**TRAIN_LR)
+    t0 = time.perf_counter()
+    state = ts.create_train_state(0, cfg, tx, device=CARD)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in opt.tree_leaves(state.params))
+    log(f"{MODEL}: {n_params} float32 parameters and AdamW moments on the "
+        f"card in {time.perf_counter() - t0:.2f} s")
+    batch = train_batch(cfg, seed=0)
+    state = train_steps(cfg, state, tx, batch, TRAIN_STEPS, None, "plain")
+    state = ts.TrainState(state.params, None, 0)       # free the moments
+    state = ts.TrainState(state.params, tx.init(state.params), 0)
+    transform = functools.partial(quant.fake_quant_block_transformer,
+                                  **quant.RECIPES[QAT_RECIPE])
+    state = train_steps(cfg, state, tx, batch, TRAIN_STEPS, transform,
+                        f"QAT {QAT_RECIPE}")
+    params = state.params
+    del state
+    launches = {}
+    qat = quant.cast_floats(quant.quantize_block_transformer(
+        params, **quant.RECIPES[QAT_RECIPE]), torch.bfloat16)
+    launches["QAT mixed48"], _ = phase_generation(
+        cfg, qat, QAT_RECIPE, weights=f"QAT {QAT_RECIPE} (RTN of the "
+        "fine-tuned weights)")
+    del qat
+
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = gptq.gptq_quantize_block_transformer(
+        params, cfg, calibration(batch), bits=4, group_size=GROUP_SIZE,
+        device=CARD, stats=stats)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"GPTQ INT4 g{GROUP_SIZE} of {MODEL} on the card, calibrated on "
+        f"{TRAIN_SEQS} x {TRAIN_TOKENS} tokens: {secs:.2f} s; " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stats.items() if k.endswith("_s")))
+    L = cfg.block_decoder.num_layers
+    ratios = []
+    for e in stats["layer_errors"]:
+        ratios.append(e["gptq"] / e["rtn"])
+        if e["layer"] in (0, L - 1):
+            log(f"  {e['trunk']} layer {e['layer']} {e['linear']} (K "
+                f"{e['K']}, N {e['N']}): ||X(W - W_hat)|| / ||XW|| GPTQ "
+                f"{e['gptq']:.5f}, RTN {e['rtn']:.5f}")
+    log(f"GPTQ / RTN layer-output error over all {len(ratios)} linears of "
+        f"both stacks: mean {np.mean(ratios):.4f}, max {max(ratios):.4f}")
+    if not np.mean(ratios) < 1.0:
+        raise AssertionError("GPTQ's layer-output error is not below RTN's")
+    del params
+    tree = quant.cast_floats(tree, torch.bfloat16)
+    launches["GPTQ int4"], _ = phase_generation(
+        cfg, tree, "int4", weights=f"GPTQ int4 g{GROUP_SIZE}")
+    for what, n in launches.items():
+        log(f"launches generating from the {what} tree: {json.dumps(n)}")
+    return launches
+
+
+def q_values(tree):
+    """{path: int32 Q} of every quantized kernel (INT4 unpacked)."""
+    out = {}
+    for path, leaf in opt.tree_items(tree):
+        if path[-1] == "kernel_q4":
+            out[path] = quant.unpack_int4(leaf.cpu()).to(torch.int32)
+        elif path[-1] == "kernel_q8":
+            out[path] = leaf.cpu().to(torch.int32)
+    return out
+
+
+def train_state_error(p0, cpu, card) -> dict:
+    """Card state against CPU state after the same steps from parameters
+    ``p0`` ({path: tensor}): the largest over leaves of the relative
+    Frobenius difference of Adam's moments ``mu`` and ``nu``, and of
+    ``|p_card - p_cpu| / (CARD_CPU_RTOL |p0| + UPDATE_RTOL |p_cpu - p0|)``
+    over the coordinates whose ``sqrt(nu)`` is zero or above NOISE_FLOOR
+    of the leaf's largest (at most 1 passes)."""
+    out = {"mu": 0.0, "nu": 0.0, "params": 0.0}
+    for name in ("mu", "nu"):
+        a = dict(opt.tree_items(getattr(cpu.opt_state, name)))
+        b = dict(opt.tree_items(getattr(card.opt_state, name)))
+        out[name] = max(float((b[k].cpu() - v).norm() / v.norm())
+                        for k, v in a.items() if v.norm() > 0)
+    nu = dict(opt.tree_items(cpu.opt_state.nu))
+    p_cpu = dict(opt.tree_items(cpu.params))
+    p_card = dict(opt.tree_items(card.params))
+    for path, w0 in p0.items():
+        rms = nu[path].sqrt()
+        live = (rms == 0) | (rms > NOISE_FLOOR * rms.max())
+        w, diff = p_cpu[path][live], (p_card[path].cpu() - p_cpu[path])[live]
+        limit = (CARD_CPU_RTOL * w0[live].norm()
+                 + UPDATE_RTOL * (w - w0[live]).norm())
+        if diff.norm() > 0:
+            out["params"] = max(out["params"], float(diff.norm() / limit))
+    return out
+
+
+def phase_small_train_gptq():
+    """The train step and GPTQ on the card against the CPU (both the port,
+    float32, TF32 off) at ``block_main_b4_5``: 2 steps (the first at lr 0),
+    plain and QAT ``mixed48``: loss, grad_norm and Adam's moments within
+    CARD_CPU_RTOL, the parameters as ``train_state_error`` states; GPTQ
+    INT4 g128, calibrated on 8 sequences of 2048 tokens: ``gptq_round`` on
+    one (W, H) on both devices, at least GPTQ_EQUAL of Q equal and the rest
+    one step apart (cuSOLVER's inverse and Cholesky against LAPACK's), the
+    differences counted; whole trees by their quality, the mean layer-
+    output error within GPTQ_TREE_RTOL, their Q agreement logged. A row
+    sweep carries each rounding that flips down its column, so a last-bit
+    difference of the float32 calibration forward moves many entries, the
+    more so where the calibration holds fewer positions than a linear has
+    inputs (H singular but for the damping)."""
+    cfg = config.get_config("block_main_b4_5")
+    tx, _ = opt.make_optimizer(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = train_batch(cfg, seed=6, tokens=256)
+    params0 = ts.create_train_state(0, cfg, tx, device="cpu").params
+    p0 = dict(opt.tree_items(params0))
+    for recipe in (None, QAT_RECIPE):
+        transform = None if recipe is None else functools.partial(
+            quant.fake_quant_block_transformer, **quant.RECIPES[recipe])
+        runs = []
+        for dev in ("cpu", CARD):
+            params = opt.tree_map(lambda t: t.to(dev, copy=True), params0)
+            state = ts.TrainState(params, tx.init(params), 0)
+            step = ts.make_train_step(cfg, tx, param_transform=transform)
+            metrics = []
+            for _ in range(2):
+                state, m = step(state, packing.to_device(batch, dev))
+                metrics.append([float(m["loss"]), float(m["grad_norm"])])
+            runs.append((np.array(metrics), state))
+        (m_cpu, s_cpu), (m_gpu, s_gpu) = runs
+        m_err = float(np.max(np.abs(m_gpu - m_cpu) / np.abs(m_cpu)))
+        err = train_state_error(p0, s_cpu, s_gpu)
+        what = "plain" if recipe is None else f"QAT {recipe}"
+        log(f"small train steps block_main_b4_5 ({what}), card vs CPU: "
+            f"losses {m_gpu[:, 0].tolist()} / {m_cpu[:, 0].tolist()}, "
+            f"grad_norms {m_gpu[:, 1].tolist()} / {m_cpu[:, 1].tolist()}; "
+            f"max relative diff: loss/grad_norm {m_err:.3e}, mu "
+            f"{err['mu']:.3e}, nu {err['nu']:.3e} (limit {CARD_CPU_RTOL}); "
+            f"parameters {err['params']:.3f} of their limit")
+        if max(m_err, err["mu"], err["nu"]) > CARD_CPU_RTOL or (
+                err["params"] > 1.0):
+            raise AssertionError(f"small train steps ({what}): card and CPU "
+                                 "differ")
+    calib = calibration(train_batch(cfg, seed=7, rows=8))
+    # the rounding alone: gptq_round on one (W, H) on both devices, H from
+    # the calibration's inputs to the block decoder's first qkv and MLP up
+    ids, att, bam = (torch.from_numpy(a) for a in calib[0])
+    n_emb, layers = cfg.n_embedding_tokens, params0["block_decoder"]["layers"]
+    x = emb.embed_blocks(params0["embedder"], cfg.embedder, cfg.block_length,
+                         ids, attention_mask=att).reshape(
+        ids.shape[0], -1, cfg.embedder.projection_hidden_size)
+    valid = torch.repeat_interleave(bam, n_emb, dim=1)
+    for name, ln, w in (("qkv", "ln1", layers["attn"]["qkv"]["kernel"][0]),
+                        ("up", "ln2", layers["mlp"]["up"]["kernel"][0])):
+        H = gptq._gram(neox.layer_norm(x, {k: v[0] for k, v in
+                                           layers[ln].items()},
+                                       cfg.block_decoder.layer_norm_eps),
+                       valid)
+        q_cpu, s_cpu = gptq.gptq_round(w, H, bits=4, group_size=GROUP_SIZE)
+        q_card, s_card = gptq.gptq_round(w.to(CARD), H.to(CARD), bits=4,
+                                         group_size=GROUP_SIZE)
+        diff = (q_card.cpu() - q_cpu).abs()
+        s_err = float(((s_card.cpu() - s_cpu).abs() / s_cpu).max())
+        log(f"small gptq_round block_main_b4_5 layer 0 {name} (K "
+            f"{w.shape[0]}, N {w.shape[1]}), one H on both, card vs CPU: "
+            f"{int((diff == 0).sum())} of {diff.numel()} Q equal, "
+            f"{int((diff > 0).sum())} ties broken apart by cuSOLVER against "
+            f"LAPACK, max |diff| {int(diff.max())}; scales max rel diff "
+            f"{s_err:.3e}")
+        if (diff == 0).float().mean() < GPTQ_EQUAL or diff.max() > 1:
+            raise AssertionError(f"small gptq_round {name}: card and CPU "
+                                 "differ")
+    # whole trees: the calibration forward in float32 differs in its last
+    # bits between the devices, and the row sweep carries each rounding
+    # that flips down its column, so trees are compared by their quality
+    stats = [{}, {}]
+    trees = [q_values(gptq.gptq_quantize_block_transformer(
+        params0, cfg, calib, bits=4, group_size=GROUP_SIZE, device=dev,
+        stats=st)) for dev, st in zip(("cpu", CARD), stats)]
+    n = equal = worst = 0
+    for path, q_cpu in trees[0].items():
+        diff = (trees[1][path] - q_cpu).abs()
+        n, equal = n + diff.numel(), equal + int((diff == 0).sum())
+        worst = max(worst, int(diff.max()))
+    err = [{k: np.mean([e[k] for e in st["layer_errors"]])
+            for k in ("gptq", "rtn")} for st in stats]
+    log(f"small GPTQ int4 g{GROUP_SIZE} block_main_b4_5 (8 x 2048 "
+        f"calibration tokens), card vs CPU trees: {equal} of {n} Q entries "
+        f"equal ({equal / n:.6f}), max |diff| {worst}; mean layer-output "
+        f"error GPTQ {err[1]['gptq']:.5f} / {err[0]['gptq']:.5f}, RTN "
+        f"{err[1]['rtn']:.5f} / {err[0]['rtn']:.5f} (limit: GPTQ within "
+        f"{GPTQ_TREE_RTOL} relative, below RTN)")
+    if (abs(err[1]["gptq"] - err[0]["gptq"]) > GPTQ_TREE_RTOL * err[0]["gptq"]
+            or not err[1]["gptq"] < err[1]["rtn"]):
+        raise AssertionError("small GPTQ: the card's tree is not the CPU's "
+                             "in quality")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    started = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip()
@@ -1452,6 +1755,7 @@ def main() -> None:
     phase_small_quantized()
     phase_small_engine()
     phase_small_w8a8()
+    phase_small_train_gptq()
     launches, tok_s, tokens = {}, {}, {}
     for quantize in ("int8", "int4", "mixed48"):
         t0 = time.perf_counter()
@@ -1476,6 +1780,7 @@ def main() -> None:
     vcfg, vparams = pg.vanilla_model(seed=0, quantize="int8")
     launches["vanilla"], tok_s["vanilla"] = phase_vanilla(vcfg, vparams)
     del vparams
+    phase_train_quantize(config.get_config(MODEL))
     log("block/vanilla generated tokens per second at B=8 p2048/d128, "
         "INT8 KV (smoke figures, not a benchmark): " + ", ".join(
             f"{q} {tok_s[(q, 'int8')] / tok_s['vanilla']:.3f}"
@@ -1486,6 +1791,7 @@ def main() -> None:
         if tag == "K2 bf16":   # the launches of the row's own route
             row["route_launches"] = launches[row["path"]][
                 f"K2 bf16 {row['decode_route']}"]
+    log(f"chip_smoke.py total {time.perf_counter() - started:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -56,3 +56,10 @@ def test_no_jax_import(path):
     bad = [f"{path.name}:{line} imports {m}" for line, m in _imports(tree)
            if _forbidden(m)]
     assert not bad, bad
+
+
+def test_the_walk_finds_the_training_and_gptq_modules():
+    names = {f.relative_to(ROOT).as_posix() for f in FILES}
+    for module in ("train/optimizer.py", "train/train_step.py",
+                   "data/packing.py", "ops/gptq.py"):
+        assert f"{PORT}/{module}" in names

@@ -27,7 +27,15 @@ tile is skipped, rows with no allowed key, page ids outside [0, P), and
 the merge counters left at zero after each launch. The
 pool writes and page copies (K5, K7, K8) are compared bit for bit, outside
 page 0 where dead rows may collide.
+
+The quantization workflow on the card: every wrapper refuses inputs that
+require grad under grad mode and launches under ``torch.no_grad()``; the
+weight quantizers and the QAT round trips equal the CPU's bit for bit;
+``gptq_round`` and two train steps (plain and QAT) against the CPU, each
+with its tolerance in its docstring.
 """
+
+import functools
 
 import pytest
 import torch
@@ -910,3 +918,222 @@ def test_w8a8_wrappers_raise():
         w8a8.w8a8_quant(x[:, :56].contiguous())
     with pytest.raises(ValueError, match="aligned"):
         w8a8.w8a8_quant(torch.randn(80, device="cuda")[1:65].view(4, 16))
+
+
+# ---------------------------------------------------------------------------
+# No backward: every wrapper refuses inputs that require grad under grad
+# mode, and launches under torch.no_grad()
+# ---------------------------------------------------------------------------
+
+GUARDED = ("K1", "K4", "K2", "K2 bf16", "K3", "W8A8-q", "W8A8-mm", "K5",
+           "K6", "K7", "K8")
+
+
+def grad_guard_cases(device):
+    """{tag: (wrapper, call)}: ``call(requires_grad)`` runs the wrapper once
+    on fresh small inputs on ``device`` whose float activations (or, for
+    the pool writes, the new scales) require grad when asked."""
+    cpu = torch.Generator().manual_seed(0)
+
+    def randn(*shape, rg=False):
+        t = torch.randn(shape, generator=cpu).to(device)
+        return t.requires_grad_(rg)
+
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, generator=cpu,
+                             dtype=torch.int8).to(device)
+
+    def scales(*shape, rg=False):
+        t = (0.01 + 0.02 * torch.rand(shape, generator=cpu)).to(device)
+        return t.requires_grad_(rg)
+
+    def i32(values):
+        return torch.tensor(values, dtype=torch.int32, device=device)
+
+    w8, s8 = (t.to(device) for t in quant.quantize_int8(
+        torch.randn((1, 64, 64), generator=cpu)))
+    w4, s4 = (t.to(device) for t in quant.quantize_int4(
+        torch.randn((1, 64, 64), generator=cpu), 16))
+    pos = torch.arange(16, dtype=torch.int32, device=device)
+
+    def pools():
+        return [ints(2, 4, 2, 8, 32), scales(2, 4, 2, 8), ints(2, 4, 2, 8, 32),
+                scales(2, 4, 2, 8)]
+
+    def k2_int8(rg):
+        return k2.decode_attention_int8_stacked(
+            randn(1, 2, 1, 32, rg=rg), ints(1, 1, 2, 64, 32),
+            scales(1, 1, 2, 64), ints(1, 1, 2, 64, 32), scales(1, 1, 2, 64),
+            0, masks.decode_mask(10, 64, 1, device=device))
+
+    def k2_bf16(rg):
+        return k2.decode_attention_stacked(
+            randn(1, 2, 1, 32, rg=rg), randn(1, 1, 2, 64, 32),
+            randn(1, 1, 2, 64, 32), 0,
+            masks.decode_mask(10, 64, 1, device=device))
+
+    def k3_call(rg):
+        q = randn(1, 2, 16, 32, rg=rg)
+        return k3.flash_attention(q, randn(1, 2, 16, 32), randn(1, 2, 16, 32),
+                                  masks.causal_mask(pos, pos))
+
+    def w8a8_mm(rg):
+        xq, sx = w8a8.w8a8_quant_plain(randn(4, 64))
+        return w8a8.w8a8_matmul_stacked(xq, sx.requires_grad_(rg), w8, s8, 0,
+                                        torch.float32)
+
+    def k5(rg):
+        return kp.paged_write_int8(*pools(), 1, i32([1, 2]), i32([0, 7]),
+                                   ints(2, 2, 32), scales(2, 2, rg=rg),
+                                   ints(2, 2, 32), scales(2, 2))
+
+    def k6(rg):
+        return kp.paged_decode_attention_int8(
+            randn(2, 2, 1, 32, rg=rg), *pools(), 0, i32([[1, 2], [3, 0]]),
+            masks.decode_mask(3, 16, 1, device=device))
+
+    def k7(rg):
+        return kp.paged_write_layers_int8(
+            *pools(), i32([1, 2]), i32([0, 7]), ints(2, 2, 2, 32),
+            scales(2, 2, 2, rg=rg), ints(2, 2, 2, 32), scales(2, 2, 2))
+
+    def k8(rg):
+        rows = [ints(2, 1, 2, 8, 32), scales(2, 1, 2, 8, rg=rg),
+                ints(2, 1, 2, 8, 32), scales(2, 1, 2, 8)]
+        return kp.paged_page_copy_int8(*pools(), i32([[3]]), *rows)
+
+    return {
+        "K1": (k1.int8_matmul_stacked,
+               lambda rg: k1.int8_matmul_stacked(randn(4, 64, rg=rg), w8, s8,
+                                                 0)),
+        "K4": (k1.int4_matmul_stacked,
+               lambda rg: k1.int4_matmul_stacked(randn(4, 64, rg=rg), w4, s4,
+                                                 0)),
+        "K2": (k2.decode_attention_int8_stacked, k2_int8),
+        "K2 bf16": (k2.decode_attention_stacked, k2_bf16),
+        "K3": (k3.flash_attention, k3_call),
+        "W8A8-q": (w8a8.w8a8_quant,
+                   lambda rg: w8a8.w8a8_quant(randn(4, 64, rg=rg))),
+        "W8A8-mm": (w8a8.w8a8_matmul_stacked, w8a8_mm),
+        "K5": (kp.paged_write_int8, k5),
+        "K6": (kp.paged_decode_attention_int8, k6),
+        "K7": (kp.paged_write_layers_int8, k7),
+        "K8": (kp.paged_page_copy_int8, k8),
+    }
+
+
+@pytest.mark.parametrize("tag", GUARDED)
+def test_wrappers_refuse_grad_and_launch_under_no_grad(tag):
+    _card()
+    fn, call = grad_guard_cases("cuda")[tag]
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(True)
+    assert fn.launches == before
+    with torch.no_grad():
+        call(True)
+    assert fn.launches == before + 1
+    call(False)                    # nothing requires grad: it launches
+    assert fn.launches == before + 2
+
+
+# ---------------------------------------------------------------------------
+# GPTQ and the train step on the card against the CPU (plain torch both)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("gs", [128, 32])
+def test_weight_quantizers_card_equal_cpu(gs):
+    """INT8 / INT4 quantization and the QAT round trips divide exactly on
+    the card too (no reciprocal), so card and CPU grids are bit for bit
+    the same."""
+    _card()
+    w = torch.randn((2, 256, 384), generator=torch.Generator().manual_seed(4))
+    for fn in (quant.quantize_int8, functools.partial(quant.quantize_int4,
+                                                      group_size=gs),
+               quant._qdq_int8, functools.partial(quant._qdq_int4,
+                                                  group_size=gs)):
+        want, got = fn(w), fn(w.cuda())
+        for a, b in zip(want if isinstance(want, tuple) else (want,),
+                        got if isinstance(got, tuple) else (got,)):
+            assert torch.equal(b.cpu(), a)
+
+
+@pytest.mark.parametrize("bits,gs,act_order", [(4, 128, False),
+                                               (4, 64, True), (8, 0, False)])
+def test_gptq_round_card_vs_cpu(bits, gs, act_order):
+    """cuSOLVER's inverse and Cholesky against LAPACK's, and the card's
+    fused products in the sweep: at least 99.9% of Q equal, the rest one
+    step apart; scales within 1e-6 relative."""
+    from block_transformer_tpu_torch.ops import gptq
+    _card()
+    cpu = torch.Generator().manual_seed(3)
+    K, N = 512, 384
+    W = torch.randn((K, N), generator=cpu)
+    X = (torch.randn((2048, K // 4), generator=cpu, dtype=torch.float64)
+         @ torch.randn((K // 4, K), generator=cpu, dtype=torch.float64)
+         + 0.1 * torch.randn((2048, K), generator=cpu, dtype=torch.float64))
+    X[:, 7] = 0.0                                       # a dead input
+    H = X.T @ X
+    kw = dict(bits=bits, group_size=gs, act_order=act_order)
+    q_cpu, s_cpu = gptq.gptq_round(W, H, **kw)
+    q_gpu, s_gpu = gptq.gptq_round(W.cuda(), H.cuda(), **kw)
+    diff = (q_gpu.cpu() - q_cpu).abs()
+    assert diff.max() <= 1 and (diff > 0).float().mean() <= 1e-3
+    torch.testing.assert_close(s_gpu.cpu(), s_cpu, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("qat", [False, True])
+def test_train_step_card_vs_cpu(qat):
+    """Two steps (the first at lr 0) of a small model in float32, TF32 off:
+    loss and grad_norm within 1e-5 relative; each leaf's update within 1e-4
+    relative in Frobenius norm over the coordinates whose gradient is zero
+    or above float32 noise (the CPU run's ``sqrt(nu)`` above 1e-6 of the
+    leaf's largest: Adam turns a gradient that is zero in exact arithmetic,
+    such as the key bias off RoPE's dims, into the sign of its rounding
+    noise; ``tests/test_torch_train_step.py``)."""
+    import numpy as np
+
+    from block_transformer_tpu_torch import config
+    from block_transformer_tpu_torch.data import packing
+    from block_transformer_tpu_torch.train import optimizer as opt
+    from block_transformer_tpu_torch.train import train_step as ts
+    _card()
+    cfg = config.make_block_config("t", 128, 2, vocab_size=512)
+    tx, _ = opt.make_optimizer(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    transform = functools.partial(quant.fake_quant_block_transformer,
+                                  **quant.RECIPES["mixed48"]) if qat else None
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, 512, (2, 64))
+    att = np.ones_like(ids)
+    ids[1, :6], att[1, :6] = 0, 0
+    batch = packing.make_train_batch(ids, att, cfg.block_length)
+    params0 = ts.create_train_state(0, cfg, tx, device="cpu").params
+    runs = []
+    for dev in ("cpu", "cuda"):
+        params = opt.tree_map(lambda t: t.to(dev, copy=True), params0)
+        state = ts.TrainState(params, tx.init(params), 0)
+        step = ts.make_train_step(cfg, tx, param_transform=transform)
+        metrics = []
+        for _ in range(2):
+            state, m = step(state, packing.to_device(batch, dev))
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+        runs.append((metrics, state))
+    (m_cpu, s_cpu), (m_gpu, s_gpu) = runs
+    for a, b in zip(m_cpu, m_gpu):
+        for k in a:
+            assert abs(b[k] - a[k]) <= 1e-5 * abs(a[k]), (k, a, b)
+    for name in ("mu", "nu"):
+        card = dict(opt.tree_items(getattr(s_gpu.opt_state, name)))
+        for path, v in opt.tree_items(getattr(s_cpu.opt_state, name)):
+            assert (card[path].cpu() - v).norm() <= 1e-5 * v.norm(), (name,
+                                                                       path)
+    nu = dict(opt.tree_items(s_cpu.opt_state.nu))
+    p_cpu = dict(opt.tree_items(s_cpu.params))
+    p_gpu = dict(opt.tree_items(s_gpu.params))
+    for path, w0 in opt.tree_items(params0):
+        rms = nu[path].sqrt()
+        live = (rms == 0) | (rms > 1e-6 * rms.max())
+        w = p_cpu[path][live]
+        diff = (p_gpu[path].cpu() - p_cpu[path])[live]
+        assert diff.norm() <= (1e-5 * w0[live].norm()
+                               + 1e-4 * (w - w0[live]).norm()), path

@@ -1,8 +1,8 @@
 // PTX helpers shared by the tensor-core kernels (K1/K4 in dequant_matmul.cu,
-// K3 in flash_attention.cu, W8A8-mm in w8a8.cu): cp.async copies into
-// shared memory, ldmatrix fragment loads, the bf16 and s8 mma.sync
-// products, and exact int8 / int4 -> float widening (also used by K2 and
-// K6).
+// K3 in flash_attention.cu; W8A8-mm in w8a8.cu takes the shared-memory
+// address and bf16 packing): cp.async copies into shared memory, ldmatrix
+// fragment loads, the bf16 mma.sync product, and exact int8 / int4 -> float
+// widening (also used by K2 and K6).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,19 +64,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a[16 x 32] @ b[32 x 8], int8 operands, int32 accumulators (exact).
-// a: four registers of four bytes, rows g / g + 8, columns 4t..4t+3 and
-// 16 + 4t..; b: two registers, column g, rows 4t..4t+3 and 16 + 4t.. (g =
-// lane / 4, t = lane % 4), each register's bytes in increasing k.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -16,7 +16,9 @@ weight slice is copied.
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors, raising on input the kernel does not take.
 ``w8a8_quant.launches`` and ``w8a8_matmul_stacked.launches`` count the
-launches. ``plan`` (pure) gives W8A8-mm's tile and its split of K.
+launches, and ``w8a8_matmul_stacked.route_launches`` W8A8-mm's by route
+(one route, ``"wgmma"``: warp-specialized ``wgmma`` fed by TMA). ``plan``
+(pure) gives W8A8-mm's route, tile, split of K and persistent grid.
 """
 
 from __future__ import annotations
@@ -66,37 +68,43 @@ def _fn(name: str):
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
     else:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-_ALIGN = 16                # bytes of one cp.async copy / vector load
-BM, BN, BK = 128, 128, 64  # W8A8-mm's output tile and K step (bytes)
+_ALIGN = 16                # bytes: TMA's global alignment, the vector stores
+# W8A8-mm's tile: 128 tokens (wgmma's N) x 256 weight columns (two consumer
+# warpgroups of two m64 tiles), K in stages of 128 bytes; one block an SM
+BT, BN, BK = 128, 256, 128
 
 
 class Plan(NamedTuple):
-    """How one W8A8-mm launches: ``tile`` (BM, BN, BK), K split over
-    ``splits`` blocks of ``k_per_split`` rows each."""
+    """How one W8A8-mm launches: ``route`` (``"wgmma"``), ``tile`` (tokens,
+    weight columns, K bytes a stage), K split over ``splits`` units of
+    ``k_per_split`` bytes each, and a persistent grid of ``blocks`` blocks
+    walking the ``tiles * splits`` units."""
+    route: str
     tile: tuple
     splits: int
     k_per_split: int
+    blocks: int
 
 
 @functools.lru_cache(maxsize=4096)
 def plan(M: int, K: int, N: int, sms: int) -> Plan:
     """W8A8-mm's launch of ``xq [M, K] @ w [K, N]`` on a card with ``sms``
-    SMs: 128 x 128 output tiles (two blocks an SM); when they are fewer than
-    two an SM, K is split over blocks in whole 64-row steps, into at most
-    as many splits as fill two blocks an SM, so that no launch runs in a
-    second, mostly empty wave."""
-    tiles = -(-M // BM) * -(-N // BN)
+    SMs (one block an SM: the ring takes 193 KB of shared memory). When
+    the tiles are fewer than the SMs, K is split in whole 128-byte stages
+    into at most as many splits as fill the SMs once; the grid is the
+    units or the SMs, whichever is fewer."""
+    tiles = -(-M // BT) * -(-N // BN)
     steps = -(-K // BK)
-    want = max(1, 2 * sms // tiles)
-    per_split = -(-steps // want)
-    kps = per_split * BK
-    return Plan((BM, BN, BK), -(-K // kps), kps)
+    want = max(1, sms // tiles)
+    kps = -(-steps // want) * BK
+    splits = -(-K // kps)
+    return Plan("wgmma", (BT, BN, BK), splits, kps, min(tiles * splits, sms))
 
 
 def _aligned(*ptrs) -> bool:
@@ -141,8 +149,8 @@ def w8a8_matmul_stacked(xq: torch.Tensor, sx: torch.Tensor,
                         w_q: torch.Tensor, scale: torch.Tensor, layer: int,
                         dtype) -> torch.Tensor:
     """xq int8 [M, K]; sx f32 [M]; w_q int8 [L, K, N]; scale f32 [L, N] ->
-    [M, N] in ``dtype`` (f32/bf16). On the card K and N must be multiples of
-    16 and every operand 16-byte aligned."""
+    [M, N] in ``dtype`` (f32/bf16). On the card K and N must be positive
+    multiples of 16 and every operand 16-byte aligned."""
     build.no_backward("w8a8_matmul", sx, scale)
     if not xq.is_cuda:
         return w8a8_matmul_stacked_plain(xq, sx, w_q, scale, layer, dtype)
@@ -159,9 +167,9 @@ def w8a8_matmul_stacked(xq: torch.Tensor, sx: torch.Tensor,
                         f"{sx.dtype}, scale {scale.dtype}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"w8a8_matmul: output dtype {dtype}")
-    if K % 16 or N % 16:
+    if K <= 0 or N <= 0 or K % 16 or N % 16:
         raise ValueError(f"w8a8_matmul: K = {K} and N = {N} must be "
-                         "multiples of 16")
+                         "positive multiples of 16")
     dev = xq.get_device()
     if not all(t.get_device() == dev and t.is_contiguous()
                for t in (sx, w_q, scale)) or not xq.is_contiguous():
@@ -179,14 +187,16 @@ def w8a8_matmul_stacked(xq: torch.Tensor, sx: torch.Tensor,
     ws = ctr = None
     if p.splits > 1:
         ws, ctr = build.scratch(dev, stream, p.splits * M * N,
-                                -(-M // BM) * -(-N // BN))
+                                2 * -(-M // BT) * -(-N // BN))
         ws, ctr = ws.data_ptr(), ctr.data_ptr()
     err = _fn("bt_w8a8_matmul")(*ptrs, ws, ctr, M, K, N, p.splits,
-                                p.k_per_split, int(dtype == torch.bfloat16),
-                                stream)
+                                p.k_per_split, p.blocks,
+                                int(dtype == torch.bfloat16), stream)
     build.check(err, "w8a8_matmul")
     w8a8_matmul_stacked.launches += 1
+    w8a8_matmul_stacked.route_launches[p.route] += 1
     return out
 
 
 w8a8_matmul_stacked.launches = 0
+w8a8_matmul_stacked.route_launches = {"wgmma": 0}

@@ -114,7 +114,7 @@ def quantize_kv(x: torch.Tensor, bits: int = 8):
     qmax = 127.0 if bits == 8 else 7.0
     xf = x.float()
     a = xf.abs().amax(dim=-1)
-    scale = torch.clamp(a, min=1e-8) / qmax
+    scale = _div(torch.clamp(a, min=1e-8), qmax)
     q = torch.clamp(torch.round(xf / scale[..., None]), -qmax, qmax)
     return q.to(torch.int8), scale
 

@@ -248,7 +248,7 @@ OWN_KERNELS = ("tc_matmul_kernel", "int8_matmul_kernel", "int4_matmul_kernel",
                "flash_attn_kernel",
                "flash_attn_tc_kernel",
                "paged_write_kernel", "page_copy_kernel", "paged_attn_kernel",
-               "w8a8_quant_kernel", "w8a8_mm_kernel")
+               "w8a8_quant_kernel", "w8a8_wgmma_kernel")
 
 
 def print_breakdown(per) -> None:

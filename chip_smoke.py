@@ -28,8 +28,11 @@ one process it:
    naming its route and split of the cache and each K3 row its route;
    W8A8-q and W8A8-mm (bit for bit) at the prefill's linears, the block
    decoder's four at M = 4096 and the baseline's qkv at M = 16384, beside
-   ``torch._int_mm`` and K1 at the same shape, then the W8A8 pair against
-   K1 at M from 256 to 4096 (``w8a8_crossover``, one JSON line);
+   ``torch._int_mm`` and K1 at the same shape (each W8A8-mm row naming
+   the route, tile, splits and grid ``plan`` gave it, its wrapper's host
+   microseconds a call and its share of the int8 peak), then the W8A8
+   pair against K1 at M from 256 to 4096 (``w8a8_crossover``, one JSON
+   line);
    K5-K8 at the serving engine's shapes (16 slots, 12 layers, 16 heads of
    128, capacity 640 contiguous, 3 pages of 256 paged), K6 and K8 also on
    the packed INT4 pool, each K6 row naming its split of the virtual slots;
@@ -88,9 +91,10 @@ one process it:
 Every timed full-width run of steps 5-8 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
 other one (the baseline: its 96 prefill linears at M = 16384 by W8A8),
-that K1, K3 and K4 launched by the tensor-core route only, and every one
-with a token decoder that K2's bf16 form took the warp route there (its
-split route runs only on the bf16 global cache). The last three lines are
+that K1, K3 and K4 launched by the tensor-core route only and W8A8-mm by
+its wgmma route only, and every one with a token decoder that K2's bf16
+form took the warp route there (its split route runs only on the bf16
+global cache). The last three lines are
 the ``nvidia-smi`` line, a JSON object listing each kernel's launches (from
 the run of step 5, 6 or 7 named by the row's ``path``; a K6 or K8 row
 counts the launches on its pool width, and a K2 bf16 row gives those of its
@@ -218,10 +222,13 @@ PATH_ABSENT = {
     "engine paged-int4": ("K2", "K5", "K6", "K7", "K8"),
     "vanilla": ("K2 bf16",),
 }
-# K1, K3 and K4 count their launches by route as well; a full-width path
-# takes the tensor-core route ("tc") only
-ROUTED = {"K1": k1.int8_matmul_stacked, "K3": k3.flash_attention,
-          "K4": k1.int4_matmul_stacked}
+# K1, K3, K4 and W8A8-mm count their launches by route as well; a
+# full-width path takes the route named here only: the tensor cores ("tc")
+# for K1, K3 and K4, wgmma fed by TMA for W8A8-mm
+ROUTED = {"K1": (k1.int8_matmul_stacked, "tc"),
+          "K3": (k3.flash_attention, "tc"),
+          "K4": (k1.int4_matmul_stacked, "tc"),
+          "W8A8-mm": (w8a8.w8a8_matmul_stacked, "wgmma")}
 
 
 def log(msg: str) -> None:
@@ -325,8 +332,10 @@ def record(rows, tag, label, err, ms, plain_ms, library_ms, nbytes, flops,
     if plan is not None:
         row["matmul_route"] = (f"{plan.route} {'x'.join(map(str, plan.tile))}"
                                f" splits {plan.splits}")
+        note = f", route {row['matmul_route']}"
+    if host_us is not None:
         row["host_us"] = host_us
-        note = f", route {row['matmul_route']}, host {host_us:.1f} us/call"
+        note += f", host {host_us:.1f} us/call"
     rows.append(row)
     lib = "none" if library_ms is None else f"{library_ms:.5f} ms"
     log(f"{tag} [{label}]: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
@@ -478,7 +487,7 @@ def phase_w8a8(rows, cfg, vcfg, smi):
         nxt = lambda: next(it) % L             # noqa: E731
         q_ms = time_ms(lambda: w8a8.w8a8_quant(x), 20)
         q_plain = time_ms(lambda: w8a8.w8a8_quant_plain(x), 5)
-        mm_ms = time_ms(lambda: w8a8.w8a8_matmul_stacked(
+        mm_ms, mm_host_us = time_ms_host(lambda: w8a8.w8a8_matmul_stacked(
             xq, sx, w_q, scale, nxt(), bf16), 20)
         mm_plain = time_ms(lambda: w8a8.w8a8_matmul_stacked_plain(
             xq, sx, w_q, scale, nxt(), bf16), 3)
@@ -491,9 +500,12 @@ def phase_w8a8(rows, cfg, vcfg, smi):
         p = w8a8.plan(M, K, N, build.sm_count(0))
         record(rows, "W8A8-mm", f"{label} M={M} K={K} N={N}", 0.0, mm_ms,
                mm_plain, lib_ms, M * K + K * N + M * 4 + N * 4 + M * N * 2,
-               2 * M * K * N, path=path, peak=INT8_OPS,
-               extra={**extra, "w8a8_plan": f"{'x'.join(map(str, p.tile))} "
-                                             f"splits {p.splits}",
+               2 * M * K * N, path=path, peak=INT8_OPS, host_us=mm_host_us,
+               extra={**extra, "w8a8_plan": (
+                          f"{p.route} {'x'.join(map(str, p.tile))} splits "
+                          f"{p.splits} blocks {p.blocks}"),
+                      "int8_peak_share": 2 * M * K * N / INT8_OPS
+                      / (mm_ms * 1e-3),
                       "int_mm_layout": layout})
         if path == "generation":
             for Mc in (256, 384, 512, 1024, 2048, 4096):
@@ -1169,7 +1181,7 @@ def reset_launches():
         fn.launches = 0
         if hasattr(fn, "form_launches"):
             fn.form_launches = dict.fromkeys(fn.form_launches, 0)
-    for fn in ROUTED.values():
+    for fn, _ in ROUTED.values():
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
     k2.decode_attention_stacked.route_launches = dict.fromkeys(
         k2.decode_attention_stacked.route_launches, 0)
@@ -1182,19 +1194,22 @@ def read_launches(path: str) -> dict:
     did."""
     launches = {tag: fn.launches if form is None else fn.form_launches[form]
                 for fn, tag, *_, form in KERNELS}
-    routes = {tag: dict(fn.route_launches) for tag, fn in ROUTED.items()}
-    log(f"launches in the timed {path} run: {json.dumps(launches)}; K1/K3/K4 "
-        f"by route: {json.dumps(routes)}")
+    routes = {tag: dict(fn.route_launches)
+              for tag, (fn, _) in ROUTED.items()}
+    log(f"launches in the timed {path} run: {json.dumps(launches)}; K1/K3/"
+        f"K4/W8A8-mm by route: {json.dumps(routes)}")
     for tag in PATH_KERNELS[path]:
         if launches[tag] <= 0:
             raise AssertionError(f"{tag} was not launched on the {path} path")
     for tag in PATH_ABSENT.get(path, ()):
         if launches[tag]:
             raise AssertionError(f"{tag} was launched on the {path} path")
-    for tag, by_route in routes.items():     # full width: tensor cores only
-        if by_route["fma"] or by_route["tc"] != launches[tag]:
-            raise AssertionError(f"{tag} took the CUDA-core route on the "
-                                 f"{path} path: {by_route}")
+    for tag, by_route in routes.items():     # full width: one route only
+        want = ROUTED[tag][1]
+        if by_route[want] != launches[tag] or sum(by_route.values()) != \
+                launches[tag]:
+            raise AssertionError(f"{tag} took another route than {want} on "
+                                 f"the {path} path: {by_route}")
     # K2 bf16 serves the token decoder's local cache by the warp route, and
     # only the bf16 global cache by the split route
     k2_routes = dict(k2.decode_attention_stacked.route_launches)

@@ -20,7 +20,8 @@ magnitude (K4's tensor-core route also rounds each scaled weight to bf16,
 ``plan`` took: bf16 x with K (K/2) a multiple of 32 and N of 16 goes to the
 tensor cores, float32 x and ragged shapes to the CUDA cores; K3 cases
 assert the route ``route`` took (bf16 with D = 64 or 128 on the tensor
-cores, float32 and other head dims on the CUDA cores). K2 cases cover one
+cores, float32 and other head dims on the CUDA cores); W8A8-mm cases
+assert its one route, ``wgmma``. K2 cases cover one
 split and several (``plan``), with splits whose every slot is masked; K6
 cases too (K2's ``plan`` over the virtual slots), with splits whose every
 tile is skipped, rows with no allowed key, page ids outside [0, P), and
@@ -30,7 +31,8 @@ page 0 where dead rows may collide.
 
 The quantization workflow on the card: every wrapper refuses inputs that
 require grad under grad mode and launches under ``torch.no_grad()``; the
-weight quantizers and the QAT round trips equal the CPU's bit for bit;
+weight quantizers, the QAT round trips and the KV quantizer equal the
+CPU's bit for bit;
 ``gptq_round`` and two train steps (plain and QAT) against the CPU, each
 with its tolerance in its docstring.
 """
@@ -834,17 +836,24 @@ def test_w8a8_matmul_bit_exact(M, K, N, dtype):
     scale = 0.001 + 0.01 * torch.rand((2, N), generator=g, device="cuda")
     xq, sx = w8a8.w8a8_quant(x)
     before = w8a8.w8a8_matmul_stacked.launches
+    routed = w8a8.w8a8_matmul_stacked.route_launches["wgmma"]
     got = w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, 1, dtype)
     assert w8a8.w8a8_matmul_stacked.launches == before + 1
+    assert w8a8.plan(M, K, N, build.sm_count(0)).route == "wgmma"
+    assert w8a8.w8a8_matmul_stacked.route_launches["wgmma"] == routed + 1
     want = w8a8.w8a8_matmul_stacked_plain(xq, sx, w_q, scale, 1, dtype)
     assert got.dtype == dtype and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("M,K,N", [(70, 96, 48), (130, 80, 144),
-                                   (3, 4096, 16)])
+                                   (3, 4096, 16), (200, 2064, 48),
+                                   (257, 176, 144), (129, 16, 272),
+                                   (1, 144, 48), (385, 1040, 528)])
 def test_w8a8_matmul_ragged_tiles(M, K, N):
-    """M, N and K not multiples of the 128 x 128 x 64 tile (K and N of 16):
-    the zero-filled edges."""
+    """M, N and K not multiples of the 128-token x 256-column x 128-byte
+    tile (K and N of 16; N = 48 and 144 end inside the first consumer
+    warpgroup's columns, 272 and 528 inside a second tile's): the edges
+    TMA zero-fills; layer 2 puts the weights' tensor map at an offset."""
     g = _card()
     xq = torch.randint(-127, 128, (M, K), generator=g, device="cuda",
                        dtype=torch.int8)
@@ -852,16 +861,20 @@ def test_w8a8_matmul_ragged_tiles(M, K, N):
     w_q = torch.randint(-127, 128, (3, K, N), generator=g, device="cuda",
                         dtype=torch.int8)
     scale = torch.rand((3, N), generator=g, device="cuda")
+    assert w8a8.plan(M, K, N, build.sm_count(0)).route == "wgmma"
     for layer in (0, 2):
+        routed = w8a8.w8a8_matmul_stacked.route_launches["wgmma"]
         got = w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, layer,
                                        torch.bfloat16)
+        assert w8a8.w8a8_matmul_stacked.route_launches["wgmma"] == routed + 1
         assert torch.equal(got, w8a8.w8a8_matmul_stacked_plain(
             xq, sx, w_q, scale, layer, torch.bfloat16))
 
 
 def test_w8a8_counters_are_left_at_zero():
-    """A split launch (M = 16) leaves the shared arrival counters at zero:
-    the next split launch on the same stream is right too."""
+    """A split launch (M = 16: K split over the units) leaves the shared
+    arrival counters at zero: the next split launch on the same stream is
+    right too."""
     g = _card()
     xq = torch.randint(-127, 128, (16, 2048), generator=g, device="cuda",
                        dtype=torch.int8)
@@ -896,6 +909,9 @@ def test_w8a8_wrappers_raise():
     with pytest.raises(ValueError, match="multiples of 16"):
         mm(xq, sx, w_q[:, :, :24].contiguous(), scale[:, :24].contiguous(),
            0, torch.float32)
+    with pytest.raises(ValueError, match="positive multiples of 16"):
+        mm(xq[:, :0].contiguous(), sx, w_q[:, :0].contiguous(), scale, 0,
+           torch.float32)
     with pytest.raises(ValueError, match="layer"):
         mm(xq, sx, w_q, scale, 2, torch.float32)
     with pytest.raises(TypeError):
@@ -1040,6 +1056,19 @@ def test_wrappers_refuse_grad_and_launch_under_no_grad(tag):
 # ---------------------------------------------------------------------------
 # GPTQ and the train step on the card against the CPU (plain torch both)
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_kv_quantizer_card_equal_cpu(bits):
+    """quantize_kv divides exactly on the card too (no reciprocal): its
+    scales and values on a cache-sized input equal the CPU's bit for bit."""
+    _card()
+    x = torch.randn((8, 16, 640, 128),
+                    generator=torch.Generator().manual_seed(11))
+    q_cpu, s_cpu = quant.quantize_kv(x, bits)
+    q_gpu, s_gpu = quant.quantize_kv(x.cuda(), bits)
+    assert torch.equal(s_gpu.cpu(), s_cpu)
+    assert torch.equal(q_gpu.cpu(), q_cpu)
+
 
 @pytest.mark.parametrize("gs", [128, 32])
 def test_weight_quantizers_card_equal_cpu(gs):

@@ -237,32 +237,45 @@ def test_chunked_dispatch(monkeypatch):
 # W8A8-mm's plan
 # ---------------------------------------------------------------------------
 
+MAIN_PATH_W8A8 = [(4096, 2048, 6144), (4096, 2048, 2048), (4096, 2048, 8192),
+                  (4096, 8192, 2048), (16384, 1024, 3072)]
+
+
 @pytest.mark.parametrize("M,K,N", [
-    (4096, 2048, 6144), (4096, 2048, 2048), (4096, 2048, 8192),
-    (4096, 8192, 2048), (16384, 1024, 3072),    # the prefill shapes
+    *MAIN_PATH_W8A8,                            # the prefill shapes
     (1024, 2048, 6144), (1024, 8192, 2048),     # streaming chunks
     (384, 2048, 2048), (384, 8192, 2048), (2048, 2048, 2048),
     (1, 2048, 384), (17, 4096, 16), (130, 80, 48)])
 @pytest.mark.parametrize("sms", [132, 114])
 def test_w8a8_plan(M, K, N, sms):
+    """W8A8-mm's one route at every shape; its K steps cover K exactly, in
+    whole 128-byte stages; the persistent grid fills the card at the
+    prefill's M = 4096 (and M = 16384) with no split; a split only where
+    the tiles alone leave SMs idle, and never past one unit an SM; and
+    ``plan`` is pure."""
     p = w8a8.plan(M, K, N, sms)
-    tiles = -(-M // 128) * -(-N // 128)
-    assert p.tile == (128, 128, 64)
-    assert p.k_per_split % 64 == 0 and p.k_per_split > 0
-    assert p.splits * p.k_per_split >= K > (p.splits - 1) * p.k_per_split
-    assert p.splits <= max(1, 2 * sms // tiles)    # one wave of two an SM
-    if tiles >= 2 * sms:
-        assert p.splits == 1
-    if M == 4096 and N >= 2048:
-        assert p.splits == 1                        # 512+ tiles: no split
+    tiles = -(-M // 128) * -(-N // 256)
+    assert p.route == "wgmma" and p.tile == (128, 256, 128)
+    assert p.k_per_split % 128 == 0 and p.k_per_split > 0
+    spans = [min(K - z * p.k_per_split, p.k_per_split)
+             for z in range(p.splits)]
+    assert all(s > 0 for s in spans) and sum(spans) == K
+    assert p.blocks == min(tiles * p.splits, sms)
+    assert tiles * p.splits <= max(tiles, sms)
+    if tiles >= sms:
+        assert p.splits == 1 and p.blocks == sms
+    if (M, K, N) in MAIN_PATH_W8A8:
+        assert p.splits == 1 and p.blocks == sms   # fills the card
     if (M, K, N) == (384, 8192, 2048):
-        assert p.splits == 2 * sms // tiles         # 48 tiles: split K
+        assert p.splits == sms // tiles             # 24 tiles: split K
+    assert w8a8.plan.__wrapped__(M, K, N, sms) == p == w8a8.plan(M, K, N, sms)
 
 
 def test_w8a8_wrappers_take_cpu_tensors_as_plain():
     """On the CPU the wrappers run the plain versions and count nothing."""
     x = torch.randn(5, 32)
     before = (w8a8.w8a8_quant.launches, w8a8.w8a8_matmul_stacked.launches)
+    routes = dict(w8a8.w8a8_matmul_stacked.route_launches)
     xq, sx = w8a8.w8a8_quant(x)
     w = torch.randint(-127, 128, (2, 32, 16), dtype=torch.int8)
     s = torch.rand(2, 16)
@@ -271,3 +284,29 @@ def test_w8a8_wrappers_take_cpu_tensors_as_plain():
                                                    torch.float32))
     assert (w8a8.w8a8_quant.launches,
             w8a8.w8a8_matmul_stacked.launches) == before
+    assert w8a8.w8a8_matmul_stacked.route_launches == routes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [1, 300])
+def test_w8a8_route_launches_still_on_cpu(M, dtype, monkeypatch):
+    """A stacked INT8 linear taking W8A8 (the card gate opened, W8A8 at
+    every M) on CPU tensors runs the plain versions: W8A8-mm's launches and
+    its launches by route do not move."""
+    from block_transformer_tpu_torch.ops import linear as torch_linear
+    from block_transformer_tpu_torch.ops import quant as torch_quant
+    g = torch.Generator().manual_seed(M)
+    w_q, scale = torch_quant.quantize_int8(torch.randn((2, 64, 48),
+                                                       generator=g))
+    x = torch.randn((M, 64), generator=g).to(dtype)
+    node = {"kernel_q8": w_q, "scale": scale}
+    before = (w8a8.w8a8_matmul_stacked.launches,
+              dict(w8a8.w8a8_matmul_stacked.route_launches))
+    monkeypatch.setattr(torch_linear, "_on_card", lambda t: True)
+    with torch_linear.w8a8_min_m(1):
+        out = torch_linear.apply_linear(x, torch_linear.StackedLinear(node, 1))
+    xq, sx = w8a8.w8a8_quant_plain(x)
+    assert torch.equal(out, w8a8.w8a8_matmul_plain(xq, sx, w_q[1], scale[1],
+                                                   dtype))
+    assert (w8a8.w8a8_matmul_stacked.launches,
+            w8a8.w8a8_matmul_stacked.route_launches) == before

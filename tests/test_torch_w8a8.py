@@ -313,15 +313,17 @@ def test_engine_declares_the_jax_kv_mode(kind, declared, engine_models,
 
 
 # ---------------------------------------------------------------------------
-# A lane-level model of W8A8-mm's fragments (csrc/w8a8.cu)
+# A lane-level model of W8A8-mm's design (csrc/w8a8.cu, w8a8_wgmma_kernel)
 # ---------------------------------------------------------------------------
 
-BM, BN, BK, WM, WN, A_LD = 128, 128, 64, 64, 32, 80
+BT, BW, BK = 128, 128, 128      # tokens, a warpgroup's weight columns, K step
 
 
-def _swz(r, c):
-    """The weight stage's physical 16-byte chunk of chunk c in row r."""
-    return c ^ (((r >> 2) & 3) << 1)
+def _sw128(addr):
+    """Shared-memory byte ``addr`` (from a 1024-byte aligned base) after the
+    128-byte swizzle that TMA writes and wgmma's SW128 descriptors read:
+    address bits 4-6 ^= bits 7-9."""
+    return addr ^ (((addr >> 7) & 7) << 4)
 
 
 def _byte_perm(x, y, sel):
@@ -332,15 +334,6 @@ def _byte_perm(x, y, sel):
     return sum(b[(sel >> 4 * i) & 7] << 8 * i for i in range(4))
 
 
-def _transpose4x4(r):
-    t0 = _byte_perm(r[0], r[1], 0x5140)
-    t1 = _byte_perm(r[0], r[1], 0x7362)
-    t2 = _byte_perm(r[2], r[3], 0x5140)
-    t3 = _byte_perm(r[2], r[3], 0x7362)
-    return [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
-            _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
-
-
 def _word(mem, addr):
     return int.from_bytes(bytes(mem[addr:addr + 4]), "little")
 
@@ -349,62 +342,69 @@ def _bytes(word):
     return np.frombuffer(int(word).to_bytes(4, "little"), np.int8)
 
 
-def test_w8a8_mm_fragments_lane_model():
-    """One block's K step, lane by lane: the x stage (rows of 80 bytes)
-    read by ldmatrix.x4, the swizzled weight stage read as 4 x 4 byte
-    blocks and transposed by __byte_perm, m16n8k32's fragment layouts and
-    the epilogue's column permutation give x @ w for the whole 128 x 128
-    tile; and every B load and every ldmatrix phase of a warp touches 32
-    distinct banks."""
-    rng = np.random.default_rng(0)
-    x = rng.integers(-127, 128, (BM, BK)).astype(np.int8)
-    w = rng.integers(-127, 128, (BK, BN)).astype(np.int8)
-    sa = np.zeros(BM * A_LD, np.uint8)          # the cp.async copies
-    sw = np.zeros(BK * BN, np.uint8)
-    for r in range(BM):
-        sa[r * A_LD:r * A_LD + BK] = x[r].view(np.uint8)
-    for r in range(BK):
-        for c in range(BN // 16):
-            sw[r * BN + _swz(r, c) * 16:][:16] = \
-                w[r, c * 16:(c + 1) * 16].view(np.uint8)
-    want = x.astype(np.int64) @ w.astype(np.int64)
-    got = np.zeros((BM, BN), np.int64)
-    for warp in range(8):
-        wm, wn = warp // (BN // WN), warp % (BN // WN)
-        acc = np.zeros((4, 4, 32, 4), np.int64)       # [mt][nt][lane][e]
-        for kk in (0, 32):
-            a = np.zeros((4, 32, 4), np.int64)        # words [mt][lane][i]
-            for mt in range(4):
-                addr = [(wm * WM + mt * 16 + (ln & 15)) * A_LD + kk
-                        + (ln >> 4) * 16 for ln in range(32)]
-                for i in range(4):                    # matrix i, 8 lanes
-                    banks = {(addr[8 * i + j] // 4 + q) % 32
-                             for j in range(8) for q in range(4)}
-                    assert len(banks) == 32
-                for ln in range(32):
-                    g, t = ln >> 2, ln & 3
-                    for i in range(4):
-                        a[mt, ln, i] = _word(sa, addr[8 * i + g] + 4 * t)
-            b = np.zeros((4, 32, 2), np.int64)        # words [nt][lane][h]
+def _tma_box(rows):
+    """A [r, 128] int8 box as TMA writes it with the 128-byte swizzle."""
+    mem = np.zeros(rows.size, np.uint8)
+    flat = rows.view(np.uint8).reshape(-1)
+    mem[[_sw128(a) for a in range(rows.size)]] = flat
+    return mem
+
+
+@pytest.mark.parametrize("wg", [0, 1])
+def test_w8a8_mm_fragments_lane_model(wg):
+    """One stage of one consumer warpgroup (weight columns 128 wg.. of the
+    256-column tile), lane by lane: TMA's swizzled boxes of xq ([128
+    tokens][128 k]) and of the weights ([128 k][128 columns]); each
+    thread's 4 x 4 byte loads at the kernel's turned row offsets and the
+    __byte_perm transpose with its runtime selectors; wgmma m64n128k32's s8
+    A-register fragments and its B operand read through the SW128 K-major
+    descriptor (rows of 128 bytes, SBO 1024, start + 32 bytes a k32 step);
+    the accumulator layout and the epilogue's map from (m-tile, register)
+    to output column give x @ w for the whole 128 x 128 block; and every
+    load instruction of a warp touches 32 distinct banks."""
+    rng = np.random.default_rng(wg)
+    x = rng.integers(-127, 128, (BT, BK)).astype(np.int8)     # tokens x k
+    w = rng.integers(-127, 128, (BK, 2 * BW)).astype(np.int8)  # k x columns
+    xs = _tma_box(x)
+    ws = _tma_box(np.ascontiguousarray(w[:, BW * wg:BW * (wg + 1)]))
+    want = x.astype(np.int64) @ w[:, BW * wg:BW * (wg + 1)].astype(np.int64)
+    got = np.zeros((BT, BW), np.int64)
+    for wi in range(4):                                 # warps of the group
+        acc = np.zeros((2, 32, 64), np.int64)           # [mt][lane][reg]
+        off = np.zeros((32, 4), np.int64)
+        for ln in range(32):
+            g, t = ln >> 2, ln & 3
+            for j in range(4):
+                row = 4 * t + ((j + 2 * (t >> 1)) & 3)
+                off[ln, j] = (row * 128
+                              + (((2 * wi + (g >> 2)) ^ (row & 7)) << 4)
+                              + 4 * (g & 3))
+        for ks in range(BK // 32):
+            a = np.zeros((2, 32, 4), np.int64)          # [mt][lane][reg]
             for h in range(2):
-                for i in range(4):
-                    banks = set()
-                    for ln in range(32):
-                        g, t = ln >> 2, ln & 3
-                        chunk, word = (wn * WN + 4 * g) // 16, 4 * (g & 3)
-                        row = kk + 16 * h + 4 * t + i
-                        banks.add((row * BN + _swz(row, chunk) * 16
-                                   + word) // 4 % 32)
+                rows = (32 * ks + 16 * h) * 128
+                for j in range(4):                      # one ld.shared each
+                    banks = {(rows + off[ln, j]) // 4 % 32 for ln in range(32)}
                     assert len(banks) == 32
                 for ln in range(32):
-                    g, t = ln >> 2, ln & 3
-                    chunk, word = (wn * WN + 4 * g) // 16, 4 * (g & 3)
-                    rows = [kk + 16 * h + 4 * t + i for i in range(4)]
-                    c = _transpose4x4([_word(sw, r * BN + _swz(r, chunk) * 16
-                                             + word) for r in rows])
-                    for nt in range(4):
-                        b[nt, ln, h] = c[nt]
-            for mt in range(4):                       # m16n8k32, by PTX
+                    t = ln & 3
+                    r = [_word(ws, rows + off[ln, j]) for j in range(4)]
+                    lo, hi = (0x1054, 0x3276) if t & 2 else (0x5410, 0x7632)
+                    t0 = _byte_perm(r[0], r[1], 0x5140)
+                    t1 = _byte_perm(r[0], r[1], 0x7362)
+                    t2 = _byte_perm(r[2], r[3], 0x5140)
+                    t3 = _byte_perm(r[2], r[3], 0x7362)
+                    c = [_byte_perm(t0, t2, lo), _byte_perm(t0, t2, hi),
+                         _byte_perm(t1, t3, lo), _byte_perm(t1, t3, hi)]
+                    a[0, ln, 2 * h:2 * h + 2] = c[0:2]
+                    a[1, ln, 2 * h:2 * h + 2] = c[2:4]
+            # B [32 k, 128 tokens] through the descriptor
+            B = np.zeros((32, BT), np.int64)
+            for n in range(BT):
+                for k in range(32):
+                    addr = 32 * ks + (n // 8) * 1024 + (n % 8) * 128 + k
+                    B[k, n] = np.int8(xs[_sw128(addr)].view(np.int8))
+            for mt in range(2):                         # this warp's 16 rows
                 A = np.zeros((16, 32), np.int64)
                 for ln in range(32):
                     g, t = ln >> 2, ln & 3
@@ -412,25 +412,21 @@ def test_w8a8_mm_fragments_lane_model():
                                                   (8, 16)]):
                         A[g + r0, c0 + 4 * t:c0 + 4 * t + 4] = \
                             _bytes(a[mt, ln, i])
-                for nt in range(4):
-                    Bm = np.zeros((32, 8), np.int64)
-                    for ln in range(32):
-                        g, t = ln >> 2, ln & 3
-                        for h in range(2):
-                            Bm[16 * h + 4 * t:16 * h + 4 * t + 4, g] = \
-                                _bytes(b[nt, ln, h])
-                    D = A @ Bm
-                    for ln in range(32):
-                        g, t = ln >> 2, ln & 3
-                        acc[mt, nt, ln] += [D[g, 2 * t], D[g, 2 * t + 1],
-                                            D[g + 8, 2 * t],
-                                            D[g + 8, 2 * t + 1]]
-        for mt in range(4):                           # the epilogue's map
-            for ln in range(32):
-                g, t = ln >> 2, ln & 3
-                for h in range(2):
-                    row = wm * WM + mt * 16 + g + 8 * h
-                    for j in range(8):
-                        got[row, wn * WN + 8 * t + j] = \
-                            acc[mt, j & 3, ln, 2 * h + (j >> 2)]
+                D = A @ B
+                for ln in range(32):
+                    g, t = ln >> 2, ln & 3
+                    for j in range(BT // 8):
+                        for e in range(4):
+                            acc[mt, ln, 4 * j + e] += D[g + 8 * (e >> 1),
+                                                        8 * j + 2 * t + (e & 1)]
+        for ln in range(32):                            # the epilogue's map
+            g, t = ln >> 2, ln & 3
+            n = 32 * wi + 4 * g
+            for j in range(BT // 8):
+                for e in range(2):
+                    tok = 8 * j + 2 * t + e
+                    got[tok, n:n + 4] = [acc[0, ln, 4 * j + e],
+                                         acc[0, ln, 4 * j + 2 + e],
+                                         acc[1, ln, 4 * j + e],
+                                         acc[1, ln, 4 * j + 2 + e]]
     np.testing.assert_array_equal(got, want)

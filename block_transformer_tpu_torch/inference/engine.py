@@ -149,7 +149,13 @@ class ContinuousBatchingEngine:
         self.admit_chunk = max(1, admit_chunk)
         n = cfg.n_embedding_tokens
         ph = cfg.embedder.projection_hidden_size
-        dtype = params["embedder"]["embeddings"]["weight"].dtype
+        # the activation dtype: a never-quantized embedder table's (the
+        # lookup table or an encoder embedder's word embeddings)
+        e = params["embedder"]
+        table = (e.get("embeddings")
+                 or e.get("roberta", {}).get("word_embeddings")
+                 or e.get("t5", {}).get("embed"))
+        dtype = table["weight"].dtype
         cap = max_blocks * n
         self.cap = cap = _round_up(cap, 128) if cap >= 128 else cap
         self.kv_kind = kv_cache

@@ -1,14 +1,18 @@
 """Two-level autoregressive generation (port of
-``block_transformer_tpu/inference/generate.py``, main path).
+``block_transformer_tpu/inference/generate.py``).
 
 - The prompt's block embeddings go through the block decoder and fill the
   global KV cache (bf16, INT8 or INT4: ``kv_cache``): in one fresh pass by
   default, or streamed in chunks through the cache (``fresh_prefill=False``,
-  the JAX package's ``BT_FRESH_PREFILL=0``).
+  the JAX package's ``BT_FRESH_PREFILL=0``, and always for the GPT-Neo
+  block decoder, which takes the bf16 cache only, as in the JAX package).
 - The outer loop runs once per block: the token decoder decodes up to
-  ``block_length`` tokens against a small local cache made fresh for each
-  block, the new block is embedded, and the block decoder appends it to
-  the global cache.
+  ``block_length`` tokens, the new block is embedded, and the block decoder
+  appends it to the global cache. The GPT-NeoX prefix decoder decodes
+  against a small local cache made fresh for each block; every other token
+  decoder (summation, T5 cross-attention, GPT-Neo) re-runs its teacher-
+  forced forward over the block once per token
+  (``decode_block_tokens_rerun``).
 
 The JAX package compiles both loops into one program; here they are host
 loops, and the outer loop reads one flag back from the device per block to
@@ -30,7 +34,9 @@ import numpy as np
 import torch
 
 from block_transformer_tpu_torch.config import BlockTransformerConfig
+from block_transformer_tpu_torch.models import block_decoder as bd
 from block_transformer_tpu_torch.models import embedder as emb
+from block_transformer_tpu_torch.models import gpt_neo as gn
 from block_transformer_tpu_torch.models import neox
 from block_transformer_tpu_torch.models import token_decoder as td
 from block_transformer_tpu_torch.ops import linear as linear_ops
@@ -73,14 +79,54 @@ def _sample(logits: torch.Tensor, greedy: bool, temperature: float,
 
 
 @torch.no_grad()
+def decode_block_tokens_rerun(params, cfg: BlockTransformerConfig,
+                              block_embeddings, *, greedy: bool = True,
+                              temperature: float = 1.0,
+                              generator: Optional[torch.Generator] = None,
+                              top_k: int = 0, top_p: float = 1.0):
+    """The inner loop of every token decoder: step i re-runs the teacher-
+    forced forward over the fixed ``[B, L+1]`` input, BOS then the tokens
+    so far, later slots fed pad, and samples position i. Causal masking
+    makes position i's logits depend only on the tokens before it, so this
+    equals cached stepping at about L times its compute; the GPT-NeoX
+    prefix decoder takes the cached loop of ``decode_block_tokens``."""
+    tcfg = cfg.token_decoder
+    L = cfg.block_length
+    B = block_embeddings.shape[0]
+    eos, pad = cfg.eos_token_id, cfg.pad_token_id
+    dev = block_embeddings.device
+    ids = torch.full((B, L + 1), pad, dtype=torch.int32, device=dev)
+    ids[:, 0] = cfg.bos_token_id
+    att = torch.ones((B, L + 1), dtype=torch.int32, device=dev)
+    tokens = torch.zeros((B, L), dtype=torch.int32, device=dev)
+    alive = torch.ones(B, dtype=torch.bool, device=dev)
+    for i in range(L):
+        logits = td.token_decoder_train_forward(
+            params["token_decoder"], tcfg, ids, att, block_embeddings,
+            cfg.expansion_ratio, L)                         # [B, L, V]
+        nxt = _sample(logits[:, i], greedy, temperature, generator, top_k,
+                      top_p)
+        tokens[:, i] = torch.where(alive & (nxt != eos), nxt, pad)
+        ids[:, i + 1] = tokens[:, i]
+        alive = alive & (nxt != eos)
+    return tokens, alive
+
+
+@torch.no_grad()
 def decode_block_tokens(params, cfg: BlockTransformerConfig, block_embeddings,
                         *, greedy: bool = True, temperature: float = 1.0,
                         generator: Optional[torch.Generator] = None,
                         top_k: int = 0, top_p: float = 1.0):
     """Inner loop: block_embeddings [B, n_emb, projection_hidden] -> (tokens
-    [B, L] with pad after EOS, alive [B] bool). The local KV cache is made
-    here and dropped on return."""
+    [B, L] with pad after EOS, alive [B] bool). The GPT-NeoX prefix decoder
+    decodes against a local KV cache made here and dropped on return; every
+    other token decoder goes to ``decode_block_tokens_rerun``."""
     tcfg = cfg.token_decoder
+    if tcfg.cls != "gpt-neo-x" or tcfg.decoding_strategy != "prefix":
+        return decode_block_tokens_rerun(
+            params, cfg, block_embeddings, greedy=greedy,
+            temperature=temperature, generator=generator, top_k=top_k,
+            top_p=top_p)
     L = cfg.block_length
     B = block_embeddings.shape[0]
     eos, pad = cfg.eos_token_id, cfg.pad_token_id
@@ -118,6 +164,16 @@ def _block_decoder_step(params, cfg: BlockTransformerConfig, inputs_embeds,
                                    cfg.n_embedding_tokens)
     positions = start + torch.arange(S, dtype=torch.int32,
                                      device=inputs_embeds.device)
+    if cfg.block_decoder_cls == "gpt-neo":
+        bp = params["block_decoder"]
+        wpe = bp["wpe"]["weight"]
+        # JAX's gather clamps a position past the table to its last row
+        x = inputs_embeds + wpe[positions.clamp(max=wpe.shape[0] - 1)][
+            None].to(inputs_embeds.dtype)
+        hidden, cache = gn.gpt_neo_stack_cached(
+            bp, bd._gpt_neo_cfg(cfg.block_decoder, cfg.block_decoder_window),
+            x, mask, positions, cache)
+        return hidden, cache, kv_valid
     hidden, cache = neox.neox_stack(params["block_decoder"], inputs_embeds,
                                     cfg=cfg.block_decoder, mask=mask,
                                     positions=positions, cache=cache)
@@ -140,7 +196,8 @@ def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
     chunks of ``prefill_chunk_blocks`` blocks, each attending to the cache
     (dequantized for INT8 / INT4); a longer prompt is padded to a whole
     number of chunks (the padded tail is invalid, and the cache's length is
-    rewound to the prompt's, so decode overwrites it)."""
+    rewound to the prompt's, so decode overwrites it). The GPT-Neo block
+    decoder always streams."""
     B, N, L = input_ids.shape
     n = cfg.n_embedding_tokens
     ph = cfg.embedder.projection_hidden_size
@@ -155,7 +212,7 @@ def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
     prompt_valid = block_attention_mask.to(torch.int32).repeat_interleave(
         n, dim=1)
     S = N * n
-    if fresh_prefill:
+    if fresh_prefill and cfg.block_decoder_cls != "gpt-neo":
         mask = masks.block_decode_mask(0, S, S, prompt_valid, n)
         positions = torch.arange(S, dtype=torch.int32, device=device)
         hidden, cache = neox.neox_prefill_fresh(
@@ -204,9 +261,12 @@ def generate_blocks(params, cfg: BlockTransformerConfig, input_ids,
     block_attention_mask [B, N] (tensors or arrays, moved to ``device``);
     generates until ``max_blocks`` blocks in all or every row finished.
     ``kv_cache`` is declared as the KV mode of the W8A8 decisions
-    (``ops.linear.kv_mode``), as in the JAX package."""
-    if cfg.block_decoder_cls != "gpt-neo-x":
-        raise NotImplementedError(f"block decoder {cfg.block_decoder_cls!r}")
+    (``ops.linear.kv_mode``), as in the JAX package. The GPT-Neo block
+    decoder takes the bf16 cache only."""
+    if cfg.block_decoder_cls == "gpt-neo" and kv_cache != "bf16":
+        raise NotImplementedError(
+            "a quantized global KV cache with the gpt-neo block decoder is "
+            "not wired (as in the JAX package): use kv_cache='bf16'")
     with linear_ops.kv_mode(kv_cache):
         input_ids = torch.as_tensor(input_ids, device=device).to(torch.int32)
         attention_mask = torch.as_tensor(attention_mask, device=device)

@@ -4,12 +4,15 @@ token-decode (port of ``block_transformer_tpu/models/block_transformer.py``).
 The block decoder's output at block i conditions the token decoding of
 block i+1; the token decoder reads ``[BOS, x1..xL]`` and predicts
 ``[x1..xL]``. The loss is the token cross-entropy, masked over padding
-tokens, ignored labels (-100) and padding blocks. The auxiliary block-
-decoding and auto-encoding losses are not ported yet.
+tokens, ignored labels (-100) and padding blocks. Two auxiliary losses
+can be added: the block-decoding loss (``block_decoder.block_decoding_loss``
+on the block decoder's hidden states) and the auto-encoding loss (the token
+decoder conditioned on each block's own embedding), each weighted.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -23,19 +26,23 @@ from block_transformer_tpu_torch.models import token_decoder as td
 def init_block_transformer_params(gen, cfg: BlockTransformerConfig,
                                   dtype=torch.float32, device="cuda"):
     """Random parameters drawn from ``gen``: a ``torch.Generator`` on
-    ``device``, or an int seed for a new one."""
+    ``device``, or an int seed for a new one. The expansion layer is sized
+    by ``cfg.expansion_ratio``, which reads a ratio of None as the block
+    length, as every forward does (the JAX package's init multiplies by
+    the None and raises, so it cannot build the shipped summation and
+    cross-attention configs)."""
     if isinstance(gen, int):
         gen = torch.Generator(device=device).manual_seed(gen)
-    if cfg.block_decoder_cls != "gpt-neo-x":
-        raise NotImplementedError(f"block decoder {cfg.block_decoder_cls!r}")
+    tcfg = dataclasses.replace(cfg.token_decoder,
+                               expansion_ratio=cfg.expansion_ratio)
     return {
         "embedder": emb.init_embedder_params(gen, cfg.embedder,
                                              cfg.block_length, dtype, device),
         "block_decoder": bd.init_block_decoder_params(
-            gen, cfg.block_decoder, dtype, device),
+            gen, cfg.block_decoder, dtype, device, cls=cfg.block_decoder_cls,
+            window=cfg.block_decoder_window),
         "token_decoder": td.init_token_decoder_params(
-            gen, cfg.token_decoder, cfg.embedder.projection_hidden_size,
-            dtype, device),
+            gen, tcfg, cfg.embedder.projection_hidden_size, dtype, device),
     }
 
 
@@ -43,6 +50,8 @@ class BlockTransformerOutput(NamedTuple):
     logits: Optional[torch.Tensor]          # [B, N-1, L, V] float32
     loss: Optional[torch.Tensor]
     token_decoding_loss: Optional[torch.Tensor]
+    block_decoding_loss: Optional[torch.Tensor]
+    auto_encoding_loss: Optional[torch.Tensor]
     loss_by_position: Optional[torch.Tensor]   # [L] mean CE by position
 
 
@@ -63,12 +72,10 @@ def block_transformer_forward(params, cfg: BlockTransformerConfig, input_ids,
                               remat: bool = False) -> BlockTransformerOutput:
     """input_ids / attention_mask [B, N, L]; block_attention_mask [B, N];
     labels [B, N, L] with -100 on ignored positions, or None. Returns the
-    logits [B, N-1, L, V] when ``compute_logits`` (default: no labels) and
-    the token loss when labels are given. ``remat`` checkpoints each layer
-    of both stacks (the training forward: ``train.train_step``)."""
-    if labels is not None and (cfg.use_block_decoding_loss
-                               or cfg.use_auto_encoding_loss):
-        raise NotImplementedError("auxiliary losses are not ported")
+    logits [B, N-1, L, V] when ``compute_logits`` (default: no labels) and,
+    when labels are given, the losses the config enables and their sum as
+    ``loss``. ``remat`` checkpoints each layer of the GPT-NeoX stacks (the
+    training forward: ``train.train_step``)."""
     B, N, L = input_ids.shape
     n_emb = cfg.n_embedding_tokens
     ph = cfg.embedder.projection_hidden_size
@@ -82,7 +89,13 @@ def block_transformer_forward(params, cfg: BlockTransformerConfig, input_ids,
     hidden = bd.block_decoder_forward(params["block_decoder"],
                                       cfg.block_decoder, inputs_embeds,
                                       block_attention_mask, n_emb,
-                                      remat=remat)
+                                      remat=remat, cls=cfg.block_decoder_cls,
+                                      window=cfg.block_decoder_window)
+    block_loss = None
+    if cfg.use_block_decoding_loss and labels is not None:
+        block_loss = cfg.block_decoding_loss_weight * bd.block_decoding_loss(
+            hidden, inputs_embeds, block_attention_mask, n_emb,
+            cfg.block_decoding_loss_type)
 
     # block i's output conditions block i+1's tokens
     Bb = B * (N - 1)
@@ -95,18 +108,32 @@ def block_transformer_forward(params, cfg: BlockTransformerConfig, input_ids,
                      device=ids_s.device)
     td_ids = torch.cat([bos, ids_s], dim=1)                    # [Bb, L+1]
     td_att = torch.cat([torch.ones_like(att_s[:, :1]), att_s], dim=1)
-    logits = td.token_decoder_train_forward(
-        params["token_decoder"], cfg.token_decoder, td_ids, td_att,
-        block_embeddings, cfg.expansion_ratio, cfg.block_length,
-        remat=remat)
 
-    token_loss = loss_by_pos = None
-    if labels is not None and cfg.use_token_decoding_loss:
+    def token_logits(embeddings):
+        return td.token_decoder_train_forward(
+            params["token_decoder"], cfg.token_decoder, td_ids, td_att,
+            embeddings, cfg.expansion_ratio, cfg.block_length, remat=remat)
+
+    logits = token_logits(block_embeddings)
+    token_loss = loss_by_pos = auto_loss = total = None
+    if labels is not None:
         labels_s = labels[:, 1:, :].reshape(Bb, L)
+        # content positions: attended, a label, in a block that is not pad
         weight = (att_s.float() * (labels_s != -100).float()
                   * blk_s.float()[:, None])
-        token_loss, loss_by_pos = _token_ce(logits.float(), labels_s, weight)
+        if cfg.use_token_decoding_loss:
+            token_loss, loss_by_pos = _token_ce(logits.float(), labels_s,
+                                                weight)
+            total = token_loss
+        if cfg.use_auto_encoding_loss:
+            # the token decoder conditioned on the block's own embedding
+            own = block_embeds[:, 1:, :, :].reshape(Bb, n_emb, ph)
+            ae, _ = _token_ce(token_logits(own).float(), labels_s, weight)
+            auto_loss = cfg.auto_encoding_loss_weight * ae
+            total = auto_loss if total is None else total + auto_loss
+    if block_loss is not None:
+        total = block_loss if total is None else total + block_loss
 
     out_logits = logits.reshape(B, N - 1, L, -1) if compute_logits else None
-    return BlockTransformerOutput(out_logits, token_loss, token_loss,
-                                  loss_by_pos)
+    return BlockTransformerOutput(out_logits, total, token_loss, block_loss,
+                                  auto_loss, loss_by_pos)

@@ -2,7 +2,7 @@
 ``block_transformer_tpu/train/train_step.py``: ``TrainState``,
 ``make_loss_fn``, ``make_train_step``, ``create_train_state``).
 
-One call computes the token loss and its metrics, the gradients of every
+One call computes the loss and its metrics, the gradients of every
 parameter by autograd, the optimizer's update and the gradients' global
 norm. The forward is the model's own (``block_transformer_forward`` with
 labels); under autograd its attention stays on the plain path
@@ -38,11 +38,12 @@ class TrainState(NamedTuple):
 
 def make_loss_fn(cfg: BlockTransformerConfig, remat: bool = True,
                  param_transform=None):
-    """loss_fn(params, batch) -> (loss, metrics): the token loss and the
+    """loss_fn(params, batch) -> (loss, metrics): the model's loss and the
     metrics the reference logs (``loss``, ``token_decoding_loss``,
-    ``loss_by_position``). ``batch`` holds ``input_ids``, ``attention_mask``,
-    ``labels`` [B, N, L] and ``block_attention_mask`` [B, N]
-    (``data.packing.make_train_batch``)."""
+    ``loss_by_position``, and ``block_decoding_loss`` /
+    ``auto_encoding_loss`` where the config enables them). ``batch`` holds
+    ``input_ids``, ``attention_mask``, ``labels`` [B, N, L] and
+    ``block_attention_mask`` [B, N] (``data.packing.make_train_batch``)."""
     def loss_fn(params, batch):
         if param_transform is not None:
             params = param_transform(params)
@@ -53,6 +54,9 @@ def make_loss_fn(cfg: BlockTransformerConfig, remat: bool = True,
         metrics = {"loss": out.loss,
                    "token_decoding_loss": out.token_decoding_loss,
                    "loss_by_position": out.loss_by_position}
+        for name in ("block_decoding_loss", "auto_encoding_loss"):
+            if getattr(out, name) is not None:
+                metrics[name] = getattr(out, name)
         return out.loss, metrics
 
     return loss_fn

@@ -36,6 +36,12 @@ one process it:
    K5-K8 at the serving engine's shapes (16 slots, 12 layers, 16 heads of
    128, capacity 640 contiguous, 3 pages of 256 paged), K6 and K8 also on
    the packed INT4 pool, each K6 row naming its split of the virtual slots;
+   then the ablation families' new shapes (hidden 768, heads of 64):
+   W8A8-q/-mm at ``block_uniform_b4_85``'s prefill qkv (M = 2344, bit for
+   bit), K3 at its last, partial query tile (Q = 37 of K = 293), K2 bf16
+   at its local cache (capacity 9, warp route), K2 INT8 at
+   ``block_megabyte_b4_85``'s decode step (capacity 640) and K1 at its
+   token decoder's qkv (M = 32, K = 512, N = 1536);
    then an empty kernel's launch, timed the same way, printed on its own
    line as ``launch_floor_ms`` beside the card's name and power limit;
 4. checks the port on the card against the same port on the CPU (plain
@@ -50,6 +56,11 @@ one process it:
    and QAT ``mixed48`` (loss, grad_norm and every parameter leaf within
    1e-5 relative of the CPU's), and GPTQ INT4 trees (at least 99.9% of Q
    equal to the CPU's, the rest one step apart, the differences counted);
+   then every ablation family at a small size (INT8 weights): forward
+   logits within TOL, and greedy tokens equal with the INT8 global cache
+   (the RoBERTa, RoBERTa-CLS and T5 embedders, the projection layer, the
+   summation and T5 cross-attention token decoders) or, for the GPT-Neo
+   block decoder, the unquantized cache through the streaming prefill;
 5. generates with ``block_main_b4_1.2b`` at full width (random weights from
    a seed, bf16), greedy, B=8, p2048/d128: INT8 weights with the INT8,
    bf16 and INT4 global caches, then INT4 weights (no K1 launch) and
@@ -75,7 +86,18 @@ one process it:
 7. generates greedily with the ``vanilla_410`` baseline (INT8 weights, INT8
    KV cache) at the same B, prompt and new tokens, the same way, and prints
    the block/vanilla throughput ratio as a smoke figure;
-8. trains ``block_main_b4_1.2b`` at full width (random float32 weights from
+8. generates with the four shipped ablation configs at full width
+   (``FAMILY_SHAPES``: ``block_megabyte_b4_85``,
+   ``block_ablation_b4_85_cls_cross_attn``, ``block_uniform_b4_85``,
+   ``block_ablation_b4_85_roberta_prefix``; random bf16 weights from a
+   seed, INT8 weights and global cache, greedy, B=8, 2048 prompt tokens
+   rounded up to whole blocks, 128 new ones): one warm-up run, a timed run
+   between launch-count resets (K1, K2, K3 and W8A8 on their main routes
+   in every one; K2's bf16 form by the warp route on the local cache of
+   the two prefix decoders and not on the two re-run ones), then the
+   prefill alone and a run with the inner loop timed, each logged with
+   run s, tok/s and prefill s and as one JSON line;
+9. trains ``block_main_b4_1.2b`` at full width (random float32 weights from
    a seed, two sequences of 2048 tokens, remat, TF32 off): 3 steps, then 3
    QAT ``mixed48`` steps from a fresh optimizer, each logged with its ms,
    tokens per second, peak memory and loss, asserting finite losses and
@@ -88,7 +110,7 @@ one process it:
    GPTQ and RTN for the first and last layers' four linears, and generates
    from the GPTQ tree (K4 only, no K1).
 
-Every timed full-width run of steps 5-8 asserts that W8A8-q and W8A8-mm
+Every timed full-width run of steps 5-9 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
 other one (the baseline: its 96 prefill linears at M = 16384 by W8A8),
 that K1, K3 and K4 launched by the tensor-core route only and W8A8-mm by
@@ -96,7 +118,7 @@ its wgmma route only, and every one with a token decoder that K2's bf16
 form took the warp route there (its split route runs only on the bf16
 global cache). The last three lines are
 the ``nvidia-smi`` line, a JSON object listing each kernel's launches (from
-the run of step 5, 6 or 7 named by the row's ``path``; a K6 or K8 row
+the run of step 5, 6, 7 or 8 named by the row's ``path``; a K6 or K8 row
 counts the launches on its pool width, and a K2 bf16 row gives those of its
 own route as ``route_launches``), error and times, and
 ``{"ok": true, "device": {...}}``.
@@ -162,6 +184,51 @@ PAGED_PY = "block_transformer_tpu/ops/paged_attention.py"
 W8A8_CU = "block_transformer_tpu_torch/csrc/w8a8.cu"
 # not a TPU kernel: XLA ops in the JAX package (_w8a8_dot)
 W8A8_JAX = "block_transformer_tpu/ops/linear.py:219"
+# the shipped ablation YAMLs the families phase runs: (block length,
+# embedder fields, block decoder (hidden, layers), token decoder (hidden,
+# layers, decoding strategy, expansion ratio, class)); heads of 64, d_ff 4x,
+# vocab 50304 (tests/test_torch_families.py holds each to configs/<name>.yaml)
+FAMILY_SHAPES = {
+    "block_megabyte_b4_85": (
+        4, dict(hidden_size=192), (768, 11),
+        (512, 4, "summation", None, "gpt-neo-x")),
+    "block_ablation_b4_85_cls_cross_attn": (
+        4, dict(cls="roberta_cls", hidden_size=256, encoder_layers=3,
+                n_cls_tokens=3), (768, 6),
+        (768, 6, "cross_attention", None, "t5")),
+    "block_uniform_b4_85": (
+        7, dict(hidden_size=256, projection_method="projection_layer"),
+        (768, 6), (768, 6, "prefix", 2, "gpt-neo-x")),
+    "block_ablation_b4_85_roberta_prefix": (
+        4, dict(cls="roberta", hidden_size=192, encoder_layers=3), (768, 6),
+        (768, 6, "prefix", 2, "gpt-neo-x")),
+}
+
+
+def family_config(name: str) -> config.BlockTransformerConfig:
+    """``configs/<name>.yaml`` of an ablation family as the port's
+    dataclasses, from FAMILY_SHAPES (the card has no PyYAML)."""
+    block_length, emb_fields, (bh, bl), (th, tl, strategy, ratio, cls) = (
+        FAMILY_SHAPES[name])
+
+    def neox(h, layers, **kw):
+        return NeoXConfig(vocab_size=50304, hidden_size=h, num_layers=layers,
+                          num_heads=h // 64, intermediate_size=4 * h,
+                          max_position_embeddings=2048, **kw)
+
+    return config.BlockTransformerConfig(
+        block_length=block_length,
+        embedder=config.EmbedderConfig(vocab_size=50304,
+                                       projection_hidden_size=bh,
+                                       **emb_fields),
+        block_decoder=neox(bh, bl, attn_impl="pallas"),
+        token_decoder=config.TokenDecoderConfig(
+            neox=neox(th, tl), decoding_strategy=strategy,
+            expansion_method="expansion_layer", expansion_ratio=ratio,
+            cls=cls),
+        name=name)
+
+
 # (wrapper, tag, source, TPU kernel replaced, the run whose launches count,
 # the pool width whose launches a K6/K8 row counts, else None: all)
 KERNELS = [
@@ -222,6 +289,25 @@ PATH_ABSENT = {
     "engine paged-int4": ("K2", "K5", "K6", "K7", "K8"),
     "vanilla": ("K2 bf16",),
 }
+
+
+def family_path(name: str) -> str:
+    return f"family {name}"
+
+
+def _prefix(name: str) -> bool:
+    return FAMILY_SHAPES[name][3][2] == "prefix"
+
+
+# the ablation families (INT8 weights and global cache): K2's bf16 form
+# serves the local cache of the prefix decoders; the re-run decoders keep no
+# cache; no INT4 weights
+PATH_KERNELS.update({
+    family_path(n): ("K1", "K2", "K3", *W8A8)
+    + (("K2 bf16",) if _prefix(n) else ()) for n in FAMILY_SHAPES})
+PATH_ABSENT.update({
+    family_path(n): ("K4",) + (() if _prefix(n) else ("K2 bf16",))
+    for n in FAMILY_SHAPES})
 # K1, K3, K4 and W8A8-mm count their launches by route as well; a
 # full-width path takes the route named here only: the tensor cores ("tc")
 # for K1, K3 and K4, wgmma fed by TMA for W8A8-mm
@@ -349,38 +435,45 @@ def matmul_plan(M, K, N):
     return k1.plan(M, K, N, torch.bfloat16, build.sm_count(0))
 
 
-def phase_k1(rows, cfg):
-    """K1 at the main path's shapes, cycling through a 12-layer stack so the
-    weights come from device memory, as in the layer loop, not from L2."""
+def k1_row(rows, g, label, M, K, N, layers, path=None):
+    """K1 at x [M, K] @ an INT8 [layers, K, N] stack against its plain
+    version and ``torch.matmul`` on the dequantized layer, cycling through
+    the layers so the weights come from device memory, as in the layer
+    loop, not from L2."""
     dev, bf16 = "cuda", torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(1)
+    w_q, scale = quant.quantize_int8(torch.randn((layers, K, N), generator=g,
+                                                 device=dev, dtype=bf16)
+                                     * 0.02)
+    x = torch.randn((M, K), generator=g, device=dev, dtype=bf16)
+    w_deq = [quant.dequantize_int8(w_q[i], scale[i], bf16)
+             for i in range(layers)]
+    got = k1.int8_matmul_stacked(x, w_q, scale, layers - 1)
+    want = k1.int8_matmul_stacked_plain(x, w_q, scale, layers - 1)
+    err = compare(f"K1 {label}", got, want)
+    it = iter(range(10 ** 9))
+    nxt = lambda: next(it) % layers          # noqa: E731
+    iters = 10 if M > 64 else 60
+    ms, host_us = time_ms_host(
+        lambda: k1.int8_matmul_stacked(x, w_q, scale, nxt()), iters)
+    plain_ms = time_ms(lambda: k1.int8_matmul_stacked_plain(
+        x, w_q, scale, nxt()), iters)
+    lib_ms = time_ms(lambda: torch.matmul(x, w_deq[nxt()]), iters)
+    nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+    record(rows, "K1", label, err, ms, plain_ms, lib_ms,
+           nbytes, 2 * M * K * N, matmul_plan(M, K, N), host_us, path=path)
+
+
+def phase_k1(rows, cfg):
+    """K1 at the main path's shapes, each over a 12-layer stack (the head
+    over one layer)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
     h, m, L = cfg.block_decoder.hidden_size, cfg.block_decoder.intermediate_size, 12
     V = cfg.vocab_size
     shapes = [("qkv M=8", 8, h, 3 * h, L), ("mlp_down M=8", 8, m, h, L),
               ("lm_head M=8", 8, h, V, 1), ("qkv M=32", 32, h, 3 * h, L),
               ("qkv M=4096", 4096, h, 3 * h, L)]
     for label, M, K, N, layers in shapes:
-        w = quant.quantize_int8(torch.randn((layers, K, N), generator=g,
-                                            device=dev, dtype=bf16) * 0.02)
-        w_q, scale = w
-        x = torch.randn((M, K), generator=g, device=dev, dtype=bf16)
-        w_deq = [quant.dequantize_int8(w_q[i], scale[i], bf16)
-                 for i in range(layers)]
-        got = k1.int8_matmul_stacked(x, w_q, scale, layers - 1)
-        want = k1.int8_matmul_stacked_plain(x, w_q, scale, layers - 1)
-        err = compare(f"K1 {label}", got, want)
-        it = iter(range(10 ** 9))
-        nxt = lambda: next(it) % layers          # noqa: E731
-        iters = 10 if M > 64 else 60
-        ms, host_us = time_ms_host(
-            lambda: k1.int8_matmul_stacked(x, w_q, scale, nxt()), iters)
-        plain_ms = time_ms(lambda: k1.int8_matmul_stacked_plain(
-            x, w_q, scale, nxt()), iters)
-        lib_ms = time_ms(lambda: torch.matmul(x, w_deq[nxt()]), iters)
-        nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
-        record(rows, "K1", label, err, ms, plain_ms, lib_ms,
-               nbytes, 2 * M * K * N, matmul_plan(M, K, N), host_us)
-        del w_q, scale, w_deq
+        k1_row(rows, g, label, M, K, N, layers)
 
 
 def phase_k4(rows, cfg):
@@ -453,17 +546,56 @@ def w8a8_pair(x, w_q, scale, layer):
     return w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, layer, x.dtype)
 
 
-def phase_w8a8(rows, cfg, vcfg, smi):
-    """W8A8-q and W8A8-mm at the prefill's linears: the block decoder's
-    (M = B x 512 prompt blocks = 4096: qkv, attn-out, mlp-up, mlp-down) and
-    the baseline's qkv (M = 8 x 2048 = 16384), cycling through a 12-layer
-    stack; each bit-exact against its plain version and timed beside it,
-    beside ``torch._int_mm`` (W8A8-mm's library yardstick; W8A8-q has none)
-    and beside K1 at the same shape. Then the crossover on the block
-    decoder's four shapes: the W8A8 pair against K1 at M from 256 to 4096,
-    printed as one JSON line with the card."""
+def w8a8_rows(rows, g, label, M, K, N, L, path):
+    """W8A8-q and W8A8-mm at x [M, K] @ an INT8 [L, K, N] stack: each
+    bit-exact against its plain version and timed beside it, beside
+    ``torch._int_mm`` (W8A8-mm's library yardstick; W8A8-q has none) and
+    beside K1 at the same shape, cycling through the layers. Returns (x,
+    w_q, scale, the layer cycler)."""
     dev, bf16 = "cuda", torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(13)
+    w_q, scale = quant.quantize_int8(torch.randn(
+        (L, K, N), generator=g, device=dev, dtype=bf16) * 0.02)
+    x = torch.randn((M, K), generator=g, device=dev, dtype=bf16)
+    xq, sx = w8a8.w8a8_quant(x)
+    exact_pair(f"W8A8-q {label}", (xq, sx), w8a8.w8a8_quant_plain(x))
+    got = w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, L - 1, bf16)
+    exact_pair(f"W8A8-mm {label}", (got,), (
+        w8a8.w8a8_matmul_stacked_plain(xq, sx, w_q, scale, L - 1, bf16),))
+    del got
+    it = iter(range(10 ** 9))
+    nxt = lambda: next(it) % L             # noqa: E731
+    q_ms = time_ms(lambda: w8a8.w8a8_quant(x), 20)
+    q_plain = time_ms(lambda: w8a8.w8a8_quant_plain(x), 5)
+    mm_ms, mm_host_us = time_ms_host(lambda: w8a8.w8a8_matmul_stacked(
+        xq, sx, w_q, scale, nxt(), bf16), 20)
+    mm_plain = time_ms(lambda: w8a8.w8a8_matmul_stacked_plain(
+        xq, sx, w_q, scale, nxt(), bf16), 3)
+    lib_ms, layout = int_mm_ms(xq, w_q, nxt)
+    k1_ms = time_ms(lambda: k1.int8_matmul_stacked(x, w_q, scale, nxt()), 10)
+    extra = {"k1_ms": k1_ms, "pair_ms": q_ms + mm_ms}
+    record(rows, "W8A8-q", f"{label} M={M} K={K}", 0.0, q_ms, q_plain,
+           None, M * K * 2 + M * K + M * 4, 0, path=path, extra=extra)
+    p = w8a8.plan(M, K, N, build.sm_count(0))
+    record(rows, "W8A8-mm", f"{label} M={M} K={K} N={N}", 0.0, mm_ms,
+           mm_plain, lib_ms, M * K + K * N + M * 4 + N * 4 + M * N * 2,
+           2 * M * K * N, path=path, peak=INT8_OPS, host_us=mm_host_us,
+           extra={**extra, "w8a8_plan": (
+                      f"{p.route} {'x'.join(map(str, p.tile))} splits "
+                      f"{p.splits} blocks {p.blocks}"),
+                  "int8_peak_share": 2 * M * K * N / INT8_OPS
+                  / (mm_ms * 1e-3),
+                  "int_mm_layout": layout})
+    return x, w_q, scale, nxt
+
+
+def phase_w8a8(rows, cfg, vcfg, smi):
+    """W8A8-q and W8A8-mm (``w8a8_rows``) at the prefill's linears over a
+    12-layer stack: the block decoder's (M = B x 512 prompt blocks = 4096:
+    qkv, attn-out, mlp-up, mlp-down) and the baseline's qkv (M = 8 x 2048
+    = 16384). Then the crossover on the block decoder's four shapes: the
+    W8A8 pair against K1 at M from 256 to 4096, printed as one JSON line
+    with the card."""
+    g = torch.Generator(device="cuda").manual_seed(13)
     h, m = cfg.block_decoder.hidden_size, cfg.block_decoder.intermediate_size
     vh, L = vcfg.hidden_size, 12
     Mb = BATCH * PROMPT_TOKENS // cfg.block_length * cfg.n_embedding_tokens
@@ -474,39 +606,7 @@ def phase_w8a8(rows, cfg, vcfg, smi):
               ("baseline qkv", BATCH * PROMPT_TOKENS, vh, 3 * vh, "vanilla")]
     crossover = []
     for label, M, K, N, path in shapes:
-        w_q, scale = quant.quantize_int8(torch.randn(
-            (L, K, N), generator=g, device=dev, dtype=bf16) * 0.02)
-        x = torch.randn((M, K), generator=g, device=dev, dtype=bf16)
-        xq, sx = w8a8.w8a8_quant(x)
-        exact_pair(f"W8A8-q {label}", (xq, sx), w8a8.w8a8_quant_plain(x))
-        got = w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, L - 1, bf16)
-        exact_pair(f"W8A8-mm {label}", (got,), (
-            w8a8.w8a8_matmul_stacked_plain(xq, sx, w_q, scale, L - 1, bf16),))
-        del got
-        it = iter(range(10 ** 9))
-        nxt = lambda: next(it) % L             # noqa: E731
-        q_ms = time_ms(lambda: w8a8.w8a8_quant(x), 20)
-        q_plain = time_ms(lambda: w8a8.w8a8_quant_plain(x), 5)
-        mm_ms, mm_host_us = time_ms_host(lambda: w8a8.w8a8_matmul_stacked(
-            xq, sx, w_q, scale, nxt(), bf16), 20)
-        mm_plain = time_ms(lambda: w8a8.w8a8_matmul_stacked_plain(
-            xq, sx, w_q, scale, nxt(), bf16), 3)
-        lib_ms, layout = int_mm_ms(xq, w_q, nxt)
-        k1_ms = time_ms(lambda: k1.int8_matmul_stacked(x, w_q, scale, nxt()),
-                        10)
-        extra = {"k1_ms": k1_ms, "pair_ms": q_ms + mm_ms}
-        record(rows, "W8A8-q", f"{label} M={M} K={K}", 0.0, q_ms, q_plain,
-               None, M * K * 2 + M * K + M * 4, 0, path=path, extra=extra)
-        p = w8a8.plan(M, K, N, build.sm_count(0))
-        record(rows, "W8A8-mm", f"{label} M={M} K={K} N={N}", 0.0, mm_ms,
-               mm_plain, lib_ms, M * K + K * N + M * 4 + N * 4 + M * N * 2,
-               2 * M * K * N, path=path, peak=INT8_OPS, host_us=mm_host_us,
-               extra={**extra, "w8a8_plan": (
-                          f"{p.route} {'x'.join(map(str, p.tile))} splits "
-                          f"{p.splits} blocks {p.blocks}"),
-                      "int8_peak_share": 2 * M * K * N / INT8_OPS
-                      / (mm_ms * 1e-3),
-                      "int_mm_layout": layout})
+        x, w_q, scale, nxt = w8a8_rows(rows, g, label, M, K, N, L, path)
         if path == "generation":
             for Mc in (256, 384, 512, 1024, 2048, 4096):
                 xc = x[:Mc]
@@ -516,7 +616,7 @@ def phase_w8a8(rows, cfg, vcfg, smi):
                         xc, w_q, scale, nxt()), 10),
                     "w8a8_ms": time_ms(lambda: w8a8_pair(
                         xc, w_q, scale, nxt()), 10)})
-        del w_q, scale, x, xq
+        del w_q, scale, x
     log(json.dumps({"w8a8_crossover": crossover, "card": smi}))
 
 
@@ -977,6 +1077,280 @@ def phase_k8(rows, cfg, int4=False):
     record(rows, tag, "L=12 G=16 nv=3 ps=256 H=16 D=128"
            + (" packed" if int4 else ""), err, ms, plain_ms, lib_ms, nbytes, 0)
     del src, pages
+
+
+def phase_family_kernels(rows):
+    """The kernels at the ablation families' new shapes (hidden 768, heads
+    of 64): W8A8-q and W8A8-mm (``w8a8_rows``) at block_uniform_b4_85's
+    prefill qkv over its 6 layers (M = 8 x 293 blocks = 2344, a partial
+    last tile of tokens; K = 768, N = 2304; bit for bit), K3 at its last
+    query tile (Q = 37 of 293 blocks, K = 293, B=8, H=12, D=64,
+    block-causal, rows left-padded by 4*b blocks as the prompts are), K2
+    bf16 (warp route) at its token decoder's local cache at the last token
+    step (capacity n_exp + 7 = 9), K2 INT8 at block_megabyte_b4_85's
+    decode step (B=8, H=12, S=1, D=64, its
+    11 layers of capacity 640 filled to 530, some rows finished, one with
+    no allowed key) and K1 at that model's token decoder qkv (M = B x 4 =
+    32, K = 512, N = 1536, over its 4 layers)."""
+    dev, bf16 = "cuda", torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(14)
+    name = "block_uniform_b4_85"
+    cfg = family_config(name)
+    bcfg = cfg.block_decoder
+    h, H, D = bcfg.hidden_size, bcfg.num_heads, bcfg.head_dim
+    K = -(-PROMPT_TOKENS // cfg.block_length)           # 293 prompt blocks
+    w8a8_rows(rows, g, "uniform qkv", BATCH * K, h, 3 * h, bcfg.num_layers,
+              family_path(name))
+    B, Q = BATCH, K % 128
+    qkv = [torch.randn((3, B, H, K, D), generator=g, device=dev, dtype=bf16)
+           for _ in range(4)]
+    valid = torch.ones((B, K), dtype=torch.int32, device=dev)
+    for b in range(B):
+        valid[b, :4 * b] = 0
+    full = masks.block_decode_mask(0, K, K, valid)
+    mask = masks.AttnMask(full.q_idx[K - Q:], full.kv_idx, full.kv_valid)
+    tiles = [(t[0, :, :, K - Q:].contiguous(), t[1], t[2]) for t in qkv]
+    k3_row(rows, f"uniform last tile B=8 H={H} Q={Q} K={K} D={D}", tiles,
+           mask, 50, 20, path=family_path(name))
+    del qkv, tiles
+    tcfg = cfg.token_decoder.neox
+    cap = cfg.n_expanded_emb + cfg.block_length
+    k, v = (torch.randn((tcfg.num_layers, B, H, cap, D), generator=g,
+                        device=dev, dtype=bf16) for _ in range(2))
+    q = torch.randn((B, H, 1, D), generator=g, device=dev, dtype=bf16)
+    k2_row(rows, f"uniform local cache B=8 H={H} S=1 D={D} cap={cap}",
+           (k, v), q, masks.decode_mask(cap - 2, cap, 1, device=dev), 50,
+           path=family_path(name))
+
+    name = "block_megabyte_b4_85"
+    cfg = family_config(name)
+    cap, filled = 640, 530
+    cache = int8_layers(g, cfg.block_decoder.num_layers, B, H, cap, D)
+    q = torch.randn((B, H, 1, D), generator=g, device=dev, dtype=bf16)
+    valid = torch.zeros((B, cap), dtype=torch.int32, device=dev)
+    for b in range(B):
+        valid[b, 16 * b:filled] = 1
+    valid[B - 2:, filled - 4:filled] = 0
+    valid[0] = 0
+    mask = masks.block_decode_mask(filled - 1, cap, 1, valid)
+    k2_row(rows, f"megabyte B=8 H={H} S=1 D={D} cap={cap}", cache, q, mask,
+           100, path=family_path(name))
+    del cache
+    t = cfg.token_decoder.neox
+    k1_row(rows, g, f"megabyte token decoder qkv M={B * cfg.block_length}",
+           B * cfg.block_length, t.hidden_size, 3 * t.hidden_size,
+           t.num_layers, path=family_path(name))
+
+
+# small versions of the families for the card-against-CPU check: (block
+# length, embedder fields, token decoder fields, block decoder class); all
+# at hidden 128, 2 layers, vocab 512
+SMALL_FAMILIES = {
+    "megabyte": (4, dict(hidden_size=32),
+                 dict(decoding_strategy="summation", expansion_ratio=None),
+                 "gpt-neo-x"),
+    "cls_cross_attn": (4, dict(cls="roberta_cls", hidden_size=64,
+                               n_cls_tokens=2),
+                       dict(decoding_strategy="cross_attention",
+                            expansion_ratio=None, cls="t5"), "gpt-neo-x"),
+    "uniform": (7, dict(hidden_size=32, projection_method="projection_layer"),
+                dict(expansion_ratio=2), "gpt-neo-x"),
+    "roberta_prefix": (4, dict(cls="roberta", hidden_size=32),
+                       dict(expansion_ratio=2), "gpt-neo-x"),
+    "t5_embedder": (4, dict(cls="t5", hidden_size=32),
+                    dict(expansion_ratio=2), "gpt-neo-x"),
+    "gpt_neo": (4, dict(hidden_size=32),
+                dict(expansion_ratio=2, cls="gpt-neo"), "gpt-neo"),
+}
+
+
+def small_family_config(name: str) -> config.BlockTransformerConfig:
+    block_length, emb_fields, td_fields, bd_cls = SMALL_FAMILIES[name]
+    neox_cfg = NeoXConfig.from_hidden_layers(128, 2, vocab_size=512,
+                                             max_position_embeddings=64)
+    return config.BlockTransformerConfig(
+        block_length=block_length,
+        embedder=config.EmbedderConfig(vocab_size=512,
+                                       projection_hidden_size=128,
+                                       encoder_layers=2, **emb_fields),
+        block_decoder=neox_cfg,
+        token_decoder=config.TokenDecoderConfig(neox=neox_cfg, **td_fields),
+        block_decoder_cls=bd_cls, block_decoder_window=4,
+        name=f"small {name}")
+
+
+def quiet_eos(params, cfg):
+    """Random weights for generation: a T5 token decoder's tied embedding
+    row of token 0, which is its BOS, pad and EOS at once, scaled by 0.02.
+    At random init (rows N(0, 1)) the decoder fed [BOS, pad, ...] predicts
+    its own input, so every row would end at EOS in the first block (in the
+    JAX package as well); the other families are left as they are."""
+    if cfg.token_decoder.cls == "t5":
+        params["token_decoder"]["t5"]["embed"]["weight"][
+            cfg.eos_token_id] *= 0.02
+    return params
+
+
+def phase_small_families():
+    """Every ablation family on the card (kernels) against the same port on
+    the CPU (plain versions), small configurations, float32, INT8 weights
+    (``quiet_eos``):
+    forward logits within TOL of their largest magnitude, and greedy tokens
+    of ``generate_blocks`` equal with the INT8 global cache (GPT-Neo: the
+    unquantized cache, float32 here, through the streaming prefill, the
+    only cache and prefill it takes)."""
+    rng = np.random.default_rng(8)
+    for name in SMALL_FAMILIES:
+        cfg = small_family_config(name)
+        params = quant.quantize_block_transformer(quiet_eos(
+            bt.init_block_transformer_params(8, cfg, device="cpu"), cfg),
+            bits=8)
+        card = to_card(params)
+        B, N, L = 2, 12, cfg.block_length
+        ids = rng.integers(1, cfg.vocab_size, (B, N, L)).astype(np.int32)
+        att = np.ones_like(ids)
+        ids[1, :2], att[1, :2] = 0, 0
+        ids[0, 3, 2:], att[0, 3, 2:] = 0, 0       # padded tokens in a block
+        bam = att.any(-1).astype(np.int32)
+        args = [torch.from_numpy(a) for a in (ids, att, bam)]
+        want = bt.block_transformer_forward(params, cfg, *args).logits
+        got = bt.block_transformer_forward(
+            card, cfg, *[a.to(CARD) for a in args]).logits
+        err = (got.cpu() - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not bool(torch.isfinite(got).all()) or err > TOL * scale:
+            raise AssertionError(f"small family {name}: card vs CPU logits "
+                                 f"differ by {err} (max |logit| {scale})")
+        kv = "bf16" if cfg.block_decoder_cls == "gpt-neo" else "int8"
+        res = [gen.generate_blocks(p, cfg, ids, att, bam, max_blocks=N + 4,
+                                   kv_cache=kv, device=d)
+               for p, d in ((params, "cpu"), (card, CARD))]
+        if res[0].n_blocks != res[1].n_blocks or not torch.equal(
+                res[0].tokens, res[1].tokens.cpu()):
+            raise AssertionError(f"small family {name} kv {kv}: card and "
+                                 "CPU tokens differ")
+        log(f"small family {name}: logits max err {err:.3e} (max |logit| "
+            f"{scale:.3e}); greedy tokens equal on the card and the CPU, "
+            f"int8 weights + {kv} KV ({res[1].n_blocks} blocks)")
+
+
+def family_prompts(cfg):
+    """The families' prompts: PROMPT_TOKENS tokens rounded up to whole
+    blocks (293 blocks of 7 tokens at block length 7), random, row b
+    left-padded by 4*b blocks."""
+    L = cfg.block_length
+    return pg.ragged_prompts(cfg, BATCH, -(-PROMPT_TOKENS // L) * L, seed=0)
+
+
+def inner_loop_seconds(run):
+    """(run s, inner-loop s) of one more ``run``, the device synchronized
+    around each ``decode_block_tokens`` call to time the token decoder's
+    share (the synchronizations slow the run a little)."""
+    inner = 0.0
+    decode = gen.decode_block_tokens
+
+    def timed(*args, **kw):
+        nonlocal inner
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(*args, **kw)
+        torch.cuda.synchronize()
+        inner += time.perf_counter() - t0
+        return out
+
+    gen.decode_block_tokens = timed
+    try:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        gen.decode_block_tokens = decode
+    return total, inner
+
+
+def phase_families(smi: str) -> dict:
+    """The four shipped ablation configs at full width (FAMILY_SHAPES),
+    random bf16 weights from a seed (``quiet_eos``) quantized to INT8, the
+    INT8 global cache, greedy ``generate_blocks``, B=8, PROMPT_TOKENS prompt
+    tokens (rounded up to whole blocks) and NEW_TOKENS new ones: one
+    warm-up run, then a timed run between launch-count resets, asserting
+    that it reached its last block and that every kernel of the path ran
+    on its main route (K2's bf16 form by the warp route on the prefix
+    decoders' local cache, and not on the re-run decoders), W8A8 on the
+    block decoder's prefill linears alone; then the prefill alone, and one
+    more run with the inner loop timed. Returns {path: launches}."""
+    out = {}
+    for name in FAMILY_SHAPES:
+        path, cfg = family_path(name), family_config(name)
+        t0 = time.perf_counter()
+        params = quant.quantize_block_transformer(quiet_eos(
+            bt.init_block_transformer_params(0, cfg, dtype=torch.bfloat16,
+                                             device=CARD), cfg), bits=8)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        ids, att, bam = family_prompts(cfg)
+        L, N, n = cfg.block_length, ids.shape[1], cfg.n_embedding_tokens
+        max_blocks = N + -(-NEW_TOKENS // L)
+
+        def run():
+            return gen.generate_blocks(params, cfg, ids, att, bam,
+                                       max_blocks=max_blocks, kv_cache="int8",
+                                       device=CARD)
+
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        reset_launches()
+        with W8A8Decisions() as decisions:
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        out[path] = read_launches(path)
+        decisions.check(path, out[path],
+                        (4 * cfg.block_decoder.num_layers, BATCH * N * n))
+        toks = res.tokens
+        if tuple(toks.shape) != (BATCH, max_blocks, L):
+            raise AssertionError(f"{name}: tokens shape {tuple(toks.shape)}")
+        if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{name}: tokens out of [0, vocab)")
+        if not torch.equal(toks[:, :N].cpu(), torch.from_numpy(ids)):
+            raise AssertionError(f"{name}: prompt blocks were not kept")
+        generated = BATCH * (res.n_blocks - N) * L
+        if res.n_blocks != max_blocks:
+            raise AssertionError(f"{name}: {res.n_blocks - N} blocks "
+                                 f"generated, not {max_blocks - N}")
+
+        capacity = -(-max_blocks * n // 128) * 128
+        dev_args = [torch.as_tensor(a, device=CARD) for a in (ids, att, bam)]
+        with linear_ops.kv_mode("int8"):
+            t0 = time.perf_counter()
+            gen.prefill_blocks(params, cfg, *dev_args, capacity=capacity,
+                               kv_cache="int8")
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        total_s, inner_s = inner_loop_seconds(run)
+        strategy = cfg.token_decoder.decoding_strategy
+        loop = "cached" if _prefix(name) else "re-run"
+        log(f"{name} ({cfg.embedder.cls} embedder, {strategy} "
+            f"{cfg.token_decoder.cls} token decoder, L={L}) generate_blocks "
+            f"B={BATCH} p{N * L}/d{NEW_TOKENS} int8 weights + int8 KV: init "
+            f"+ quantization {init_s:.2f} s; {res.n_blocks - N} blocks "
+            f"generated; warm-up run {warm_s:.2f} s; timed run {secs:.3f} s "
+            f"= {generated / secs:.1f} tok/s (prefill included); prefill "
+            f"alone {prefill_s:.3f} s; a run with the {loop} inner loop "
+            f"timed: {total_s:.3f} s, the inner loop {inner_s:.3f} s "
+            f"({inner_s / total_s:.1%}); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(json.dumps({"family": name, "inner_loop": loop, "run_s": secs,
+                        "generated_tok_s": generated / secs,
+                        "prefill_s": prefill_s, "timed_inner_run_s": total_s,
+                        "inner_loop_s": inner_s, "card": smi}))
+        del params, res
+    return out
 
 
 def small_config():
@@ -1764,6 +2138,7 @@ def main() -> None:
     phase_k7(rows, cfg)
     phase_k8(rows, cfg)
     phase_k8(rows, cfg, int4=True)
+    phase_family_kernels(rows)
     floor = launch_floor_ms()
     log(json.dumps({"launch_floor_ms": floor, "card": smi}))
     phase_small_reference()
@@ -1771,6 +2146,7 @@ def main() -> None:
     phase_small_engine()
     phase_small_w8a8()
     phase_small_train_gptq()
+    phase_small_families()
     launches, tok_s, tokens = {}, {}, {}
     for quantize in ("int8", "int4", "mixed48"):
         t0 = time.perf_counter()
@@ -1795,6 +2171,7 @@ def main() -> None:
     vcfg, vparams = pg.vanilla_model(seed=0, quantize="int8")
     launches["vanilla"], tok_s["vanilla"] = phase_vanilla(vcfg, vparams)
     del vparams
+    launches.update(phase_families(smi))
     phase_train_quantize(config.get_config(MODEL))
     log("block/vanilla generated tokens per second at B=8 p2048/d128, "
         "INT8 KV (smoke figures, not a benchmark): " + ", ".join(

@@ -110,3 +110,25 @@ def test_config_copy_small_and_derived():
     assert (torch_config.BlockTransformerConfig.from_json(j.to_json())
             == t)
     assert set(torch_config._BLOCK_MAIN) == set(jax_config._BLOCK_MAIN)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("family", ["cls_cross_attention", "gpt_neo"])
+def test_family_params_round_trip(family, quantized):
+    """The ablation families' trees (a RoBERTa-CLS embedder with a T5
+    token decoder; GPT-Neo block and token decoders), float32 and with
+    INT8 decoders, cross JAX -> port -> numpy with every leaf's path,
+    shape, dtype and bits unchanged."""
+    from test_torch_families import models
+    _, _, tree, port = models(family, quantized=quantized)
+    back = bridge.params_to_numpy(port)
+    src, mid, out = (list(_leaves(t)) for t in (tree, port, back))
+    assert [p for p, _ in src] == [p for p, _ in mid] == [p for p, _ in out]
+    for (path, a), (_, t), (_, b) in zip(src, mid, out):
+        a = np.asarray(a)
+        assert t.dtype == _TORCH_DTYPE[a.dtype.name], path
+        assert _same_bits(a, b), path
+    tops = {p[:2] for p, _ in src}
+    assert (("embedder", "roberta") in tops and ("token_decoder", "t5") in tops
+            if family == "cls_cross_attention" else
+            ("token_decoder", "gpt_neo") in tops)

@@ -6,7 +6,10 @@ package's main path (batched generation with INT8 weights and an INT8
 global KV cache) are hand-written CUDA C++ kernels under ``csrc/``, built
 with ``nvcc`` at first use and bound with ctypes (``kernels/``). Each kernel
 module keeps a plain PyTorch version beside its wrapper, which runs it for
-tensors on the CPU. The package imports nothing of the JAX package.
+tensors on the CPU. Training runs through ``pretrain_block_transformer.py``
+and ``pretrain_vanilla_transformer.py`` (the YAML configs, the packed
+corpus, ``train/trainer.py``), on the plain PyTorch paths under autograd.
+The package imports nothing of the JAX package.
 """
 
 __version__ = "0.1.0"

@@ -18,7 +18,10 @@ int8, for ``.astype(jnp.int4)`` on the JAX side.
 A train state crosses too: JAX's ``TrainState`` holds optax's chain state
 ``(clip, (adam, masked decay, schedule))`` from ``make_optimizer``, whose
 Adam moments ``mu`` / ``nu`` are trees shaped like the parameters and whose
-two step counts are equal; the port's ``AdamWState`` keeps one count.
+two step counts are equal; the port's ``AdamWState`` keeps one count. Each
+leaf keeps its dtype both ways: bf16 parameters, and moments in bf16 (fresh)
+or float32 (after an update with float32 gradients, which optax and the
+port's optimizer both make float32).
 """
 
 from __future__ import annotations

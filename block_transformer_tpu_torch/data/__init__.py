@@ -1,1 +1,2 @@
-"""Data layout: token arrays into block-format training batches."""
+"""Data: corpora, packing, block splitting and block-format training
+batches."""

@@ -28,15 +28,35 @@ def init_vanilla_params(gen, cfg: NeoXConfig, dtype=torch.float32,
 
 
 def vanilla_forward(params, cfg: NeoXConfig, input_ids: torch.Tensor,
-                    attention_mask=None) -> torch.Tensor:
-    """input_ids [B, S] -> logits [B, S, V] float32."""
+                    attention_mask=None, remat: bool = False) -> torch.Tensor:
+    """input_ids [B, S] -> logits [B, S, V] float32; ``remat`` checkpoints
+    each layer (``neox.neox_stack``)."""
     S = input_ids.shape[1]
     x = neox.embed_tokens(params, input_ids)
     positions = torch.arange(S, dtype=torch.int32, device=input_ids.device)
     mask = masks.causal_mask(positions, positions, kv_valid=attention_mask)
     hidden, _ = neox.neox_stack(params, x, cfg=cfg, mask=mask,
-                                positions=positions)
+                                positions=positions, remat=remat)
     return neox.lm_logits(params, hidden)
+
+
+def vanilla_loss(params, cfg: NeoXConfig, input_ids: torch.Tensor,
+                 attention_mask, labels: torch.Tensor,
+                 remat: bool = False) -> torch.Tensor:
+    """The shifted cross-entropy (labels -100 and unattended positions
+    ignored), a float32 scalar. ``remat=True`` checkpoints each layer so
+    the backward recomputes attention instead of keeping every layer's
+    [B, H, S, S] probabilities."""
+    logits = vanilla_forward(params, cfg, input_ids, attention_mask,
+                             remat=remat)
+    lg = logits[:, :-1].float()
+    tgt = labels[:, 1:].long()
+    w = (tgt != -100).float()
+    if attention_mask is not None:
+        w = w * attention_mask[:, 1:].float()
+    logp = torch.log_softmax(lg, dim=-1)
+    ll = torch.gather(logp, -1, tgt.clamp(min=0)[..., None])[..., 0]
+    return torch.sum(-ll * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
 @torch.no_grad()

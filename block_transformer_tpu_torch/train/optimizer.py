@@ -19,8 +19,17 @@ optax's order of operations:
 
 Parameter trees are nested dicts of tensors; their leaves are visited in
 sorted key order, as JAX flattens a dict, so the global norm sums the
-leaves in JAX's order. The moments are updated in place; the updates are
-new tensors.
+leaves in JAX's order. Each new moment and each update is a new tensor;
+the new moments replace the old ones in the state's trees.
+
+The dtypes follow optax's arithmetic where bf16 parameters take float32
+gradients (the trainer's float32 accumulator): the moments start as zeros
+in the parameters' dtype, and ``(1 - b) g + b m`` is float32, so each
+moment becomes float32 at the first update; the update is float32, with the decay term ``p *
+weight_decay`` rounded in the parameters' dtype before it is added, and
+the caller casts it to the parameter's dtype before adding it (``p +
+u.astype(p.dtype)`` in JAX). Where the moments already have the
+gradient's dtype, every result is what it was, bit for bit.
 """
 
 from __future__ import annotations
@@ -114,8 +123,8 @@ class AdamWState(NamedTuple):
 
 class AdamW(NamedTuple):
     """``init(params) -> AdamWState``; ``update(grads, state, params) ->
-    (updates, state)``, optax's interface. ``update`` writes the new moments
-    into ``state.mu`` / ``state.nu`` in place."""
+    (updates, state)``, optax's interface. ``update`` puts the new moments
+    into the trees ``state.mu`` / ``state.nu`` in place of the old ones."""
     schedule: Callable[[int], float]
     weight_decay: float
     b1: float
@@ -148,14 +157,23 @@ class AdamW(NamedTuple):
         updates = {}
         for path, g in items:
             g = torch.where(keep, g, g / norm * self.grad_clip)
-            m, v = mu[path], nu[path]
-            m.mul_(self.b1).add_(g * (1 - self.b1))
-            v.mul_(self.b2).add_(g * g * (1 - self.b2))
+            # b m in m's dtype, the sum in g's: optax's order
+            # (popped, so each old moment is freed as its leaf is done)
+            m = (g * (1 - self.b1)) + (mu.pop(path) * self.b1)
+            v = (g * g * (1 - self.b2)) + (nu.pop(path) * self.b2)
+            _set_leaf(state.mu, path, m)
+            _set_leaf(state.nu, path, v)
             u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             if mask[path]:
                 u = u + ps[path] * self.weight_decay
             updates[path] = u * neg_lr
         return tree_unflatten(updates), AdamWState(count, state.mu, state.nu)
+
+
+def _set_leaf(tree: dict, path: tuple, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = leaf
 
 
 def tree_unflatten(flat: dict) -> dict:

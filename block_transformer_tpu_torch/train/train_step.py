@@ -1,6 +1,8 @@
 """The single-device train step (port of
 ``block_transformer_tpu/train/train_step.py``: ``TrainState``,
-``make_loss_fn``, ``make_train_step``, ``create_train_state``).
+``make_loss_fn``, ``make_train_step``, ``create_train_state``, and
+``make_grad_and_apply``, the single-device form of
+``make_sharded_grad_and_apply`` for gradient accumulation).
 
 One call computes the loss and its metrics, the gradients of every
 parameter by autograd, the optimizer's update and the gradients' global
@@ -13,8 +15,9 @@ and ``remat`` (the default) checkpoints each layer of both stacks.
 straight-through estimator carries the gradients to the float master
 weights.
 
-Unlike JAX's functional step, this one updates ``state.params`` and the
-optimizer's moments in place and returns a state that shares them: at
+Unlike JAX's functional step, this one updates ``state.params`` in place,
+puts the optimizer's new moments into the state's own trees, and returns a
+state that shares them: at
 ``block_main_b4_1.2b`` the parameters, gradients and the two moments are
 ~23 GB in float32, and a second copy of the state would not be cheap.
 """
@@ -70,22 +73,73 @@ def make_train_step(cfg: BlockTransformerConfig, tx, remat: bool = True,
     loss_fn = make_loss_fn(cfg, remat, param_transform=param_transform)
 
     def train_step(state: TrainState, batch):
-        items = list(opt.tree_items(state.params))
-        live = {path: p.detach().requires_grad_(True) for path, p in items}
-        with torch.enable_grad():
-            loss, metrics = loss_fn(opt.tree_unflatten(live), batch)
-            grads = dict(zip(live, torch.autograd.grad(
-                loss, list(live.values()))))
+        grads, metrics = _grads(loss_fn, state.params, batch)
         with torch.no_grad():
-            updates, opt_state = tx.update(opt.tree_unflatten(grads),
-                                           state.opt_state, state.params)
-            for (_, p), u in zip(items, opt.tree_leaves(updates)):
-                p.add_(u)
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            opt_state = _apply(tx, state, grads)
             metrics["grad_norm"] = opt.global_norm(grads.values())
         return TrainState(state.params, opt_state, state.step + 1), metrics
 
     return train_step
+
+
+def _grads(loss_fn, params, batch):
+    """({path: gradient}, detached metrics) of ``loss_fn(params, batch)``,
+    the paths in sorted order."""
+    live = {path: p.detach().requires_grad_(True)
+            for path, p in opt.tree_items(params)}
+    with torch.enable_grad():
+        loss, metrics = loss_fn(opt.tree_unflatten(live), batch)
+        grads = dict(zip(live, torch.autograd.grad(loss,
+                                                   list(live.values()))))
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
+def _apply(tx, state: TrainState, grads: dict):
+    """The optimizer's update of ``grads`` ({path: gradient}) added to
+    ``state.params`` in place, cast to each parameter's dtype first (JAX's
+    ``p + u.astype(p.dtype)``); returns the new optimizer state."""
+    updates, opt_state = tx.update(opt.tree_unflatten(grads),
+                                   state.opt_state, state.params)
+    for p, u in zip(opt.tree_leaves(state.params), opt.tree_leaves(updates)):
+        p.add_(u.to(p.dtype))
+    return opt_state
+
+
+def make_grad_and_apply(loss_fn, tx):
+    """(grad_fn, apply_fn, zeros_fn) for exact gradient accumulation: the
+    single-device form of the JAX package's ``make_sharded_grad_and_apply``
+    (which builds ``make_loss_fn(cfg, remat)`` itself).
+
+    - ``zeros_fn(params)``: a float32 accumulator shaped like ``params``;
+    - ``grad_fn(params, batch, acc) -> (acc, metrics)``: one micro-batch's
+      gradients, cast to float32 and added into ``acc`` in place;
+    - ``apply_fn(state, acc, n_accum) -> (state, grad_norm)``: the mean
+      gradient ``acc / n_accum`` through the optimizer, the parameters
+      updated in place, and the global norm of the mean gradient.
+
+    ``loss_fn(params, batch) -> (loss, metrics)``: ``make_loss_fn``'s for
+    the block trainer, ``vanilla_loss`` with its loss as the one metric for
+    the vanilla trainer.
+    """
+    def zeros_fn(params):
+        return opt.tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+
+    def grad_fn(params, batch, acc):
+        grads, metrics = _grads(loss_fn, params, batch)
+        with torch.no_grad():
+            for a, g in zip(opt.tree_leaves(acc), grads.values()):
+                a.add_(g.to(a.dtype))
+        return acc, metrics
+
+    def apply_fn(state: TrainState, acc, n_accum: float):
+        with torch.no_grad():
+            grads = {path: g / n_accum for path, g in opt.tree_items(acc)}
+            opt_state = _apply(tx, state, grads)
+            norm = opt.global_norm(grads.values())
+        return TrainState(state.params, opt_state, state.step + 1), norm
+
+    return grad_fn, apply_fn, zeros_fn
 
 
 def create_train_state(gen, cfg: BlockTransformerConfig, tx,

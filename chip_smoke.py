@@ -87,7 +87,8 @@ one process it:
    KV cache) at the same B, prompt and new tokens, the same way, and prints
    the block/vanilla throughput ratio as a smoke figure;
 8. generates with the four shipped ablation configs at full width
-   (``FAMILY_SHAPES``: ``block_megabyte_b4_85``,
+   (``FAMILY_NAMES``, read by the port's YAML loader:
+   ``block_megabyte_b4_85``,
    ``block_ablation_b4_85_cls_cross_attn``, ``block_uniform_b4_85``,
    ``block_ablation_b4_85_roberta_prefix``; random bf16 weights from a
    seed, INT8 weights and global cache, greedy, B=8, 2048 prompt tokens
@@ -108,7 +109,23 @@ one process it:
    GPTQ INT4 g128 on the card from the same two sequences, logging each
    trunk's calibration and rounding seconds and the layer-output error of
    GPTQ and RTN for the first and last layers' four linears, and generates
-   from the GPTQ tree (K4 only, no K1).
+   from the GPTQ tree (K4 only, no K1);
+10. trains through the training loop (``phase_trainer``; checkpoints under
+   a temporary directory of ``build/``, removed afterwards): the native
+   packer against numpy on 2048-token samples; (d) a tiny trainer (hidden
+   64, accumulation 2, ramp-up 2) 3 steps on the card and on the CPU from
+   one initial state, float32, every record within 1e-4 relative; (a)
+   ``block_main_b4_1.2b`` through ``pretrain_block_transformer.main`` with
+   ``configs/block_main_b4_1.2b.yaml`` (bf16), a synthetic corpus and
+   2048-token samples, batch 2, 2 steps; (b) the same model through
+   ``Trainer``, total batch 4 of micro 2, ramp-up 1, 3 steps saving at
+   step 2, then a second ``Trainer`` resumed from it to step 3 (its loss
+   within 1e-3 relative of the uninterrupted run's), each step's s and
+   tokens/s, peak memory, checkpoint bytes and save / restore s; (c)
+   ``vanilla_160`` through ``pretrain_vanilla_transformer.main`` for 2
+   steps, its parameters uptrained (``partition``) into
+   ``block_uptrain_b4_85_10``'s decoders, 2 steps more; no hand kernel
+   may launch in any of them.
 
 Every timed full-width run of steps 5-9 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
@@ -128,13 +145,16 @@ Any failure raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -143,6 +163,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from block_transformer_tpu_torch import config  # noqa: E402
+from block_transformer_tpu_torch import config_yaml  # noqa: E402
+from block_transformer_tpu_torch.data import native as native_packer  # noqa: E402
 from block_transformer_tpu_torch.data import packing  # noqa: E402
 from block_transformer_tpu_torch import profile_generate as pg  # noqa: E402
 from block_transformer_tpu_torch.config import NeoXConfig  # noqa: E402
@@ -163,6 +185,7 @@ from block_transformer_tpu_torch.ops import gptq  # noqa: E402
 from block_transformer_tpu_torch.ops import quant  # noqa: E402
 from block_transformer_tpu_torch.train import optimizer as opt  # noqa: E402
 from block_transformer_tpu_torch.train import train_step as ts  # noqa: E402
+from block_transformer_tpu_torch.train import trainer as trainer_lib  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s and
 # int8 tensor-core operations/s
@@ -184,49 +207,19 @@ PAGED_PY = "block_transformer_tpu/ops/paged_attention.py"
 W8A8_CU = "block_transformer_tpu_torch/csrc/w8a8.cu"
 # not a TPU kernel: XLA ops in the JAX package (_w8a8_dot)
 W8A8_JAX = "block_transformer_tpu/ops/linear.py:219"
-# the shipped ablation YAMLs the families phase runs: (block length,
-# embedder fields, block decoder (hidden, layers), token decoder (hidden,
-# layers, decoding strategy, expansion ratio, class)); heads of 64, d_ff 4x,
-# vocab 50304 (tests/test_torch_families.py holds each to configs/<name>.yaml)
-FAMILY_SHAPES = {
-    "block_megabyte_b4_85": (
-        4, dict(hidden_size=192), (768, 11),
-        (512, 4, "summation", None, "gpt-neo-x")),
-    "block_ablation_b4_85_cls_cross_attn": (
-        4, dict(cls="roberta_cls", hidden_size=256, encoder_layers=3,
-                n_cls_tokens=3), (768, 6),
-        (768, 6, "cross_attention", None, "t5")),
-    "block_uniform_b4_85": (
-        7, dict(hidden_size=256, projection_method="projection_layer"),
-        (768, 6), (768, 6, "prefix", 2, "gpt-neo-x")),
-    "block_ablation_b4_85_roberta_prefix": (
-        4, dict(cls="roberta", hidden_size=192, encoder_layers=3), (768, 6),
-        (768, 6, "prefix", 2, "gpt-neo-x")),
-}
+# the shipped ablation YAMLs the families phase runs
+FAMILY_NAMES = ("block_megabyte_b4_85", "block_ablation_b4_85_cls_cross_attn",
+                "block_uniform_b4_85", "block_ablation_b4_85_roberta_prefix")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def config_path(name: str) -> str:
+    return os.path.join(ROOT, "configs", f"{name}.yaml")
 
 
 def family_config(name: str) -> config.BlockTransformerConfig:
-    """``configs/<name>.yaml`` of an ablation family as the port's
-    dataclasses, from FAMILY_SHAPES (the card has no PyYAML)."""
-    block_length, emb_fields, (bh, bl), (th, tl, strategy, ratio, cls) = (
-        FAMILY_SHAPES[name])
-
-    def neox(h, layers, **kw):
-        return NeoXConfig(vocab_size=50304, hidden_size=h, num_layers=layers,
-                          num_heads=h // 64, intermediate_size=4 * h,
-                          max_position_embeddings=2048, **kw)
-
-    return config.BlockTransformerConfig(
-        block_length=block_length,
-        embedder=config.EmbedderConfig(vocab_size=50304,
-                                       projection_hidden_size=bh,
-                                       **emb_fields),
-        block_decoder=neox(bh, bl, attn_impl="pallas"),
-        token_decoder=config.TokenDecoderConfig(
-            neox=neox(th, tl), decoding_strategy=strategy,
-            expansion_method="expansion_layer", expansion_ratio=ratio,
-            cls=cls),
-        name=name)
+    """``configs/<name>.yaml`` through the port's loader."""
+    return config_yaml.load_block_config_yaml(config_path(name))
 
 
 # (wrapper, tag, source, TPU kernel replaced, the run whose launches count,
@@ -295,19 +288,16 @@ def family_path(name: str) -> str:
     return f"family {name}"
 
 
-def _prefix(name: str) -> bool:
-    return FAMILY_SHAPES[name][3][2] == "prefix"
-
-
-# the ablation families (INT8 weights and global cache): K2's bf16 form
-# serves the local cache of the prefix decoders; the re-run decoders keep no
-# cache; no INT4 weights
-PATH_KERNELS.update({
-    family_path(n): ("K1", "K2", "K3", *W8A8)
-    + (("K2 bf16",) if _prefix(n) else ()) for n in FAMILY_SHAPES})
-PATH_ABSENT.update({
-    family_path(n): ("K4",) + (() if _prefix(n) else ("K2 bf16",))
-    for n in FAMILY_SHAPES})
+def add_family_path(name: str, prefix: bool) -> str:
+    """Register an ablation family's run (INT8 weights and global cache) in
+    PATH_KERNELS / PATH_ABSENT: K2's bf16 form serves the local cache of
+    the prefix decoders; the re-run decoders keep no cache; no INT4
+    weights. Returns the path's name."""
+    path = family_path(name)
+    PATH_KERNELS[path] = ("K1", "K2", "K3", *W8A8) + (
+        ("K2 bf16",) if prefix else ())
+    PATH_ABSENT[path] = ("K4",) + (() if prefix else ("K2 bf16",))
+    return path
 # K1, K3, K4 and W8A8-mm count their launches by route as well; a
 # full-width path takes the route named here only: the tensor cores ("tc")
 # for K1, K3 and K4, wgmma fed by TMA for W8A8-mm
@@ -1270,7 +1260,7 @@ def inner_loop_seconds(run):
 
 
 def phase_families(smi: str) -> dict:
-    """The four shipped ablation configs at full width (FAMILY_SHAPES),
+    """The four shipped ablation configs at full width (FAMILY_NAMES),
     random bf16 weights from a seed (``quiet_eos``) quantized to INT8, the
     INT8 global cache, greedy ``generate_blocks``, B=8, PROMPT_TOKENS prompt
     tokens (rounded up to whole blocks) and NEW_TOKENS new ones: one
@@ -1281,8 +1271,10 @@ def phase_families(smi: str) -> dict:
     block decoder's prefill linears alone; then the prefill alone, and one
     more run with the inner loop timed. Returns {path: launches}."""
     out = {}
-    for name in FAMILY_SHAPES:
-        path, cfg = family_path(name), family_config(name)
+    for name in FAMILY_NAMES:
+        cfg = family_config(name)
+        prefix = cfg.token_decoder.decoding_strategy == "prefix"
+        path = add_family_path(name, prefix)
         t0 = time.perf_counter()
         params = quant.quantize_block_transformer(quiet_eos(
             bt.init_block_transformer_params(0, cfg, dtype=torch.bfloat16,
@@ -1334,7 +1326,7 @@ def phase_families(smi: str) -> dict:
             prefill_s = time.perf_counter() - t0
         total_s, inner_s = inner_loop_seconds(run)
         strategy = cfg.token_decoder.decoding_strategy
-        loop = "cached" if _prefix(name) else "re-run"
+        loop = "cached" if prefix else "re-run"
         log(f"{name} ({cfg.embedder.cls} embedder, {strategy} "
             f"{cfg.token_decoder.cls} token decoder, L={L}) generate_blocks "
             f"B={BATCH} p{N * L}/d{NEW_TOKENS} int8 weights + int8 KV: init "
@@ -2095,6 +2087,362 @@ def phase_small_train_gptq():
         raise AssertionError("small GPTQ: the card's tree is not the CPU's "
                              "in quality")
 
+# the trainer phase: the training loop through its entry points at full
+# width (bf16 as the YAMLs say), then the tiny trainer card against CPU
+BLOCK_YAML = "block_main_b4_1.2b"
+VANILLA_YAML, UPTRAIN_YAML = "vanilla_160", "block_uptrain_b4_85_10"
+SYNTHETIC_TOKENS = 200000   # the synthetic corpus: ~1000 random documents
+RESUME_RTOL = 1e-3      # the resumed run's step-3 loss against the
+                        # uninterrupted run's (bf16, the same parameters)
+TRAINER_CPU_RTOL = 1e-4  # tiny trainer records, card against CPU, float32
+TRAINER_DISK_BYTES = 30e9  # (b)'s checkpoints 2 and 3 of block_main_b4_1.2b
+
+
+def launch_counts() -> dict:
+    return {tag: fn.launches for fn, tag, *_ in KERNELS}
+
+
+def assert_no_launch(before: dict, what: str) -> None:
+    """No hand kernel launched since ``before``: training runs the plain
+    paths under autograd, as JAX's trainer does under its mesh (Pallas off
+    there)."""
+    moved = {t: n - before[t] for t, n in launch_counts().items()
+             if n != before[t]}
+    log(f"kernel launches during {what}: {moved or 'none'}")
+    if moved:
+        raise AssertionError(f"kernels launched during {what}: {moved}")
+
+
+def metrics_records(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def finite_records(recs: list, what: str) -> None:
+    for r in recs:
+        if not (math.isfinite(r["loss"])
+                and math.isfinite(r.get("grad_norm", 0.0))):
+            raise AssertionError(f"{what}: step {r['step']} record {r}")
+
+
+def checkpoint_bytes(out_dir: str, step: int) -> int:
+    path = os.path.join(out_dir, f"checkpoint-{step}")
+    return sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+
+
+def phase_packer(smi: str) -> None:
+    """The native packer (``csrc/packer.cpp`` built with g++) against the
+    numpy mapping on the synthetic corpus at 2048-token samples."""
+    from block_transformer_tpu_torch.pretrain_block_transformer import (
+        synthetic_corpus)
+    ds = packing.PackedDataset(
+        synthetic_corpus(SYNTHETIC_TOKENS, 50304, 512), 2048, eos_token=0,
+        pad_token=0, block_length=4)
+    # the trainer's indices (mod len): the native packer wraps a window
+    # that crosses the corpus end, the numpy mapping pads it
+    idxs = np.arange(64) % len(ds)
+    t0 = time.perf_counter()
+    built = native_packer.get_packer() is not None
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = ds.get_batch(idxs)
+    native_s = time.perf_counter() - t0
+    route = ds.last_route
+    t0 = time.perf_counter()
+    plain = ds.get_batch(idxs, use_native=False)
+    numpy_s = time.perf_counter() - t0
+    same = all(np.array_equal(native[k], plain[k]) for k in plain)
+    log(f"packer: native library {'built' if built else 'not built'} in "
+        f"{build_s:.2f} s; 64 samples of 2048 tokens by the {route} route "
+        f"{native_s * 1e3:.2f} ms, numpy {numpy_s * 1e3:.2f} ms (host); "
+        f"equal: {same} [{smi}]")
+    if not same:
+        raise AssertionError("the native packer differs from numpy")
+
+
+def phase_trainer_entry(work: str, smi: str) -> None:
+    """(a) ``block_main_b4_1.2b`` through ``pretrain_block_transformer.main``
+    with its YAML (bf16), a synthetic corpus, 2048-token samples, batch 2,
+    2 steps; the step's wall time from ``metrics.jsonl``."""
+    from block_transformer_tpu_torch import pretrain_block_transformer
+    out = os.path.join(work, "entry")
+    before = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t = pretrain_block_transformer.main([
+        "--config", config_path(BLOCK_YAML), "--synthetic",
+        str(SYNTHETIC_TOKENS), "--steps", "2", "--batch_size", "2",
+        "--output_dir", out])
+    secs = time.perf_counter() - t0
+    assert_no_launch(before, "the entry point's train steps")
+    recs = metrics_records(out)
+    finite_records(recs, "entry point")
+    last = recs[-1]
+    tokens = t.micro_batch * t.tcfg.max_length
+    dtypes = sorted({str(p.dtype) for p in opt.tree_leaves(t.state.params)})
+    log(f"(a) {BLOCK_YAML} pretrain_block_transformer.main (YAML, "
+        f"{dtypes}, B=2 x {t.tcfg.max_length}, remat): step {last['step']} "
+        f"{last['wall_time_s']:.3f} s = {tokens / last['wall_time_s']:.1f} "
+        f"tokens/s, loss {last['loss']:.5f}; main() {secs:.2f} s with init "
+        f"and the step-2 checkpoint ({checkpoint_bytes(out, 2)} bytes); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"[{smi}]")
+    if t.state.step != 2 or dtypes != ["torch.bfloat16"]:
+        raise AssertionError(f"entry point: step {t.state.step}, {dtypes}")
+    del t
+    shutil.rmtree(out)
+
+
+def resumed_state_differences(got, want) -> list:
+    """The leaves (and counters) of two ``TrainState``s that are not equal
+    bit for bit, dtype included."""
+    bad = [name for name, a, b in (
+        ("step", got.step, want.step),
+        ("count", got.opt_state.count, want.opt_state.count)) if a != b]
+    for name, ta, tb in (("params", got.params, want.params),
+                         ("mu", got.opt_state.mu, want.opt_state.mu),
+                         ("nu", got.opt_state.nu, want.opt_state.nu)):
+        b = dict(opt.tree_items(tb))
+        for path, a in opt.tree_items(ta):
+            if a.dtype != b[path].dtype:
+                bad.append(f"{name}/{'/'.join(map(str, path))} "
+                           f"{a.dtype} != {b[path].dtype}")
+            elif not torch.equal(a, b[path]):
+                d = (a.float() - b[path].float()).abs().max()
+                bad.append(f"{name}/{'/'.join(map(str, path))} max abs "
+                           f"difference {float(d):.3e}")
+    return bad
+
+
+def phase_trainer_resume(work: str, smi: str) -> None:
+    """(b) The same model through ``Trainer``: total batch 4 of micro 2
+    (accumulation 2), ramp-up 1, 3 steps, saving at step 2; a second
+    ``Trainer`` resumes from it to step 3, and its state equals the
+    uninterrupted run's bit for bit (the moments too: the step-3 loss
+    alone is computed before step 3's update)."""
+    cfg = config_yaml.load_block_config_yaml(config_path(BLOCK_YAML))
+    tkw = config_yaml.load_trainer_kwargs_yaml(config_path(BLOCK_YAML))
+    out = os.path.join(work, "resume")
+    tkw.update(output_dir=out, total_batch_size=4, micro_batch_size=2,
+               batch_size_rampup_steps=1, stop_steps=3, save_steps=2,
+               logging_steps=1)
+    from block_transformer_tpu_torch.pretrain_block_transformer import (
+        synthetic_corpus)
+    T = tkw["max_length"]
+    ds = packing.PackedDataset(
+        synthetic_corpus(SYNTHETIC_TOKENS, cfg.vocab_size, 512), T,
+        eos_token=0, pad_token=0, block_length=cfg.block_length)
+    before = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first = trainer_lib.Trainer(cfg, trainer_lib.TrainerConfig(**tkw), ds,
+                                device=CARD)
+    first.train()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = metrics_records(out)
+    finite_records(recs, "uninterrupted run")
+    for r in recs:
+        tokens = first._effective_accum(r["step"] - 1) * 2 * T
+        log(f"(b) {BLOCK_YAML} Trainer step {r['step']} (bf16, "
+            f"{tokens // T} x {T} tokens, accumulation "
+            f"{first._effective_accum(r['step'] - 1)}): {r['wall_time_s']:.3f}"
+            f" s = {tokens / r['wall_time_s']:.1f} tokens/s; loss "
+            f"{r['loss']:.6f}, grad_norm {r['grad_norm']:.5f} [{smi}]")
+    saves = [e for e in first.checkpoint_log if e["op"] == "save"]
+    nbytes = checkpoint_bytes(out, 2)
+    moments = sorted({str(t.dtype) for t in opt.tree_leaves(
+        first.state.opt_state.mu)})
+    log(f"(b) peak memory {peak:.2f} GiB; checkpoint {nbytes} bytes "
+        f"(bf16 params, {moments} moments): save "
+        + ", ".join(f"step {e['step']} {e['s']:.2f} s "
+                    f"({nbytes / e['s'] / 1e9:.2f} GB/s)" for e in saves)
+        + f" [{smi}]")
+    # the uninterrupted step-3 state stays on the card (~14.5 GB) for the
+    # exact comparison below
+    want_state = first.state
+    del first
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(out, "checkpoint-3"))
+    os.rename(os.path.join(out, "metrics.jsonl"),
+              os.path.join(work, "uninterrupted.jsonl"))
+    second = trainer_lib.Trainer(cfg, trainer_lib.TrainerConfig(**tkw), ds,
+                                 device=CARD)
+    second.train(resume=True)
+    assert_no_launch(before, "the Trainer's steps and resume")
+    restore = second.checkpoint_log[0]
+    got = metrics_records(out)[-1]
+    want = recs[-1]
+    err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    log(f"(b) resumed from step {restore['step']} (restore "
+        f"{restore['s']:.2f} s = {nbytes / restore['s'] / 1e9:.2f} GB/s): "
+        f"step {got['step']} {got['wall_time_s']:.3f} s, loss "
+        f"{got['loss']:.6f} against the uninterrupted {want['loss']:.6f} "
+        f"(relative {err:.2e}, limit {RESUME_RTOL}) [{smi}]")
+    differ = resumed_state_differences(second.state, want_state)
+    log(f"(b) resumed step-3 state against the uninterrupted one, bit for "
+        f"bit (params, mu, nu, count, step): "
+        f"{differ or 'equal'} [{smi}]")
+    if restore["op"] != "restore" or got["step"] != 3 or err > RESUME_RTOL \
+            or differ:
+        raise AssertionError("the resumed run differs from the "
+                             "uninterrupted one")
+    del second, want_state
+    torch.cuda.empty_cache()
+    shutil.rmtree(out)
+
+
+def phase_trainer_uptrain(work: str, smi: str) -> None:
+    """(c) ``vanilla_160`` through ``pretrain_vanilla_transformer.main``
+    (2 steps, batch 2 x 2048, float32 as the JAX script trains it), its
+    checkpoint's parameters partitioned into ``block_uptrain_b4_85_10``
+    (6 + 6 x 768) with the YAML's ``load_from_vanilla`` options and the
+    computed token-decoder embeddings, cast to the YAML's bf16, and 2 block
+    train steps from there."""
+    from block_transformer_tpu_torch import pretrain_vanilla_transformer
+    from block_transformer_tpu_torch.pretrain_block_transformer import (
+        synthetic_corpus)
+    from block_transformer_tpu_torch.train import uptrain
+    from block_transformer_tpu_torch.utils import checkpoint as ckpt
+    vout = os.path.join(work, "vanilla")
+    before = launch_counts()
+    t0 = time.perf_counter()
+    vt = pretrain_vanilla_transformer.main([
+        "--config", config_path(VANILLA_YAML), "--synthetic", str(SYNTHETIC_TOKENS), "--steps", "2",
+        "--max_length", "2048", "--batch_size", "2", "--output_dir", vout])
+    secs = time.perf_counter() - t0
+    recs = metrics_records(vout)
+    finite_records(recs, "vanilla")
+    log(f"(c) {VANILLA_YAML} pretrain_vanilla_transformer.main (float32, "
+        f"B=2 x 2048): step {recs[-1]['step']} {recs[-1]['wall_time_s']:.3f}"
+        f" s, loss {recs[-1]['loss']:.5f}; main() {secs:.2f} s [{smi}]")
+    vcfg = vt.model_cfg
+    del vt
+    vp = opt.tree_map(lambda t: t.to(torch.bfloat16),
+                      ckpt.restore_params(vout, 2, device=CARD))
+    cfg = config_yaml.load_block_config_yaml(config_path(UPTRAIN_YAML))
+    # the YAML's concat embedder (hidden 192) cannot take vanilla_160's
+    # [V, 768] table, in JAX as here; its load_from_vanilla options ask for
+    # the mean projection, which is a projection layer over tokens of the
+    # vanilla width
+    cfg = dataclasses.replace(cfg, embedder=dataclasses.replace(
+        cfg.embedder, hidden_size=vcfg.hidden_size,
+        projection_method="projection_layer"))
+    stanza = config_yaml.read_yaml(config_path(UPTRAIN_YAML))[
+        "load_from_vanilla"]
+    tkw = config_yaml.load_trainer_kwargs_yaml(config_path(UPTRAIN_YAML))
+    bout = os.path.join(work, "uptrain")
+    tkw.update(output_dir=bout, total_batch_size=2, micro_batch_size=None,
+               stop_steps=2, logging_steps=1)
+    ds = packing.PackedDataset(
+        synthetic_corpus(SYNTHETIC_TOKENS, cfg.vocab_size, 512),
+        tkw["max_length"], eos_token=0, pad_token=0,
+        block_length=cfg.block_length)
+    bt_trainer = trainer_lib.Trainer(cfg, trainer_lib.TrainerConfig(**tkw),
+                                     ds, device=CARD)
+    t0 = time.perf_counter()
+    params = uptrain.load_block_from_vanilla(
+        bt_trainer.state.params, cfg, vp, vcfg, method=stanza["method"],
+        initialize_mean_embedder_projection=stanza[
+            "initialize_mean_embedder_projection"],
+        initialize_identity_expansion_layer=stanza[
+            "initialize_identity_expansion_layer"],
+        compute_token_decoder_embeddings=True)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    del vp
+    bt_trainer.state = ts.TrainState(
+        params, bt_trainer.tx.init(params), 0)
+    bt_trainer.train()
+    assert_no_launch(before, "the vanilla run, the uptraining init (the "
+                     "block decoder over [V, 1, h]: Q = 1 takes the plain "
+                     "attention) and the uptrained steps")
+    recs = metrics_records(bout)
+    finite_records(recs, "uptrained")
+    bd, td = cfg.block_decoder, cfg.token_decoder.neox
+    log(f"(c) uptrained ({stanza['method']}, mean projection, identity "
+        f"expansion, computed embeddings: {up_s:.2f} s) into {UPTRAIN_YAML} "
+        f"({bd.num_layers} + {td.num_layers} x {bd.hidden_size}, "
+        f"projection-layer embedder of {cfg.embedder.hidden_size}, bf16): "
+        f"losses "
+        + ", ".join(f"step {r['step']} {r['loss']:.5f} "
+                    f"({r['wall_time_s']:.3f} s)" for r in recs)
+        + f" [{smi}]")
+    del bt_trainer, params
+    torch.cuda.empty_cache()
+    shutil.rmtree(vout)
+    shutil.rmtree(bout)
+
+
+def phase_trainer_small(work: str) -> None:
+    """(d) The tiny trainer (hidden 64, one layer, vocab 96, 32-token
+    samples; accumulation 2, ramp-up 2) for 3 steps on the card and on the
+    CPU from the same initial state, float32: every record within
+    TRAINER_CPU_RTOL."""
+    cfg = config.make_block_config("tiny", block_decoder_hidden=64,
+                                   block_decoder_layers=1, vocab_size=96,
+                                   max_length=32)
+    from block_transformer_tpu_torch.pretrain_block_transformer import (
+        synthetic_corpus)
+    ds = packing.PackedDataset(
+        synthetic_corpus(8000, 96, 64), 32, eos_token=0, pad_token=0,
+        block_length=4)
+    runs = []
+    state0 = None
+    for i, dev in enumerate(("cpu", CARD)):
+        tcfg = trainer_lib.TrainerConfig(
+            output_dir=os.path.join(work, f"small_{i}"), learning_rate=3e-3,
+            num_train_steps=12, stop_steps=3, num_warmup_steps=1,
+            total_batch_size=8, micro_batch_size=4, batch_size_rampup_steps=2,
+            max_length=32, logging_steps=1, remat=False)
+        t = trainer_lib.Trainer(cfg, tcfg, ds, device=dev)
+        if state0 is None:
+            state0 = t.state
+        params = opt.tree_map(lambda p: p.to(dev, copy=True), state0.params)
+        t.state = ts.TrainState(params, t.tx.init(params), 0)
+        t.train()
+        runs.append(metrics_records(tcfg.output_dir))
+    cpu, card = runs
+    worst = 0.0
+    for a, b in zip(cpu, card):
+        if (a["step"], a["tokens_seen"], a["lr"]) != (
+                b["step"], b["tokens_seen"], b["lr"]):
+            raise AssertionError(f"small trainer records: {a} / {b}")
+        for k in ("loss", "token_decoding_loss", "grad_norm",
+                  "loss_by_position"):
+            x, y = np.asarray(a[k]), np.asarray(b[k])
+            worst = max(worst, float(np.max(np.abs(y - x) / np.abs(x))))
+    log(f"(d) tiny trainer 3 steps card vs CPU (float32, TF32 off): losses "
+        f"{[r['loss'] for r in card]} / {[r['loss'] for r in cpu]}; max "
+        f"relative diff of loss, "
+        f"grad_norm, loss_by_position {worst:.3e} (limit "
+        f"{TRAINER_CPU_RTOL})")
+    if len(card) != 3 or worst > TRAINER_CPU_RTOL:
+        raise AssertionError("small trainer: card and CPU differ")
+
+
+def phase_trainer(smi: str) -> None:
+    """The training loop at full width (a)-(c) and card against CPU (d),
+    with the packer; checkpoints under a temporary directory of the
+    checkout's ``build/``, removed afterwards."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_trainer_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        free = shutil.disk_usage(work).free
+        log(f"trainer phase: {free / 1e9:.1f} GB free under {work}")
+        if free < TRAINER_DISK_BYTES:
+            raise RuntimeError(
+                f"the trainer phase holds two 14.5 GB checkpoints at once "
+                f"and needs {TRAINER_DISK_BYTES / 1e9:.0f} GB free under "
+                f"{work}; {free / 1e9:.1f} GB are")
+        phase_packer(smi)
+        phase_trainer_small(work)
+        phase_trainer_entry(work, smi)
+        phase_trainer_resume(work, smi)
+        phase_trainer_uptrain(work, smi)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2173,6 +2521,7 @@ def main() -> None:
     del vparams
     launches.update(phase_families(smi))
     phase_train_quantize(config.get_config(MODEL))
+    phase_trainer(smi)
     log("block/vanilla generated tokens per second at B=8 p2048/d128, "
         "INT8 KV (smoke figures, not a benchmark): " + ", ".join(
             f"{q} {tok_s[(q, 'int8')] / tok_s['vanilla']:.3f}"

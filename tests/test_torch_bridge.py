@@ -132,3 +132,41 @@ def test_family_params_round_trip(family, quantized):
     assert (("embedder", "roberta") in tops and ("token_decoder", "t5") in tops
             if family == "cls_cross_attention" else
             ("token_decoder", "gpt_neo") in tops)
+
+
+@pytest.mark.parametrize("moments", ["fresh bf16", "updated float32"])
+def test_bf16_train_state_round_trip(moments):
+    """A JAX train state with bf16 parameters: optax's moments are bf16
+    before the first update and float32 after one fed float32 gradients
+    (the trainer's accumulator). Both cross to the port and back with
+    every leaf's dtype and bits; a state whose moments changed dtype goes
+    back into a ``like`` of fresh bf16 moments with its float32 ones."""
+    from block_transformer_tpu.train import optimizer as jax_opt
+    from block_transformer_tpu.train import train_step as jax_ts
+    cfg = jax_config.make_block_config("t", 64, 1, vocab_size=96)
+    tx, _ = jax_opt.make_optimizer(1e-3, 1, 10)
+    params = jax_bt.init_block_transformer_params(jax.random.PRNGKey(0), cfg,
+                                                  jnp.bfloat16)
+    fresh = jax.device_get(jax_ts.TrainState(params, tx.init(params),
+                                             np.int32(0)))
+    state = fresh
+    if moments == "updated float32":
+        grads = jax.tree.map(lambda p: jnp.full(p.shape, 0.01, jnp.float32),
+                             params)
+        _, opt_state = tx.update(grads, tx.init(params), params)
+        state = jax.device_get(jax_ts.TrainState(params, opt_state,
+                                                 np.int32(1)))
+    want = "bfloat16" if moments == "fresh bf16" else "float32"
+    adam = state.opt_state[1][0]
+    assert {np.asarray(a).dtype.name for a in jax.tree.leaves(adam.mu)} == {
+        want}
+    port = bridge.train_state_from_numpy(state, device="cpu")
+    assert {str(t.dtype) for _, t in _leaves(port.params)} == {
+        "torch.bfloat16"}
+    assert {str(t.dtype) for _, t in _leaves(port.opt_state.mu)} == {
+        f"torch.{want}"}
+    back = bridge.train_state_to_numpy(port, like=fresh)
+    assert (jax.tree_util.tree_structure(back)
+            == jax.tree_util.tree_structure(state))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(state)):
+        assert _same_bits(np.asarray(a), np.asarray(b))

@@ -258,10 +258,10 @@ def test_cross_attention_requires_t5():
                                  cls="gpt-neo-x")
 
 
-@pytest.mark.parametrize("name", sorted(chip_smoke.FAMILY_SHAPES))
+@pytest.mark.parametrize("name", sorted(chip_smoke.FAMILY_NAMES))
 def test_chip_smoke_family_configs_match_yaml(name):
-    """chip_smoke.py's literal family configs equal the JAX loader's
-    ``configs/<name>.yaml``, field for field."""
+    """chip_smoke.py's family configs (``configs/<name>.yaml`` through the
+    port's loader) equal the JAX loader's, field for field."""
     root = Path(__file__).resolve().parents[1]
     want = config_yaml.load_block_config_yaml(root / "configs"
                                               / f"{name}.yaml")

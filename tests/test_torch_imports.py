@@ -63,3 +63,15 @@ def test_the_walk_finds_the_training_and_gptq_modules():
     for module in ("train/optimizer.py", "train/train_step.py",
                    "data/packing.py", "ops/gptq.py"):
         assert f"{PORT}/{module}" in names
+
+
+@pytest.mark.parametrize("module", [
+    "config_yaml.py", "data/native.py", "data/block_split.py",
+    "data/mmap_dataset.py", "data/tokenizer.py",
+    "data/retokenized_corpus.py", "data/streaming.py", "data/dispatch.py",
+    "utils/checkpoint.py", "train/trainer.py", "train/vanilla_trainer.py",
+    "train/uptrain.py", "pretrain_block_transformer.py",
+    "pretrain_vanilla_transformer.py"])
+def test_the_walk_finds_the_training_loop_modules(module):
+    names = {f.relative_to(ROOT).as_posix() for f in FILES}
+    assert f"{PORT}/{module}" in names

@@ -9,7 +9,10 @@ module keeps a plain PyTorch version beside its wrapper, which runs it for
 tensors on the CPU. Training runs through ``pretrain_block_transformer.py``
 and ``pretrain_vanilla_transformer.py`` (the YAML configs, the packed
 corpus, ``train/trainer.py``), on the plain PyTorch paths under autograd.
-The package imports nothing of the JAX package.
+Evaluation runs through ``eval_zero_shot_task.py`` and ``eval_longctx.py``
+(the lm_eval-style harness of ``eval/``), and ``export_checkpoint.py`` and
+``utils/torch_import.py`` move trees to and from the reference's HF
+safetensors layout. The package imports nothing of the JAX package.
 """
 
 __version__ = "0.1.0"

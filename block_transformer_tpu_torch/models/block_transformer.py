@@ -46,6 +46,13 @@ def init_block_transformer_params(gen, cfg: BlockTransformerConfig,
     }
 
 
+def count_params(params) -> int:
+    """Elements in every tensor leaf of a (nested dict) parameter tree."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return params.numel()
+
+
 class BlockTransformerOutput(NamedTuple):
     logits: Optional[torch.Tensor]          # [B, N-1, L, V] float32
     loss: Optional[torch.Tensor]

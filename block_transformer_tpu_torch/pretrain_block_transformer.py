@@ -9,6 +9,16 @@ stanza, or a synthetic corpus for smoke runs) and run the ``Trainer``.
         --pile /data/pythia_pile_idxmaps/pile_0.87_deduped_text_document
     python -m block_transformer_tpu_torch.pretrain_block_transformer \\
         --model block_main_b4_5 --synthetic 10000 --steps 50 [--cpu]
+    python -m block_transformer_tpu_torch.pretrain_block_transformer \\
+        --config CONFIG.yaml --from_vanilla VANILLA_DIR \\
+        --uptrain_method partition
+
+``--from_vanilla`` reads a GPT-NeoX directory in the HF safetensors layout
+(``utils/torch_import.py``) named after its vanilla config (``vanilla_31``
+... ``vanilla_410``), seeds the block transformer from it
+(``train/uptrain.py``) and starts a fresh optimizer state. The config's
+embedder must take the vanilla embedding table (a ``projection_layer``
+embedder of the vanilla width): a ``concat`` embedder is narrower.
 
 It trains on the card unless ``--cpu`` is given.
 """
@@ -16,6 +26,7 @@ It trains on the card unless ``--cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 
@@ -73,21 +84,19 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--no_random_pad", action="store_true")
     ap.add_argument("--from_vanilla", default=None,
-                    help="vanilla checkpoint dir for uptraining init")
+                    help="vanilla checkpoint dir (HF safetensors) for "
+                         "uptraining init")
+    ap.add_argument("--uptrain_method", default="partition",
+                    choices=["skip", "partition", "duplicate"])
     ap.add_argument("--cpu", action="store_true",
                     help="train on the CPU instead of the card")
     args = ap.parse_args(argv)
 
-    from block_transformer_tpu_torch.config import get_config
+    from block_transformer_tpu_torch.config import (get_config,
+                                                    get_vanilla_config)
     from block_transformer_tpu_torch.train.trainer import (Trainer,
                                                            TrainerConfig)
 
-    if args.from_vanilla:
-        raise NotImplementedError(
-            "--from_vanilla reads a HF safetensors checkpoint through "
-            "utils/torch_import.py, which is not ported yet (ROADMAP.md, "
-            "Queue 1 item 4); train/uptrain.py's load_block_from_vanilla "
-            "takes a vanilla parameter tree directly")
     yaml_dict = None
     if args.config:
         from block_transformer_tpu_torch import config_yaml
@@ -115,6 +124,21 @@ def main(argv=None):
     ds = build_dataset(args, cfg.block_length, tcfg.max_length,
                        cfg.vocab_size, yaml_dict=yaml_dict)
     trainer = Trainer(cfg, tcfg, ds, device="cpu" if args.cpu else "cuda")
+
+    if args.from_vanilla:
+        from block_transformer_tpu_torch.train import train_step as ts
+        from block_transformer_tpu_torch.train import uptrain
+        from block_transformer_tpu_torch.utils import torch_import
+        van_cfg = get_vanilla_config(
+            os.path.basename(os.path.normpath(args.from_vanilla)))
+        sd = torch_import._load_safetensors_dir(args.from_vanilla)
+        vp = torch_import.neox_params_from_state_dict(sd, van_cfg,
+                                                      device=trainer.device)
+        new_params = uptrain.load_block_from_vanilla(
+            trainer.state.params, cfg, vp, van_cfg, method=args.uptrain_method)
+        trainer.state = ts.TrainState(new_params, trainer.tx.init(new_params),
+                                      trainer.state.step)
+
     state = trainer.train(resume=args.resume)
     print(f"finished at step {state.step}; checkpoints in {tcfg.output_dir}")
     return trainer

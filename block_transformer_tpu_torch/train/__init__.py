@@ -1,1 +1,2 @@
-"""Training: the AdamW optimizer with its schedule, and the train step."""
+"""Training: the AdamW optimizer with its schedule, the train step, the
+training loops, uptraining and the zero-shot evaluation hook."""

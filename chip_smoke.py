@@ -125,17 +125,46 @@ one process it:
    ``vanilla_160`` through ``pretrain_vanilla_transformer.main`` for 2
    steps, its parameters uptrained (``partition``) into
    ``block_uptrain_b4_85_10``'s decoders, 2 steps more; no hand kernel
-   may launch in any of them.
+   may launch in any of them;
+11. evaluates (``phase_eval``): (d) exports the full-width bf16
+   ``block_main_b4_1.2b`` tree to the HF safetensors layout under a
+   temporary directory of ``build/`` and reads it back onto the card, every
+   leaf equal bit for bit; (a) the fixture suite of ``assets/real_tasks``
+   through ``harness.evaluate`` and ``BlockTransformerLM`` (INT8 weights,
+   the byte tokenizer, batch 8, max_length 2048): LambadaOpenAI on 64
+   docs and Wikitext on 4 (the ``eval score`` path: W8A8 and K3, no cache
+   kernel), then TriviaQA on 8 docs zero-shot and 5-shot and GSM8K on 2
+   (``eval generate``: K1, K2 bf16 by both routes, K3, W8A8), each task's
+   seconds, requests/s and scored tokens/s and finite metrics (random
+   weights: no measure of quality); kernel rows at the scoring forward's
+   longest batch: K3 over its 513 blocks, W8A8-q/-mm at the LM head (N =
+   50304, a partial last tile) and the token decoder's mlp_up, asserting
+   the path took W8A8 at those M; (e) ``decompose_generation`` at B = 8
+   (INT8) with ``mfu_summary`` on the H100's peaks; (b) ``VanillaLM`` with
+   ``vanilla_410`` (INT8) on the 64 lambada docs (``eval vanilla``); (c)
+   ``eval_longctx.main`` in ``ppl`` mode (4 chunks of 2048) and ``needle``
+   mode (depths 0, 50, 100); (f) the adapter on the card against the CPU
+   at the small configuration (float32 loglikelihoods within
+   EVAL_F32_TOL, greedy flags and generations equal) and
+   ``pretrain_block_transformer.main --from_vanilla`` on a tiny vanilla
+   tree in the HF layout, one step; (g) the eval entry points as a user
+   calls them, at full width with float32 weights and ``--quantize int8``
+   on the byte tasks of a corpus written from the fixtures:
+   ``eval_zero_shot_task.main --random``, the same tree saved as
+   ``checkpoint-1`` and scored through ``--ckpt``, then
+   ``export_checkpoint.main`` on it and ``--ckpt`` of the HF tree, the
+   three results equal within EVAL_F32_TOL (``eval entry``: W8A8 and K3
+   by its float32 route), and kernel rows in float32 at its longest batch.
 
 Every timed full-width run of steps 5-9 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
 other one (the baseline: its 96 prefill linears at M = 16384 by W8A8),
-that K1, K3 and K4 launched by the tensor-core route only and W8A8-mm by
-its wgmma route only, and every one with a token decoder that K2's bf16
+that K1, K3 and K4 launched by the tensor-core route only (K3 by its
+float32 route on ``eval entry``) and W8A8-mm by its wgmma route only, and every one with a token decoder that K2's bf16
 form took the warp route there (its split route runs only on the bf16
 global cache). The last three lines are
 the ``nvidia-smi`` line, a JSON object listing each kernel's launches (from
-the run of step 5, 6, 7 or 8 named by the row's ``path``; a K6 or K8 row
+the run of step 5, 6, 7, 8 or 11 named by the row's ``path``; a K6 or K8 row
 counts the launches on its pool width, and a K2 bf16 row gives those of its
 own route as ``route_launches``), error and times, and
 ``{"ok": true, "device": {...}}``.
@@ -164,7 +193,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from block_transformer_tpu_torch import config  # noqa: E402
 from block_transformer_tpu_torch import config_yaml  # noqa: E402
+from block_transformer_tpu_torch import eval_longctx  # noqa: E402
+from block_transformer_tpu_torch import eval_zero_shot_task  # noqa: E402
+from block_transformer_tpu_torch import export_checkpoint  # noqa: E402
+from block_transformer_tpu_torch.data.tokenizer import ByteTokenizer  # noqa: E402
+from block_transformer_tpu_torch.eval import adapters as eval_adapters  # noqa: E402
+from block_transformer_tpu_torch.eval import harness as eval_harness  # noqa: E402
+from block_transformer_tpu_torch.eval import samplers as eval_samplers  # noqa: E402
+from block_transformer_tpu_torch.eval import tasks as eval_tasks  # noqa: E402
 from block_transformer_tpu_torch.data import native as native_packer  # noqa: E402
+from block_transformer_tpu_torch.data import mmap_dataset  # noqa: E402
 from block_transformer_tpu_torch.data import packing  # noqa: E402
 from block_transformer_tpu_torch import profile_generate as pg  # noqa: E402
 from block_transformer_tpu_torch.config import NeoXConfig  # noqa: E402
@@ -186,12 +224,18 @@ from block_transformer_tpu_torch.ops import quant  # noqa: E402
 from block_transformer_tpu_torch.train import optimizer as opt  # noqa: E402
 from block_transformer_tpu_torch.train import train_step as ts  # noqa: E402
 from block_transformer_tpu_torch.train import trainer as trainer_lib  # noqa: E402
+from block_transformer_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
+from block_transformer_tpu_torch.utils import profiling  # noqa: E402
+from block_transformer_tpu_torch.utils import roofline  # noqa: E402
+from block_transformer_tpu_torch.utils import torch_export  # noqa: E402
+from block_transformer_tpu_torch.utils import torch_import  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s and
 # int8 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+FP32_FLOPS = 67e12      # float32 outside the tensor cores
 TOL = 2e-2      # max |kernel - plain| / max |plain| in bf16 (~2^-8 rounding
                 # of outputs and probabilities, summed in another order)
 
@@ -268,7 +312,16 @@ PATH_KERNELS = {
     "engine paged-int4": ("K1", "K2 bf16", "K3", "K6 int4", "K8 int4",
                           *W8A8),
     "vanilla": ("K1", "K2", "K3", *W8A8),
+    # evaluation (phase_eval): scoring is a teacher-forced forward; the
+    # generation tasks' prompts fill a bf16 global cache
+    "eval score": ("K3", *W8A8),
+    "eval entry": ("K3", *W8A8),
+    "eval generate": ("K1", "K2 bf16", "K3", *W8A8),
+    "eval vanilla": ("K3", *W8A8),
+    "eval longctx ppl": ("K3",),
+    "eval longctx needle": ("K2 bf16", "K3"),
 }
+SERVING = ("K5", "K6", "K6 int4", "K7", "K8", "K8 int4")
 # the kernels a main path must not launch: INT4 weights leave K1 no linear;
 # the INT4 and bf16 caches take no INT8 cache kernel; the baseline has no
 # bf16 cache
@@ -281,7 +334,17 @@ PATH_ABSENT = {
     "engine paged": ("K6 int4", "K8 int4"),
     "engine paged-int4": ("K2", "K5", "K6", "K7", "K8"),
     "vanilla": ("K2 bf16",),
+    "eval score": ("K2", "K2 bf16", "K4", *SERVING),
+    "eval entry": ("K2", "K2 bf16", "K4", *SERVING),
+    "eval generate": ("K2", "K4", *SERVING),
+    "eval vanilla": ("K2", "K2 bf16", "K4", *SERVING),
+    "eval longctx ppl": ("K1", "K2", "K2 bf16", "K4", *W8A8, *SERVING),
+    "eval longctx needle": ("K1", "K2", "K4", *W8A8, *SERVING),
 }
+# the paths whose bf16 global cache (capacity > 32) takes K2 bf16's split
+# route; every other path runs it on the token decoder's local cache alone
+K2_SPLIT_PATHS = ("generation kv bf16", "eval generate",
+                  "eval longctx needle")
 
 
 def family_path(name: str) -> str:
@@ -305,6 +368,9 @@ ROUTED = {"K1": (k1.int8_matmul_stacked, "tc"),
           "K3": (k3.flash_attention, "tc"),
           "K4": (k1.int4_matmul_stacked, "tc"),
           "W8A8-mm": (w8a8.w8a8_matmul_stacked, "wgmma")}
+# the paths that take another route than ROUTED's: the eval entry point
+# scores float32 activations, which K1 and K3 take by their CUDA-core route
+PATH_ROUTES = {"eval entry": {"K1": "fma", "K3": "fma"}}
 
 
 def log(msg: str) -> None:
@@ -536,38 +602,42 @@ def w8a8_pair(x, w_q, scale, layer):
     return w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, layer, x.dtype)
 
 
-def w8a8_rows(rows, g, label, M, K, N, L, path):
-    """W8A8-q and W8A8-mm at x [M, K] @ an INT8 [L, K, N] stack: each
-    bit-exact against its plain version and timed beside it, beside
-    ``torch._int_mm`` (W8A8-mm's library yardstick; W8A8-q has none) and
-    beside K1 at the same shape, cycling through the layers. Returns (x,
-    w_q, scale, the layer cycler)."""
+def w8a8_rows(rows, g, label, M, K, N, L, path, dtype=torch.bfloat16):
+    """W8A8-q and W8A8-mm at x [M, K] (``dtype``, bf16 by default; the
+    output in it too) @ an INT8 [L, K, N] stack: each bit-exact against
+    its plain version and timed beside it, beside ``torch._int_mm``
+    (W8A8-mm's library yardstick; W8A8-q has none) and beside K1 at the
+    same shape, cycling through the layers. Returns (x, w_q, scale, the
+    layer cycler)."""
     dev, bf16 = "cuda", torch.bfloat16
     w_q, scale = quant.quantize_int8(torch.randn(
         (L, K, N), generator=g, device=dev, dtype=bf16) * 0.02)
-    x = torch.randn((M, K), generator=g, device=dev, dtype=bf16)
+    x = torch.randn((M, K), generator=g, device=dev, dtype=dtype)
     xq, sx = w8a8.w8a8_quant(x)
     exact_pair(f"W8A8-q {label}", (xq, sx), w8a8.w8a8_quant_plain(x))
-    got = w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, L - 1, bf16)
+    got = w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, L - 1, dtype)
     exact_pair(f"W8A8-mm {label}", (got,), (
-        w8a8.w8a8_matmul_stacked_plain(xq, sx, w_q, scale, L - 1, bf16),))
+        w8a8.w8a8_matmul_stacked_plain(xq, sx, w_q, scale, L - 1, dtype),))
     del got
     it = iter(range(10 ** 9))
     nxt = lambda: next(it) % L             # noqa: E731
     q_ms = time_ms(lambda: w8a8.w8a8_quant(x), 20)
     q_plain = time_ms(lambda: w8a8.w8a8_quant_plain(x), 5)
     mm_ms, mm_host_us = time_ms_host(lambda: w8a8.w8a8_matmul_stacked(
-        xq, sx, w_q, scale, nxt(), bf16), 20)
+        xq, sx, w_q, scale, nxt(), dtype), 20)
     mm_plain = time_ms(lambda: w8a8.w8a8_matmul_stacked_plain(
-        xq, sx, w_q, scale, nxt(), bf16), 3)
+        xq, sx, w_q, scale, nxt(), dtype), 3)
     lib_ms, layout = int_mm_ms(xq, w_q, nxt)
-    k1_ms = time_ms(lambda: k1.int8_matmul_stacked(x, w_q, scale, nxt()), 10)
+    # K1 beside it in bf16 only: its float32 route is the CUDA cores'
+    k1_ms = time_ms(lambda: k1.int8_matmul_stacked(x, w_q, scale, nxt()),
+                    10) if dtype == bf16 else None
     extra = {"k1_ms": k1_ms, "pair_ms": q_ms + mm_ms}
+    size = x.element_size()
     record(rows, "W8A8-q", f"{label} M={M} K={K}", 0.0, q_ms, q_plain,
-           None, M * K * 2 + M * K + M * 4, 0, path=path, extra=extra)
+           None, M * K * size + M * K + M * 4, 0, path=path, extra=extra)
     p = w8a8.plan(M, K, N, build.sm_count(0))
     record(rows, "W8A8-mm", f"{label} M={M} K={K} N={N}", 0.0, mm_ms,
-           mm_plain, lib_ms, M * K + K * N + M * 4 + N * 4 + M * N * 2,
+           mm_plain, lib_ms, M * K + K * N + M * 4 + N * 4 + M * N * size,
            2 * M * K * N, path=path, peak=INT8_OPS, host_us=mm_host_us,
            extra={**extra, "w8a8_plan": (
                       f"{p.route} {'x'.join(map(str, p.tile))} splits "
@@ -760,16 +830,17 @@ def launch_floor_ms(iters: int = 200) -> float:
     return time_ms(launch, iters)
 
 
-def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None):
+def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None,
+           route="tc", peak=BF16_FLOPS):
     """K3 against its plain version and SDPA, cycling through copies of
-    (q, k, v); asserts the tensor-core route."""
+    (q, k, v); asserts ``route`` (the tensor cores by default)."""
     q0, k0, v0 = qkv[0]
     B, H, Q, D = q0.shape
     K = k0.shape[2]
     before = dict(k3.flash_attention.route_launches)
     got = k3.flash_attention(q0, k0, v0, mask)
-    if k3.flash_attention.route_launches["tc"] != before["tc"] + 1:
-        raise AssertionError(f"K3 {label}: not the tensor-core route")
+    if k3.flash_attention.route_launches[route] != before[route] + 1:
+        raise AssertionError(f"K3 {label}: not the {route} route")
     want = k3.flash_attention_plain(q0, k0, v0, mask)
     err = compare(f"K3 {label}", got, want)
     del got, want
@@ -782,10 +853,11 @@ def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None):
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         *pick(), attn_mask=allowed), iters)
     k_rows, v_rows, ops = attention_need(mask, H, D)
-    nbytes = ((2 * B * H * Q + k_rows + v_rows) * D * 2
+    nbytes = ((2 * B * H * Q + k_rows + v_rows) * D * q0.element_size()
               + (B * Q + K + B * K) * 4)
     record(rows, "K3", label, err, ms, plain_ms, lib_ms, nbytes,
-           ops, path=path, extra={"attention_route": k3.route(q0.dtype, D, K)})
+           ops, path=path, peak=peak,
+           extra={"attention_route": k3.route(q0.dtype, D, K)})
 
 
 def phase_k3(rows, cfg, vcfg):
@@ -1571,7 +1643,7 @@ def read_launches(path: str) -> dict:
         if launches[tag]:
             raise AssertionError(f"{tag} was launched on the {path} path")
     for tag, by_route in routes.items():     # full width: one route only
-        want = ROUTED[tag][1]
+        want = PATH_ROUTES.get(path, {}).get(tag, ROUTED[tag][1])
         if by_route[want] != launches[tag] or sum(by_route.values()) != \
                 launches[tag]:
             raise AssertionError(f"{tag} took another route than {want} on "
@@ -1583,7 +1655,7 @@ def read_launches(path: str) -> dict:
     if "K2 bf16" in PATH_KERNELS[path] and k2_routes["warp"] <= 0:
         raise AssertionError(f"K2 bf16 did not take the warp route on the "
                              f"local cache of the {path} path: {k2_routes}")
-    if (k2_routes["split"] > 0) != (path == "generation kv bf16"):
+    if (k2_routes["split"] > 0) != (path in K2_SPLIT_PATHS):
         raise AssertionError(f"K2 bf16's split route on the {path} path: "
                              f"{k2_routes}")
     launches.update({f"K2 bf16 {r}": n for r, n in k2_routes.items()})
@@ -2444,6 +2516,517 @@ def phase_trainer(smi: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# evaluation (phase_eval)
+# ---------------------------------------------------------------------------
+
+EVAL_BATCH, EVAL_MAX_LENGTH = 8, 2048
+FEWSHOT = 5             # the few-shot TriviaQA's shots, drawn from the docs
+                        # past the evaluated 8
+FIXTURES = os.path.join(ROOT, "assets", "real_tasks")
+HAYSTACK = os.path.join(ROOT, "assets", "needle_haystack.txt")
+EXPORT_DISK_BYTES = 12e9   # the full-width tree in float32 (5.8 GB) twice over
+# card against CPU in float32, relative, on a loglikelihood sum or a metric:
+# the kernels' float32 results differ from the plain versions' only in the
+# order of their sums (measured 9.4e-8 at the small configuration); a wrong
+# kernel moves a random-init sum of ~ -n ln 512 by far more
+EVAL_F32_TOL = 1e-5
+ENTRY_LIMIT = 8            # docs of each byte task through the entry point
+# an uptraining config (3 + 3 layers of 256, 8 heads) whose projection-layer
+# embedder takes the vanilla_31 table
+FROM_VANILLA_YAML = """\
+name: uptrain_from_vanilla_31
+block_length: 4
+total_batch_size: 2
+per_device_train_batch_size: 1
+max_length: 32
+embedder:
+  cls: lookup
+  n_embedding_tokens: 1
+  projection_method: projection_layer
+  config: {vocab_size: 50304, hidden_size: 256}
+block_decoder:
+  cls: gpt-neo-x
+  config: {num_hidden_layers: 3, hidden_size: 256, num_attention_heads: 8}
+token_decoder:
+  cls: gpt-neo-x
+  expansion_method: expansion_layer
+  expansion_ratio: 2
+  decoding_strategy: prefix
+  config: {num_hidden_layers: 3, hidden_size: 256, num_attention_heads: 8}
+learning_rate: 6e-4
+precision: fp32
+num_train_steps: 10
+num_warmup_steps: 1
+save_steps: 100
+logging_steps: 1
+"""
+
+
+def fixture(name: str, n: int) -> list:
+    with open(os.path.join(FIXTURES, f"{name}.jsonl")) as f:
+        return [json.loads(line) for line in f][:n]
+
+
+class Counting:
+    """An LM adapter mixin counting the requests and scored continuation
+    tokens of a task."""
+
+    def reset(self):
+        self.requests, self.tokens = 0, 0
+
+    def _loglikelihood_tokens(self, requests):
+        self.requests += len(requests)
+        self.tokens += sum(len(c) for _, c in requests)
+        return super()._loglikelihood_tokens(requests)
+
+    def generate_until(self, requests):
+        self.requests += len(requests)
+        return super().generate_until(requests)
+
+
+class CountingBlockLM(Counting, eval_adapters.BlockTransformerLM):
+    pass
+
+
+class CountingVanillaLM(Counting, eval_adapters.VanillaLM):
+    pass
+
+
+class ScoringBatches:
+    """Records the (B, S, lengths) of every scoring batch that a
+    ``BlockTransformerLM`` runs inside, whoever built it."""
+
+    def __enter__(self):
+        self.seen, self._fn = [], eval_adapters.BlockTransformerLM._logits_fn
+
+        def fn(lm, inps, lengths):
+            self.seen.append((*inps.shape, lengths.cpu()))
+            return self._fn(lm, inps, lengths)
+
+        eval_adapters.BlockTransformerLM._logits_fn = fn
+        return self
+
+    def __exit__(self, *exc):
+        eval_adapters.BlockTransformerLM._logits_fn = self._fn
+
+
+class FewshotTriviaQA(eval_tasks.TriviaQA):
+    """TriviaQA with FEWSHOT exemplars before each question
+    (``samplers.build_fewshot_context``, drawn from ``pool``)."""
+
+    name = f"triviaqa_{FEWSHOT}shot"
+
+    def __init__(self, docs, pool):
+        super().__init__(docs=docs)
+        self._plain = eval_tasks.TriviaQA(docs=pool)
+        self._sampler = eval_samplers.FewshotSampler(pool)
+
+    def doc_to_text(self, doc):
+        return eval_samplers.build_fewshot_context(self._plain, doc, FEWSHOT,
+                                                   self._sampler)
+
+
+def eval_path(lm, task_list, path: str, smi: str):
+    """Each task through ``harness.evaluate`` between one launch-count
+    reset and the path's check: seconds, requests/s and scored tokens/s
+    each, metrics finite. Returns (launches, {task: results})."""
+    torch.cuda.synchronize()
+    reset_launches()
+    results = {}
+    with W8A8Decisions() as decisions:
+        for task in task_list:
+            lm.reset()
+            t0 = time.perf_counter()
+            res = eval_harness.evaluate(lm, [task])["results"][task.name]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if not all(math.isfinite(v) for v in res.values()):
+                raise AssertionError(f"{path} {task.name}: {res}")
+            results[task.name] = res
+            log(json.dumps({
+                "eval_task": task.name, "path": path,
+                "docs": len(task.docs()), "s": secs,
+                "requests": lm.requests, "requests_per_s": lm.requests / secs,
+                "scored_tokens": lm.tokens,
+                "scored_tokens_per_s": lm.tokens / secs,
+                "metrics": res, "note": "random weights: the metrics prove "
+                "the path, not the model's quality", "card": smi}))
+    launches = read_launches(path)
+    decisions.check(path, launches)
+    return launches, results, decisions
+
+
+def eval_kernel_rows(rows, cfg, batches, decisions, path="eval score",
+                     dtype=torch.bfloat16):
+    """The kernels at the scoring forward's new shapes, from its longest
+    batch (B rows of S tokens, the adapter's left pad of L - 1 and right
+    pad to a block boundary), in ``dtype``, the activations' (bf16, or
+    float32 with K3's CUDA-core route): K3 over the block decoder's N
+    blocks under the forward's block-causal mask (rows past their content
+    masked; the last 128-query tile partial), W8A8-q/-mm at the LM head (M
+    = B (N-1) L, N = vocab: a partial last 256-column tile) and at the
+    token decoder's mlp_up (M = B (N-1) (n_exp + L - 1)). Asserts that
+    ``path`` took W8A8 at these M."""
+    dev, bf16 = CARD, torch.bfloat16
+    f32 = dtype == torch.float32
+    g = torch.Generator(device=dev).manual_seed(15)
+    B, S, lengths = max(batches, key=lambda b: b[1])
+    L, n = cfg.block_length, cfg.n_embedding_tokens
+    left = L - 1
+    right = (-(S + left)) % L or L
+    N = (S + left + right) // L
+    pos = torch.arange(N * L)[None]
+    att = (pos >= left) & (pos < left + lengths[:, None])
+    att[torch.arange(B), left + lengths.long()] = True
+    bam = att.reshape(B, N, L).any(-1).to(torch.int32).to(dev)
+    mask = masks.block_decoder_train_mask(bam, n)
+    bcfg, tcfg = cfg.block_decoder, cfg.token_decoder.neox
+    H, D, Q = bcfg.num_heads, bcfg.head_dim, N * n
+    qkv = [tuple(torch.randn((B, H, Q, D), generator=g, device=dev,
+                             dtype=dtype) for _ in range(3))
+           for _ in range(3)]
+    kind = "float32 " if f32 else ""
+    k3_row(rows, f"{kind}scoring forward B={B} H={H} Q=K={Q} D={D}, rows "
+           f"of {lengths.min().item()}-{lengths.max().item()} tokens", qkv,
+           mask, 20, 3, path=path, route="fma" if f32 else "tc",
+           peak=FP32_FLOPS if f32 else BF16_FLOPS)
+    del qkv
+    Bb = B * (N - 1)
+    m_head, m_td = Bb * L, Bb * (cfg.n_expanded_emb + L - 1)
+    taken = {m for m, t in decisions.seen if t}
+    if not {m_head, m_td, B * Q} <= taken:
+        raise AssertionError(f"{path}: W8A8 at M {sorted(taken)}, not at "
+                             f"the head's {m_head}, the token decoder's "
+                             f"{m_td} and the block decoder's {B * Q}")
+    w8a8_rows(rows, g, f"{kind}scoring lm_head", m_head, tcfg.hidden_size,
+              tcfg.vocab_size, 1, path, dtype)
+    w8a8_rows(rows, g, f"{kind}scoring token decoder mlp_up", m_td,
+              tcfg.hidden_size, tcfg.intermediate_size, tcfg.num_layers,
+              path, dtype)
+
+
+def phase_eval_export(cfg, params, smi) -> None:
+    """(d) The full-width bf16 tree through ``export_block_transformer``
+    (float32 safetensors, the port's writer) into a temporary directory of
+    ``build/``, read back by ``torch_import.load_checkpoint`` onto the card
+    in bf16: every leaf equal bit for bit."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_export_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        free = shutil.disk_usage(work).free
+        if free < EXPORT_DISK_BYTES:
+            raise RuntimeError(f"the export needs {EXPORT_DISK_BYTES / 1e9:.0f}"
+                               f" GB free under {work}; {free / 1e9:.1f} GB "
+                               "are")
+        t0 = time.perf_counter()
+        torch_export.export_block_transformer(params, cfg, work)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(work) for f in fs)
+        t0 = time.perf_counter()
+        back = torch_import.load_checkpoint(work, cfg, dtype=torch.bfloat16,
+                                            device=CARD)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        got, want = dict(opt.tree_items(back)), dict(opt.tree_items(params))
+        bad = sorted(set(got) ^ set(want)) or [
+            k for k in want if got[k].dtype != want[k].dtype
+            or not torch.equal(got[k], want[k])]
+        if bad:
+            raise AssertionError(f"export / import: leaves differ: {bad[:4]}")
+        log(f"(d) {MODEL} bf16 ({bt.count_params(params)} parameters) "
+            f"exported to the HF layout: {nbytes} bytes (float32) written in "
+            f"{write_s:.2f} s, read back to the card in {read_s:.2f} s; "
+            f"{len(want)} leaves equal bit for bit [{smi}]")
+        del back
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_eval_longctx(smi) -> dict:
+    """(c) ``eval_longctx.main`` at full width (random bf16 weights): ppl
+    over 2 synthetic docs (4 chunks of 2048, one batch of 4), then needle
+    over ``assets/needle_haystack.txt`` at depths 0, 50 and 100 (3
+    templates each, 2048-token prompts, 16 new tokens, byte tokenizer).
+    Returns {path: launches}."""
+    out = {}
+    for path, argv in (
+            ("eval longctx ppl", ["ppl", "--synthetic-docs", "2"]),
+            ("eval longctx needle", ["needle", "--haystack", HAYSTACK,
+                                     "--depths", "0,50,100", "--tokenizer",
+                                     "byte"])):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = eval_longctx.main(argv + ["--model", MODEL, "--random",
+                                        "--context", "2048"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[path] = read_launches(path)
+        if path == "eval longctx ppl":
+            ok = (res["n_chunks"] == 4 and math.isfinite(res["mean_loss"])
+                  and len(res["loss_by_position"]) == 2048 - 4)
+            what = f"{res['n_chunks']} chunks, mean loss {res['mean_loss']}"
+        else:
+            scores = res["scores_by_depth"]
+            ok = sorted(scores) == [0.0, 50.0, 100.0] and all(
+                0.0 <= v <= 1.0 for v in scores.values())
+            what = f"retrieval by depth {scores}"
+        if not ok:
+            raise AssertionError(f"{path}: {res}")
+        log(f"(c) {path}: eval_longctx.main {secs:.2f} s with the random "
+            f"init; {what} (random weights: no measure of quality) [{smi}]")
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_eval_small(smi) -> None:
+    """(f) The block adapter on the card against the CPU at the small
+    configuration (INT8 weights, float32; the CPU takes W8A8's plain
+    versions where the card takes W8A8, through the card gate opened for
+    it): 8 lambada loglikelihoods and 1 wikitext page's rolling windows
+    within EVAL_F32_TOL relative with equal greedy flags, and 4 TriviaQA
+    generations equal. Then ``--from_vanilla`` on the card: a random
+    ``vanilla_31`` tree in the HF layout (a directory named after its
+    config) uptrained into FROM_VANILLA_YAML (``partition``), one step."""
+    from block_transformer_tpu_torch import pretrain_block_transformer
+    cfg, qparams = small_config()
+    tok = ByteTokenizer()
+    reqs = [(d["text"].rsplit(" ", 1)[0], " " + d["text"].rsplit(" ", 1)[1])
+            for d in fixture("lambada_pg", 8)]
+    page = [d["page"] for d in fixture("wikitext_pg", 1)]
+    trivia = eval_tasks.TriviaQA(docs=fixture("trivia_real", 4))
+    greqs = [r[1] for d in trivia.docs() for r in trivia.build_requests(d)]
+    out = []
+    for params, on_card in ((qparams, False), (to_card(qparams), True)):
+        lm = eval_adapters.BlockTransformerLM(params, cfg, tok,
+                                              max_length=256, batch_size=4)
+        gate = linear_ops._on_card
+        if not on_card:
+            linear_ops._on_card = lambda x: True
+        try:
+            out.append((lm.loglikelihood(reqs),
+                        lm.loglikelihood_rolling(page),
+                        lm.generate_until(greqs)))
+        finally:
+            linear_ops._on_card = gate
+    (cpu_ll, cpu_roll, cpu_gen), (card_ll, card_roll, card_gen) = out
+    worst = max(abs(a - b) / abs(b) for a, b in
+                [(x[0], y[0]) for x, y in zip(card_ll, cpu_ll)]
+                + list(zip(card_roll, cpu_roll)))
+    if worst > EVAL_F32_TOL or [g for _, g in card_ll] != [
+            g for _, g in cpu_ll] \
+            or card_gen != cpu_gen:
+        raise AssertionError(f"eval small: card and CPU differ: {card_ll} / "
+                             f"{cpu_ll}, {card_roll} / {cpu_roll}, "
+                             f"{card_gen} / {cpu_gen}")
+    log(f"(f) small adapter card vs CPU (INT8, float32): 8 loglikelihoods "
+        f"and {len(page)} rolling page, max relative diff {worst:.3e} (limit "
+        f"{EVAL_F32_TOL}), greedy flags equal; {len(greqs)} generations "
+        "equal")
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_uptrain_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        yaml_path = os.path.join(work, "uptrain.yaml")
+        with open(yaml_path, "w") as f:
+            f.write(FROM_VANILLA_YAML)
+        vcfg = config.get_vanilla_config("vanilla_31")
+        vdir = os.path.join(work, "vanilla_31")
+        vp = vanilla.init_vanilla_params(7, vcfg, device="cpu")
+        torch_export._write_component(vdir, torch_export.neox_state_dict(
+            vp, vcfg), torch_export._neox_hf_config(vcfg))
+        out_dir = os.path.join(work, "out")
+        before = launch_counts()
+        t = pretrain_block_transformer.main([
+            "--config", yaml_path, "--synthetic", "4000", "--steps", "1",
+            "--output_dir", out_dir, "--from_vanilla", vdir])
+        assert_no_launch(before, "the uptrained step")
+        recs = metrics_records(out_dir)
+        finite_records(recs, "from_vanilla")
+        devices = {p.device.type for p in opt.tree_leaves(t.state.params)}
+        if t.state.step != 1 or devices != {torch.device(CARD).type}:
+            raise AssertionError(f"from_vanilla: step {t.state.step}, "
+                                 f"{devices}")
+        log(f"(f) --from_vanilla (vanilla_31 in the HF layout, partition "
+            f"into 3 + 3 layers) on the card: step 1 loss "
+            f"{recs[-1]['loss']:.5f} [{smi}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def write_byte_corpus(prefix: str) -> None:
+    """The fixtures' texts (the wikitext pages first, then the lambada
+    passages and the haystack), byte-tokenized, as the indexed corpus at
+    ``prefix`` that ``--byte_corpus`` reads."""
+    tok = ByteTokenizer()
+    texts = ([d["page"] for d in fixture("wikitext_pg", None)]
+             + [d["text"] for d in fixture("lambada_pg", None)])
+    with open(HAYSTACK) as f:
+        texts.append(f.read())
+    mmap_dataset.write_mmap_dataset(prefix, [tok.encode(t) for t in texts])
+
+
+def entry_eval(argv, what: str, smi: str):
+    """``eval_zero_shot_task.main(argv)`` between a launch-count reset and
+    the ``eval entry`` path's check, its W8A8 decisions checked too; the
+    byte tasks' metrics finite. Returns (launches, results, decisions,
+    the scoring batches)."""
+    path = "eval entry"
+    torch.cuda.synchronize()
+    reset_launches()
+    with W8A8Decisions() as decisions, ScoringBatches() as batches:
+        t0 = time.perf_counter()
+        res = eval_zero_shot_task.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = read_launches(path)
+    decisions.check(path, launches)
+    results = res["results"]
+    if sorted(results) != ["pybytes_nextchunk", "pybytes_wikitext"] or not \
+            all(math.isfinite(v) for r in results.values()
+                for v in r.values()):
+        raise AssertionError(f"{path} {what}: {results}")
+    log(json.dumps({"eval_entry": what, "s": secs, "scored_rows": sum(
+        b[0] for b in batches.seen), "metrics": results, "note": "main() with loading and quantization; "
+        "random weights: the metrics prove the path, not the model's "
+        "quality", "card": smi}))
+    torch.cuda.empty_cache()
+    return launches, results, decisions, batches.seen
+
+
+def phase_eval_entry(rows, cfg, smi) -> dict:
+    """(g) The eval entry points as a user calls them, at full width:
+    float32 weights as the JAX script loads them, ``--quantize int8``, the
+    byte tasks (ENTRY_LIMIT docs each) of a corpus written from the
+    fixtures under a temporary directory of ``build/``.
+    ``eval_zero_shot_task.main --random``; the same seed-0 float32 tree
+    saved as ``checkpoint-1`` and scored through ``--ckpt`` (the train-state
+    branch of ``_load_params``); ``export_checkpoint.main`` on that run and
+    ``--ckpt`` of the HF tree it writes (the safetensors branch). The three
+    results agree within EVAL_F32_TOL. Kernel rows in float32 at the
+    longest scoring batch. Returns {path: launches}."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_entry_",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        free = shutil.disk_usage(work).free
+        if free < EXPORT_DISK_BYTES:
+            raise RuntimeError(f"the entry points need "
+                               f"{EXPORT_DISK_BYTES / 1e9:.0f} GB free under "
+                               f"{work}; {free / 1e9:.1f} GB are")
+        prefix = os.path.join(work, "bytes")
+        write_byte_corpus(prefix)
+        common = ["--model", MODEL, "--quantize", "int8", "--byte_corpus",
+                  prefix, "--limit", str(ENTRY_LIMIT), "--batch_size",
+                  str(EVAL_BATCH), "--max_length", str(EVAL_MAX_LENGTH)]
+        launches, want, decisions, batches = entry_eval(
+            common + ["--random"], "--random", smi)
+
+        params = bt.init_block_transformer_params(0, cfg, dtype=torch.float32,
+                                                  device=CARD)
+        run, hf = os.path.join(work, "run"), os.path.join(work, "hf")
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(run, 1, ts.TrainState(params, None, 1))
+        save_s = time.perf_counter() - t0
+        del params
+        t0 = time.perf_counter()
+        export_checkpoint.main(["--model", MODEL, "--run_dir", run, "--out",
+                                hf])
+        export_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        log(f"(g) {MODEL} float32 seed 0: checkpoint-1 saved in {save_s:.2f}"
+            f" s; export_checkpoint.main {export_s:.2f} s [{smi}]")
+        for what, src in (("--ckpt checkpoint-1",
+                           os.path.join(run, "checkpoint-1")),
+                          ("--ckpt HF tree", hf)):
+            _, got, *_ = entry_eval(common + ["--ckpt", src], what, smi)
+            worst = max(abs(got[t][k] - v) / max(abs(v), 1e-30)
+                        for t, r in want.items() for k, v in r.items())
+            if sorted(got) != sorted(want) or worst > EVAL_F32_TOL:
+                raise AssertionError(f"eval entry {what}: {got} != --random's "
+                                     f"{want}")
+            log(f"(g) {what}: the --random results within {worst:.3e} "
+                f"relative (limit {EVAL_F32_TOL})")
+        eval_kernel_rows(rows, cfg, batches, decisions, "eval entry",
+                         torch.float32)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"eval entry": launches}
+
+
+def phase_eval(rows, smi) -> dict:
+    """Evaluation at full width: ``block_main_b4_1.2b``, random bf16 weights
+    from a seed, quantized INT8 as ``--quantize int8`` does, the byte
+    tokenizer, batch 8, max_length 2048 (d, a, e), ``vanilla_410`` INT8
+    (b), the long-context entry point (c), card against CPU and
+    ``--from_vanilla`` at small sizes (f), then the zero-shot and export
+    entry points in float32 (g). Returns {path: launches}."""
+    out = {}
+    cfg = config.get_config(MODEL)
+    t0 = time.perf_counter()
+    params = bt.init_block_transformer_params(0, cfg, dtype=torch.bfloat16,
+                                              device=CARD)
+    phase_eval_export(cfg, params, smi)
+    q8 = quant.quantize_block_transformer(params, bits=8)
+    del params
+    torch.cuda.synchronize()
+    log(f"eval: {MODEL} random init + export + int8 quantization "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # (a) the fixture suite through the harness
+    tok = ByteTokenizer()
+    lm = CountingBlockLM(q8, cfg, tok, max_length=EVAL_MAX_LENGTH,
+                         batch_size=EVAL_BATCH)
+    score = [eval_tasks.LambadaOpenAI(docs=fixture("lambada_pg", 64)),
+             eval_tasks.Wikitext(docs=fixture("wikitext_pg", 4))]
+    trivia = fixture("trivia_real", 30)
+    generate = [eval_tasks.TriviaQA(docs=trivia[:8]),
+                FewshotTriviaQA(trivia[:8], trivia[8:]),
+                eval_tasks.GSM8K(docs=fixture("gsm8k_style", 2))]
+    torch.cuda.reset_peak_memory_stats()
+    with ScoringBatches() as batches:
+        out["eval score"], _, decisions = eval_path(lm, score, "eval score",
+                                                    smi)
+    log(f"eval score: peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    out["eval generate"], _, _ = eval_path(lm, generate, "eval generate",
+                                           smi)
+    eval_kernel_rows(rows, cfg, batches.seen, decisions)
+
+    # (e) the two-level decode's stages, one at a time
+    d = profiling.decompose_generation(q8, cfg, batch=EVAL_BATCH,
+                                       n_blocks=32, n_rep=3)
+    m = roofline.mfu_summary(cfg, batch=EVAL_BATCH, prefill=cfg.block_length,
+                             decode=0, kv_cache="bf16", quantize="int8",
+                             bd_ms=d["block_decoder_s"] * 1e3,
+                             td_ms=d["token_decoder_s"] * 1e3)
+    log(json.dumps({"decompose_generation": d, "batch": EVAL_BATCH,
+                    "weights": "int8", "mfu_summary": m,
+                    "peaks": [roofline.PEAK_BF16_FLOPS,
+                              roofline.PEAK_HBM_GBPS], "card": smi}))
+    del lm, q8
+    torch.cuda.empty_cache()
+
+    # (b) the baseline's adapter on the same lambada docs
+    vcfg, vparams = pg.vanilla_model(seed=0, quantize="int8")
+    vlm = CountingVanillaLM(vparams, vcfg, tok, max_length=EVAL_MAX_LENGTH,
+                            batch_size=EVAL_BATCH)
+    out["eval vanilla"], _, _ = eval_path(
+        vlm, [eval_tasks.LambadaOpenAI(docs=fixture("lambada_pg", 64))],
+        "eval vanilla", smi)
+    del vlm, vparams
+    torch.cuda.empty_cache()
+
+    out.update(phase_eval_longctx(smi))
+    phase_eval_small(smi)
+    out.update(phase_eval_entry(rows, cfg, smi))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2522,6 +3105,7 @@ def main() -> None:
     launches.update(phase_families(smi))
     phase_train_quantize(config.get_config(MODEL))
     phase_trainer(smi)
+    launches.update(phase_eval(rows, smi))
     log("block/vanilla generated tokens per second at B=8 p2048/d128, "
         "INT8 KV (smoke figures, not a benchmark): " + ", ".join(
             f"{q} {tok_s[(q, 'int8')] / tok_s['vanilla']:.3f}"

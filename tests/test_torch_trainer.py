@@ -364,9 +364,102 @@ def test_synthetic_corpus_equals_the_jax_script(tmp_path):
         assert len(got) == len(want)
 
 
-def test_from_vanilla_is_not_ported_yet(tmp_path):
-    cfg = tmp_path / "tiny.yaml"
-    cfg.write_text(TINY_YAML)
-    with pytest.raises(NotImplementedError, match="torch_import"):
-        entry.main(["--config", str(cfg), "--synthetic", "4000",
-                    "--from_vanilla", str(tmp_path), "--cpu"])
+UPTRAIN_YAML = """\
+name: uptrain_from_vanilla_31
+block_length: 4
+total_batch_size: 2
+per_device_train_batch_size: 1
+max_length: 32
+embedder:
+  cls: lookup
+  n_embedding_tokens: 1
+  projection_method: projection_layer
+  config: {{vocab_size: 50304, hidden_size: 256}}
+block_decoder:
+  cls: gpt-neo-x
+  config: {{num_hidden_layers: {layers}, hidden_size: 256, num_attention_heads: 8}}
+token_decoder:
+  cls: gpt-neo-x
+  expansion_method: expansion_layer
+  expansion_ratio: 2
+  decoding_strategy: prefix
+  config: {{num_hidden_layers: {layers}, hidden_size: 256, num_attention_heads: 8}}
+learning_rate: 6e-4
+precision: fp32
+num_train_steps: 10
+num_warmup_steps: 1
+save_steps: 100
+logging_steps: 1
+"""
+
+
+@pytest.mark.parametrize("method,layers", [("skip", 3), ("partition", 3)])
+def test_from_vanilla_uptrains_as_jax(tmp_path, monkeypatch, method, layers):
+    """``--from_vanilla`` on a ``vanilla_31`` tree (6 layers of 256, the
+    directory named after its config, as the JAX script reads it) written
+    in the HF layout by JAX's exporter (the safetensors package), into
+    block and token decoders of ``layers`` layers (``duplicate``, equal
+    depth, is held in ``tests/test_torch_uptrain.py``) with a
+    projection-layer embedder of the vanilla width: the uptrained tree the
+    trainer starts from equals JAX's ``load_block_from_vanilla`` on that
+    state dict, from the same initial block tree, bit for bit (float32);
+    the optimizer state is fresh and the step trains."""
+    from block_transformer_tpu import config as jax_config
+    from block_transformer_tpu import config_yaml as jax_config_yaml
+    from block_transformer_tpu.models import vanilla as jax_vanilla
+    from block_transformer_tpu.train import uptrain as jax_uptrain
+    from block_transformer_tpu.utils import torch_export as jax_export
+    from block_transformer_tpu.utils import torch_import as jax_import
+    from block_transformer_tpu_torch.train import uptrain
+
+    cfg_path = tmp_path / "uptrain.yaml"
+    cfg_path.write_text(UPTRAIN_YAML.format(layers=layers))
+    jcfg = jax_config_yaml.load_block_config_yaml(str(cfg_path))
+    vcfg = jax_config.get_vanilla_config("vanilla_31")
+    vp = jax.device_get(jax_vanilla.init_vanilla_params(
+        jax.random.PRNGKey(5), vcfg))
+    sd = jax_export.neox_state_dict(vp, vcfg)
+    van_dir = str(tmp_path / "vanilla_31")
+    jax_export._write_component(van_dir, sd, jax_export._neox_hf_config(vcfg))
+
+    seen = {}
+    real_load, real_train = uptrain.load_block_from_vanilla, \
+        trainer.Trainer.train
+
+    def copy(tree):
+        return jax.tree.map(np.array, bridge.params_to_numpy(tree))
+
+    def load_spy(block_params, cfg, vanilla_params, vanilla_cfg, **kw):
+        seen["before"], seen["kw"] = copy(block_params), kw
+        out = real_load(block_params, cfg, vanilla_params, vanilla_cfg, **kw)
+        seen["after"] = copy(out)
+        return out
+
+    def train_spy(self, resume=False):
+        seen["start"] = (self.state.step, self.state.opt_state.count,
+                         copy(self.state.params))
+        return real_train(self, resume)
+
+    monkeypatch.setattr(uptrain, "load_block_from_vanilla", load_spy)
+    monkeypatch.setattr(trainer.Trainer, "train", train_spy)
+    out = tmp_path / "out"
+    t = entry.main(["--config", str(cfg_path), "--synthetic", "4000",
+                    "--steps", "1", "--output_dir", str(out),
+                    "--from_vanilla", van_dir, "--uptrain_method", method,
+                    "--cpu"])
+    assert seen["kw"] == {"method": method}
+    want = jax.device_get(jax_uptrain.load_block_from_vanilla(
+        seen["before"], jcfg,
+        jax_import.neox_params_from_state_dict(sd, vcfg), vcfg,
+        method=method))
+    step, count, start = seen["start"]
+    assert step == 0 and count == 0
+    for tree in (seen["after"], start):
+        flat = jax.tree_util.tree_leaves_with_path(tree)
+        flat_want = dict(jax.tree_util.tree_leaves_with_path(want))
+        assert len(flat) == len(flat_want)
+        for path, leaf in flat:
+            np.testing.assert_array_equal(leaf, np.asarray(flat_want[path]),
+                                          err_msg=jax.tree_util.keystr(path))
+    recs = records(str(out))
+    assert t.state.step == 1 and np.isfinite(recs[-1]["loss"])

@@ -1,8 +1,9 @@
 // PTX helpers shared by the tensor-core kernels (K1/K4 in dequant_matmul.cu,
 // K3 in flash_attention.cu; W8A8-mm in w8a8.cu takes the shared-memory
 // address and bf16 packing): cp.async copies into shared memory, ldmatrix
-// fragment loads, the bf16 mma.sync product, and exact int8 / int4 -> float
-// widening (also used by K2 and K6).
+// fragment loads, the bf16 mma.sync product, the TF32 product and its
+// three-pass float32 form (3xTF32, K3's float32 route), and exact int8 /
+// int4 -> float widening (also used by K2 and K6).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -65,6 +66,47 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+// as cvt.rna.tf32.f32 rounds, as a float's bits: half of the 13 dropped
+// bits' weight is added to the magnitude, then they are cleared. Two
+// integer operations, where the conversion is slower on the card.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|), hi and lo TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a[16 x 8] @ b[8 x 8], TF32 operands, float32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a @ b to about float32's precision (3xTF32), as big + small: small +=
+// a_lo b_hi + a_hi b_lo, then big += a_hi b_hi (a_lo b_lo, 2^-22 relative,
+// is left out). big and small may be one accumulator. The tensor cores'
+// float32 accumulation truncates: a chain of many products drifts by far
+// more than float32's rounding, so the callers keep their chains short and
+// add the chains' sums in rounded float adds.
+__device__ __forceinline__ void mma_tf32x3(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(small, al, bh[0], bh[1]);
+  mma_tf32(small, ah, bl[0], bl[1]);
+  mma_tf32(big, ah, bh[0], bh[1]);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

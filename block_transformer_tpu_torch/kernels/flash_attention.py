@@ -5,10 +5,12 @@
 q ``[B, H, Q, D]`` against k, v ``[B, H, K, D]`` under an ``AttnMask``; the
 CUDA kernels (``csrc/flash_attention.cu``) build the mask per tile from the
 index vectors and run a float32 online softmax. Any Q and K; any head
-dim D <= 128. Which kernel is one pure function, ``route``: the tensor-core
-kernel (``"tc"``: bf16 with D = 64 or 128, the main path's and the
-baseline's head dims; it skips key tiles no query of its tile may see) or
-the CUDA-core kernel (``"fma"``: float32 and every other head dim).
+dim D <= 128. Which kernel is one pure function, ``route``: for D = 64 or
+128 (the main path's and the baseline's head dims) the tensor-core kernel,
+``"tc"`` for bf16 and ``"tf32x3"`` for float32 (each product as three TF32
+products, to about float32's precision); both skip key tiles no query of
+their tile may see. Every other head dim, and unaligned operands, take the
+CUDA-core kernel (``"fma"``).
 
 The plain version is ``attention_xla``. Keys past K are left out of the
 kernel's softmax, so a query row with no allowed key averages the K real
@@ -33,8 +35,10 @@ from block_transformer_tpu_torch.ops.attention import attention_xla
 
 MAX_HEAD_DIM = 128
 TC_HEAD_DIMS = (64, 128)
-TC_MAX_KEYS = 256 * 32 * 64     # the tensor-core kernel's tile bitmask
+TC_MAX_KEYS = 256 * 32 * 64     # the tensor-core kernels' tile bitmasks
 _TC_ALIGN = 16                  # bytes of one cp.async copy
+# the C entry's route codes
+ROUTE_CODES = {"fma": 0, "tc": 1, "tf32x3": 2}
 
 
 def supported_head_dim(D: int) -> bool:
@@ -42,12 +46,14 @@ def supported_head_dim(D: int) -> bool:
 
 
 def route(dtype, D: int, K: int, aligned: bool = True) -> str:
-    """"tc" (tensor cores) for bf16 with D in TC_HEAD_DIMS, K within the
-    kernel's bitmask and 16-byte aligned operands; "fma" (CUDA cores)
-    otherwise."""
-    if (dtype == torch.bfloat16 and D in TC_HEAD_DIMS and K <= TC_MAX_KEYS
-            and aligned):
-        return "tc"
+    """With D in TC_HEAD_DIMS, K within the kernels' bitmask and 16-byte
+    aligned operands, the tensor cores: "tc" for bf16, "tf32x3" for
+    float32; "fma" (CUDA cores) otherwise."""
+    if D in TC_HEAD_DIMS and K <= TC_MAX_KEYS and aligned:
+        if dtype == torch.bfloat16:
+            return "tc"
+        if dtype == torch.float32:
+            return "tf32x3"
     return "fma"
 
 
@@ -108,7 +114,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device.index or 0
     err = _fn()(*ptrs[:3], q_idx.data_ptr(), kv_idx.data_ptr(),
                 kv_valid.data_ptr(), ptrs[3], B, H, Q, K, D,
-                int(q.dtype == torch.bfloat16), int(r == "tc"),
+                int(q.dtype == torch.bfloat16), ROUTE_CODES[r],
                 build.raw_stream(dev))
     build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -117,4 +123,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.route_launches = {"tc": 0, "fma": 0}
+flash_attention.route_launches = dict.fromkeys(ROUTE_CODES, 0)

@@ -50,10 +50,11 @@ one process it:
    caches, of INT4- and mixed48-weight INT8-KV generation, of the vanilla
    baseline (INT8 and INT4 weights, INT8 KV), of the serving engine
    with each of its four quantized caches (contiguous INT8 and INT4, paged
-   INT8 and INT4), of ``block_main_b4_5`` (INT8) with W8A8 at every M, and
-   of the streaming prefill on the bf16, INT8 and INT4 caches; then the
-   quantization workflow at ``block_main_b4_5``: two train steps, plain
-   and QAT ``mixed48`` (loss, grad_norm and every parameter leaf within
+   INT8 and INT4; K3's route logged and checked), of ``block_main_b4_5``
+   (INT8) with W8A8 at every M, and of the streaming prefill on the bf16,
+   INT8 and INT4 caches; then the quantization workflow at
+   ``block_main_b4_5``: two train steps, plain and QAT ``mixed48`` (loss,
+   grad_norm and every parameter leaf within
    1e-5 relative of the CPU's), and GPTQ INT4 trees (at least 99.9% of Q
    equal to the CPU's, the rest one step apart, the differences counted);
    then every ablation family at a small size (INT8 weights): forward
@@ -145,7 +146,10 @@ one process it:
    ``eval_longctx.main`` in ``ppl`` mode (4 chunks of 2048) and ``needle``
    mode (depths 0, 50, 100); (f) the adapter on the card against the CPU
    at the small configuration (float32 loglikelihoods within
-   EVAL_F32_TOL, greedy flags and generations equal) and
+   EVAL_F32_TOL, greedy flags and generations equal; K3 and K1 by their
+   CUDA-core routes there, head dim 32 and float32 x, and a row of each
+   counting those launches: K3 at that scoring shape, K1 at a float32
+   decode shape of ``block_main_b4_1.2b``) and
    ``pretrain_block_transformer.main --from_vanilla`` on a tiny vanilla
    tree in the HF layout, one step; (g) the eval entry points as a user
    calls them, at full width with float32 weights and ``--quantize int8``
@@ -154,13 +158,16 @@ one process it:
    ``checkpoint-1`` and scored through ``--ckpt``, then
    ``export_checkpoint.main`` on it and ``--ckpt`` of the HF tree, the
    three results equal within EVAL_F32_TOL (``eval entry``: W8A8 and K3
-   by its float32 route), and kernel rows in float32 at its longest batch.
+   by its float32 tensor-core route, 3xTF32), and kernel rows in float32
+   at its longest batch (K3 within K3_F32_TOL of its plain version, beside
+   its CUDA-core kernel timed at the same inputs).
 
 Every timed full-width run of steps 5-9 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
 other one (the baseline: its 96 prefill linears at M = 16384 by W8A8),
 that K1, K3 and K4 launched by the tensor-core route only (K3 by its
-float32 route on ``eval entry``) and W8A8-mm by its wgmma route only, and every one with a token decoder that K2's bf16
+float32 one, ``tf32x3``, on ``eval entry``) and W8A8-mm by its wgmma
+route only, and every one with a token decoder that K2's bf16
 form took the warp route there (its split route runs only on the bf16
 global cache). The last three lines are
 the ``nvidia-smi`` line, a JSON object listing each kernel's launches (from
@@ -236,6 +243,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 FP32_FLOPS = 67e12      # float32 outside the tensor cores
+# float32 products on the TF32 tensor cores three times over (K3's tf32x3
+# route): a third of the 495 TFLOP/s TF32 rate
+TF32X3_FLOPS = 495e12 / 3
 TOL = 2e-2      # max |kernel - plain| / max |plain| in bf16 (~2^-8 rounding
                 # of outputs and probabilities, summed in another order)
 
@@ -369,8 +379,9 @@ ROUTED = {"K1": (k1.int8_matmul_stacked, "tc"),
           "K4": (k1.int4_matmul_stacked, "tc"),
           "W8A8-mm": (w8a8.w8a8_matmul_stacked, "wgmma")}
 # the paths that take another route than ROUTED's: the eval entry point
-# scores float32 activations, which K1 and K3 take by their CUDA-core route
-PATH_ROUTES = {"eval entry": {"K1": "fma", "K3": "fma"}}
+# scores float32 activations, which K1 takes by its CUDA-core route and K3
+# by its float32 tensor-core route (3xTF32)
+PATH_ROUTES = {"eval entry": {"K1": "fma", "K3": "tf32x3"}}
 
 
 def log(msg: str) -> None:
@@ -380,14 +391,16 @@ def log(msg: str) -> None:
 def kernel_label(line: str) -> str:
     """A short name for ptxas's mangled entry function: the kernel's name,
     its element type and its integer and bool template arguments, e.g.
-    tc_matmul_kernel<16,128,32,16,16,6,3,0> or int8_matmul_kernel<f32,4>."""
+    tc_matmul_kernel<16,128,32,16,16,6,3,0>, int8_matmul_kernel<f32,4> or
+    flash_attn_tc_kernel<f32,128,4,1,32> (the tile's type, then its ints)."""
     mangled = line.split("'")[1] if "'" in line else line
     m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?_kernel)I(.*?)EEv", mangled)
     if m is None:
         return mangled[-40:]
     args = m.group(2)
-    kind = ("f32" if args.startswith("f") else
-            "bf16" if args.startswith("13__nv_bfloat16") else None)
+    kind = ("f32" if args.startswith("f") or "IfL" in args else
+            "bf16" if args.startswith("13__nv_bfloat16")
+            or "I13__nv_bfloat16" in args else None)
     return m.group(1) + "<" + ",".join(
         ([kind] if kind else []) + re.findall(r"L[ib](\d+)E", args)) + ">"
 
@@ -442,14 +455,15 @@ def attention_need(mask: masks.AttnMask, H: int, D: int, B: int = 1):
     return H * k_rows, H * v_rows, H * ops
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def compare(name: str, got: torch.Tensor, want: torch.Tensor,
+            tol: float = TOL) -> float:
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
-    if err > TOL * scale:
+    if err > tol * scale:
         raise AssertionError(f"{name}: max |kernel - plain| {err:.3e} > "
-                             f"{TOL} * max|plain| {scale:.3e}")
+                             f"{tol} * max|plain| {scale:.3e}")
     return err
 
 
@@ -485,23 +499,24 @@ def record(rows, tag, label, err, ms, plain_ms, library_ms, nbytes, flops,
         f"max_abs_err {err:.3e}{note}")
 
 
-def matmul_plan(M, K, N):
-    """K1's / K4's launch plan for bf16 x on this card (K: packed rows for
-    K4)."""
-    return k1.plan(M, K, N, torch.bfloat16, build.sm_count(0))
+def matmul_plan(M, K, N, dtype=torch.bfloat16):
+    """K1's / K4's launch plan for x of ``dtype`` on this card (K: packed
+    rows for K4)."""
+    return k1.plan(M, K, N, dtype, build.sm_count(0))
 
 
-def k1_row(rows, g, label, M, K, N, layers, path=None):
+def k1_row(rows, g, label, M, K, N, layers, path=None,
+           dtype=torch.bfloat16):
     """K1 at x [M, K] @ an INT8 [layers, K, N] stack against its plain
     version and ``torch.matmul`` on the dequantized layer, cycling through
     the layers so the weights come from device memory, as in the layer
-    loop, not from L2."""
-    dev, bf16 = "cuda", torch.bfloat16
+    loop, not from L2; x in ``dtype`` (float32 takes the CUDA cores)."""
+    dev = CARD
     w_q, scale = quant.quantize_int8(torch.randn((layers, K, N), generator=g,
-                                                 device=dev, dtype=bf16)
+                                                 device=dev, dtype=dtype)
                                      * 0.02)
-    x = torch.randn((M, K), generator=g, device=dev, dtype=bf16)
-    w_deq = [quant.dequantize_int8(w_q[i], scale[i], bf16)
+    x = torch.randn((M, K), generator=g, device=dev, dtype=dtype)
+    w_deq = [quant.dequantize_int8(w_q[i], scale[i], dtype)
              for i in range(layers)]
     got = k1.int8_matmul_stacked(x, w_q, scale, layers - 1)
     want = k1.int8_matmul_stacked_plain(x, w_q, scale, layers - 1)
@@ -514,9 +529,11 @@ def k1_row(rows, g, label, M, K, N, layers, path=None):
     plain_ms = time_ms(lambda: k1.int8_matmul_stacked_plain(
         x, w_q, scale, nxt()), iters)
     lib_ms = time_ms(lambda: torch.matmul(x, w_deq[nxt()]), iters)
-    nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+    size = x.element_size()
+    nbytes = M * K * size + K * N + N * 4 + M * N * size
     record(rows, "K1", label, err, ms, plain_ms, lib_ms,
-           nbytes, 2 * M * K * N, matmul_plan(M, K, N), host_us, path=path)
+           nbytes, 2 * M * K * N, matmul_plan(M, K, N, dtype), host_us,
+           path=path, peak=BF16_FLOPS if size == 2 else FP32_FLOPS)
 
 
 def phase_k1(rows, cfg):
@@ -830,10 +847,25 @@ def launch_floor_ms(iters: int = 200) -> float:
     return time_ms(launch, iters)
 
 
+def k3_fma(q, k, v, vecs):
+    """K3's CUDA-core kernel through the C entry with the "fma" route code,
+    whatever ``route`` would take: a yardstick, not counted as a launch."""
+    B, H, Q, D = q.shape
+    out = torch.empty_like(q)
+    build.check(k3._fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         *(t.data_ptr() for t in vecs), out.data_ptr(), B, H,
+                         Q, k.shape[2], D, int(q.dtype == torch.bfloat16),
+                         k3.ROUTE_CODES["fma"], build.raw_stream(0)),
+                "flash_attention fma")
+    return out
+
+
 def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None,
-           route="tc", peak=BF16_FLOPS):
-    """K3 against its plain version and SDPA, cycling through copies of
-    (q, k, v); asserts ``route`` (the tensor cores by default)."""
+           route="tc", peak=BF16_FLOPS, tol=TOL, fma=False):
+    """K3 against its plain version (within ``tol`` of max|plain|) and SDPA,
+    cycling through copies of (q, k, v); asserts ``route`` (the tensor cores
+    by default). ``fma``: the CUDA-core kernel too, at the same inputs, its
+    error and ms as ``fma_max_abs_err`` and ``fma_ms``."""
     q0, k0, v0 = qkv[0]
     B, H, Q, D = q0.shape
     K = k0.shape[2]
@@ -842,10 +874,16 @@ def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None,
     if k3.flash_attention.route_launches[route] != before[route] + 1:
         raise AssertionError(f"K3 {label}: not the {route} route")
     want = k3.flash_attention_plain(q0, k0, v0, mask)
-    err = compare(f"K3 {label}", got, want)
-    del got, want
+    err = compare(f"K3 {label}", got, want, tol)
+    extra = {"attention_route": k3.route(q0.dtype, D, K)}
     it = iter(range(10 ** 9))
     pick = lambda: qkv[next(it) % len(qkv)]   # noqa: E731
+    if fma:
+        vecs = k3.index_vectors(mask, B, Q, K, q0.device)
+        extra["fma_max_abs_err"] = compare(
+            f"K3 {label} fma", k3_fma(q0, k0, v0, vecs), want, tol)
+        extra["fma_ms"] = time_ms(lambda: k3_fma(*pick(), vecs), iters)
+    del got, want
     ms = time_ms(lambda: k3.flash_attention(*pick(), mask), iters)
     plain_ms = time_ms(lambda: k3.flash_attention_plain(*pick(), mask),
                        plain_iters)
@@ -856,8 +894,7 @@ def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None,
     nbytes = ((2 * B * H * Q + k_rows + v_rows) * D * q0.element_size()
               + (B * Q + K + B * K) * 4)
     record(rows, "K3", label, err, ms, plain_ms, lib_ms, nbytes,
-           ops, path=path, peak=peak,
-           extra={"attention_route": k3.route(q0.dtype, D, K)})
+           ops, path=path, peak=peak, extra=extra)
 
 
 def phase_k3(rows, cfg, vcfg):
@@ -1429,14 +1466,35 @@ def to_card(tree):
     return tree.cuda()
 
 
+def routes_since(fn, before: dict) -> dict:
+    """A wrapper's launches by route since ``before`` (its route_launches)."""
+    return {r: n - before[r] for r, n in fn.route_launches.items()}
+
+
+def check_k3_routes(what: str, before: dict, head_dim: int) -> dict:
+    """K3's launches by route since ``before`` on a float32 run at
+    ``head_dim``: logged, and all by the route ``route`` gives that head
+    dim."""
+    got = routes_since(k3.flash_attention, before)
+    want = k3.route(torch.float32, head_dim, 1)
+    log(f"{what}: K3 by route {json.dumps(got)} (float32, head dim "
+        f"{head_dim}: {want})")
+    if got[want] <= 0 or sum(got.values()) != got[want]:
+        raise AssertionError(f"{what}: K3 not by its {want} route alone: "
+                             f"{got}")
+    return got
+
+
 def phase_small_engine():
     """The serving engine on the card (kernels) against the same engine on
     the CPU (plain versions): small configuration, float32, INT8 weights,
     3 slots, 5 requests of uneven prompts and budgets; contiguous INT8 and
-    INT4 caches and paged INT8 and INT4 pools (page size 4)."""
+    INT4 caches and paged INT8 and INT4 pools (page size 4). K3's route is
+    logged and checked."""
     cfg, qparams = small_config()
     traffic = ((1, 37, 9), (1, 12, 30), (1, 64, 5), (1, 5, 17), (1, 26, 12))
     requests = pg.engine_requests(cfg, traffic, seed=3)
+    before = dict(k3.flash_attention.route_launches)
     for kind in pg.ENGINE_KINDS:
         out = []
         for params, dev in ((qparams, "cpu"), (to_card(qparams), "cuda")):
@@ -1449,6 +1507,7 @@ def phase_small_engine():
                                  f"differ:\n{out[0]}\n{out[1]}")
         log(f"small engine {kind}: greedy tokens equal on the card and the "
             f"CPU ({sum(map(len, out[0]))} tokens, 5 requests, 3 slots)")
+    check_k3_routes("small engine", before, cfg.block_decoder.head_dim)
 
 
 def phase_small_reference():
@@ -2531,6 +2590,11 @@ EXPORT_DISK_BYTES = 12e9   # the full-width tree in float32 (5.8 GB) twice over
 # order of their sums (measured 9.4e-8 at the small configuration); a wrong
 # kernel moves a random-init sum of ~ -n ln 512 by far more
 EVAL_F32_TOL = 1e-5
+# max |kernel - plain| / max|plain| of K3's float32 route: 3xTF32 keeps ~2^-22
+# of each product and sums in rounded float32 adds (measured ~1e-6 at the
+# scoring forward); one TF32 pass keeps ~2^-11, ~1e-4 of the output, which
+# bf16's TOL would pass and this refuses
+K3_F32_TOL = 1e-5
 ENTRY_LIMIT = 8            # docs of each byte task through the entry point
 # an uptraining config (3 + 3 layers of 256, 8 heads) whose projection-layer
 # embedder takes the vanilla_31 table
@@ -2662,7 +2726,8 @@ def eval_kernel_rows(rows, cfg, batches, decisions, path="eval score",
     """The kernels at the scoring forward's new shapes, from its longest
     batch (B rows of S tokens, the adapter's left pad of L - 1 and right
     pad to a block boundary), in ``dtype``, the activations' (bf16, or
-    float32 with K3's CUDA-core route): K3 over the block decoder's N
+    float32: K3's 3xTF32 route, held within K3_F32_TOL and beside its
+    CUDA-core kernel at the same inputs): K3 over the block decoder's N
     blocks under the forward's block-causal mask (rows past their content
     masked; the last 128-query tile partial), W8A8-q/-mm at the LM head (M
     = B (N-1) L, N = vocab: a partial last 256-column tile) and at the
@@ -2689,8 +2754,9 @@ def eval_kernel_rows(rows, cfg, batches, decisions, path="eval score",
     kind = "float32 " if f32 else ""
     k3_row(rows, f"{kind}scoring forward B={B} H={H} Q=K={Q} D={D}, rows "
            f"of {lengths.min().item()}-{lengths.max().item()} tokens", qkv,
-           mask, 20, 3, path=path, route="fma" if f32 else "tc",
-           peak=FP32_FLOPS if f32 else BF16_FLOPS)
+           mask, 20, 3, path=path, route="tf32x3" if f32 else "tc",
+           peak=TF32X3_FLOPS if f32 else BF16_FLOPS,
+           tol=K3_F32_TOL if f32 else TOL, fma=f32)
     del qkv
     Bb = B * (N - 1)
     m_head, m_td = Bb * L, Bb * (cfg.n_expanded_emb + L - 1)
@@ -2782,17 +2848,45 @@ def phase_eval_longctx(smi) -> dict:
     return out
 
 
-def phase_eval_small(smi) -> None:
+def fma_rows(rows, cfg):
+    """The CUDA-core routes that no full-width path takes, each row counting
+    the launches of (f)'s float32 card run (``eval small``): K3 at the
+    small configuration's head dim, at the adapter's scoring forward there
+    (max_length 256: B = 4 rows of N = 65 blocks, block-causal), and K1
+    with float32 x at a decode shape of MODEL (qkv, M = 8)."""
+    g = torch.Generator(device=CARD).manual_seed(16)
+    bcfg = cfg.block_decoder
+    B, H, D = 4, bcfg.num_heads, bcfg.head_dim
+    N = 256 // cfg.block_length + 1
+    mask = masks.block_decoder_train_mask(
+        torch.ones((B, N), dtype=torch.int32, device=CARD),
+        cfg.n_embedding_tokens)
+    qkv = [tuple(torch.randn((B, H, N, D), generator=g, device=CARD)
+                 for _ in range(3)) for _ in range(3)]
+    k3_row(rows, f"small float32 scoring forward B={B} H={H} Q=K={N} "
+           f"D={D}", qkv, mask, 50, 20, path="eval small", route="fma",
+           peak=FP32_FLOPS, tol=K3_F32_TOL)
+    big = config.get_config(MODEL).block_decoder
+    k1_row(rows, g, "float32 qkv M=8", 8, big.hidden_size,
+           3 * big.hidden_size, 12, path="eval small", dtype=torch.float32)
+
+
+def phase_eval_small(rows, smi) -> dict:
     """(f) The block adapter on the card against the CPU at the small
     configuration (INT8 weights, float32; the CPU takes W8A8's plain
     versions where the card takes W8A8, through the card gate opened for
     it): 8 lambada loglikelihoods and 1 wikitext page's rolling windows
     within EVAL_F32_TOL relative with equal greedy flags, and 4 TriviaQA
-    generations equal. Then ``--from_vanilla`` on the card: a random
-    ``vanilla_31`` tree in the HF layout (a directory named after its
-    config) uptrained into FROM_VANILLA_YAML (``partition``), one step."""
+    generations equal; K3's and K1's routes on the card are logged and
+    checked (head dim 32: K3's CUDA-core route; float32 x: K1's), and
+    ``fma_rows`` counts their launches. Then ``--from_vanilla`` on the
+    card: a random ``vanilla_31`` tree in the HF layout (a directory named
+    after its config) uptrained into FROM_VANILLA_YAML (``partition``), one
+    step. Returns {"eval small": {"K1": launches, "K3": launches}}."""
     from block_transformer_tpu_torch import pretrain_block_transformer
     cfg, qparams = small_config()
+    k1_before = dict(k1.int8_matmul_stacked.route_launches)
+    k3_before = dict(k3.flash_attention.route_launches)
     tok = ByteTokenizer()
     reqs = [(d["text"].rsplit(" ", 1)[0], " " + d["text"].rsplit(" ", 1)[1])
             for d in fixture("lambada_pg", 8)]
@@ -2826,6 +2920,14 @@ def phase_eval_small(smi) -> None:
         f"and {len(page)} rolling page, max relative diff {worst:.3e} (limit "
         f"{EVAL_F32_TOL}), greedy flags equal; {len(greqs)} generations "
         "equal")
+    k3_routes = check_k3_routes("(f) small adapter on the card", k3_before,
+                                cfg.block_decoder.head_dim)
+    k1_routes = routes_since(k1.int8_matmul_stacked, k1_before)
+    log(f"(f) small adapter on the card: K1 by route {json.dumps(k1_routes)}")
+    if k1_routes["fma"] <= 0 or k1_routes["tc"]:
+        raise AssertionError(f"(f) K1 not by its fma route alone: "
+                             f"{k1_routes}")
+    fma_rows(rows, cfg)
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_uptrain_",
@@ -2856,6 +2958,8 @@ def phase_eval_small(smi) -> None:
             f"{recs[-1]['loss']:.5f} [{smi}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return {"eval small": {"K1": k1_routes["fma"], "K3": sum(
+        k3_routes.values())}}
 
 
 def write_byte_corpus(prefix: str) -> None:
@@ -2891,7 +2995,9 @@ def entry_eval(argv, what: str, smi: str):
                 for v in r.values()):
         raise AssertionError(f"{path} {what}: {results}")
     log(json.dumps({"eval_entry": what, "s": secs, "scored_rows": sum(
-        b[0] for b in batches.seen), "metrics": results, "note": "main() with loading and quantization; "
+        b[0] for b in batches.seen), "metrics": results,
+        "K3_by_route": dict(k3.flash_attention.route_launches),
+        "note": "main() with loading and quantization; "
         "random weights: the metrics prove the path, not the model's "
         "quality", "card": smi}))
     torch.cuda.empty_cache()
@@ -3022,7 +3128,7 @@ def phase_eval(rows, smi) -> dict:
     torch.cuda.empty_cache()
 
     out.update(phase_eval_longctx(smi))
-    phase_eval_small(smi)
+    out.update(phase_eval_small(rows, smi))
     out.update(phase_eval_entry(rows, cfg, smi))
     return out
 

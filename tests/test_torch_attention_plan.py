@@ -1,15 +1,17 @@
 """How the attention kernels K2 and K3 cut their work, checked on the CPU
 with no card: K2's ``plan`` (the split of the INT8 cache over blocks) and
-K3's ``route`` (tensor cores or CUDA cores), and torch models of the two
-algorithms those choices rely on, held against the plain versions:
+K3's ``route`` (tensor cores, bf16 or 3xTF32, or CUDA cores), and torch
+models of the two algorithms those choices rely on, held against the plain
+versions:
 
 - K2 splits the capacity into runs of whole 32-slot tiles; each split keeps
   (max, sum, acc) and the last split to arrive merges them. A split whose
   every slot is masked, and a batch row with no allowed key, must merge to
   what ``decode_attention_int8_stacked_plain`` gives.
-- K3's tensor-core kernel skips key tiles that no row of its query tile may
-  see; a row with no allowed key then gets a closing pass, the uniform mean
-  over all K values, as ``attention_xla`` gives.
+- K3's tensor-core kernels skip key tiles that no row of their query tile
+  may see; a row with no allowed key then gets a closing pass, the uniform
+  mean over all K values, as ``attention_xla`` gives (the float32 route's
+  3xTF32 products: ``test_torch_flash_tf32.py``).
 
 Main-path shapes: the block decoder of ``block_main_b4_1.2b`` (B = 8 or 16,
 H = 16, D = 128, capacity 640) and the ``vanilla_410`` baseline (B = 8,
@@ -102,14 +104,17 @@ def test_k2_plan_is_pure():
 def test_k3_route_by_dtype_and_head_dim(D):
     tc = D in (64, 128)
     assert k3.route(torch.bfloat16, D, 2176) == ("tc" if tc else "fma")
-    assert k3.route(torch.float32, D, 2176) == "fma"
+    assert k3.route(torch.float32, D, 2176) == ("tf32x3" if tc else "fma")
     assert k3.route(torch.float16, D, 2176) == "fma"
 
 
-def test_k3_route_needs_alignment_and_a_bounded_k():
-    assert k3.route(torch.bfloat16, 128, 512, aligned=False) == "fma"
-    assert k3.route(torch.bfloat16, 64, k3.TC_MAX_KEYS) == "tc"
-    assert k3.route(torch.bfloat16, 64, k3.TC_MAX_KEYS + 1) == "fma"
+@pytest.mark.parametrize("dtype,tc", [(torch.bfloat16, "tc"),
+                                      (torch.float32, "tf32x3")])
+def test_k3_route_needs_alignment_and_a_bounded_k(dtype, tc):
+    assert k3.route(dtype, 128, 512, aligned=False) == "fma"
+    assert k3.route(dtype, 64, k3.TC_MAX_KEYS) == tc
+    assert k3.route(dtype, 64, k3.TC_MAX_KEYS + 1) == "fma"
+    assert k3.route(dtype, 128, k3.TC_MAX_KEYS + 1) == "fma"
 
 
 # --------------------------------------------------------------------------
@@ -186,13 +191,13 @@ def test_k2_split_merge_matches_plain(case, S):
 # K3: key-tile skipping and the closing pass
 
 
-def _flash_skip(q, k, v, mask, BQ, BKV=64):
+def _flash_skip(q, k, v, mask, BQ, BKV=64, mm=torch.matmul):
     """K3's tensor-core algorithm in torch: per query tile of BQ rows, visit
     only the key tiles of BKV keys holding a valid key with kv_idx <= the
     tile's largest q_idx (kv_idx need not be sorted); online softmax over
     them, probabilities rounded to q.dtype before P.V; rows whose max is
-    still -1e30 get the uniform mean over all K values. Returns (out,
-    visited tiles, tiles)."""
+    still -1e30 get the uniform mean over all K values. ``mm`` computes both
+    products from float32 operands. Returns (out, visited tiles, tiles)."""
     B, H, Q, D = q.shape
     K = k.shape[2]
     q_idx, kv_idx, valid = k3.index_vectors(mask, B, Q, K, "cpu")
@@ -214,14 +219,16 @@ def _flash_skip(q, k, v, mask, BQ, BKV=64):
                 if not bool((ok & (kv_idx[cols] <= qmax)).any()):
                     continue
                 visited += 1
-                s = q[b, :, rows].float() @ k[b, :, cols].float().mT * scale
+                s = mm(q[b, :, rows].float(),
+                       k[b, :, cols].float().mT) * scale
                 allowed = ok[None] & (kv_idx[cols][None] <= qi[:, None])
                 s = torch.where(allowed[None], s, torch.tensor(masks.NEG_INF))
                 m_new = torch.maximum(m, s.amax(-1, keepdim=True))
                 corr = torch.exp(m - m_new)
                 p = torch.exp(s - m_new)
                 l = l * corr + p.sum(-1, keepdim=True)
-                o = o * corr + p.to(q.dtype).float() @ v[b, :, cols].float()
+                o = o * corr + mm(p.to(q.dtype).float(),
+                                  v[b, :, cols].float())
                 m = m_new
             res = o / l.clamp_min(1e-30)
             none = (m == masks.NEG_INF).expand_as(res)

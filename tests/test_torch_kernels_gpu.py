@@ -19,8 +19,10 @@ magnitude (K4's tensor-core route also rounds each scaled weight to bf16,
 2^-9 relative, which sums to far less). K1 and K4 cases assert which route
 ``plan`` took: bf16 x with K (K/2) a multiple of 32 and N of 16 goes to the
 tensor cores, float32 x and ragged shapes to the CUDA cores; K3 cases
-assert the route ``route`` took (bf16 with D = 64 or 128 on the tensor
-cores, float32 and other head dims on the CUDA cores); W8A8-mm cases
+assert the route ``route`` took (D = 64 or 128 on the tensor cores: bf16
+by "tc", float32 by "tf32x3", held at 1e-5 of the output's largest
+magnitude, which one TF32 pass would miss; other head dims and unaligned
+operands on the CUDA cores); W8A8-mm cases
 assert its one route, ``wgmma``. K2 cases cover one
 split and several (``plan``), with splits whose every slot is masked; K6
 cases too (K2's ``plan`` over the virtual slots), with splits whose every
@@ -427,6 +429,28 @@ def _k3_routed(q, k, v, mask, route):
                    lambda: k3.flash_attention(q, k, v, mask))
 
 
+# K3's float32 tensor-core route against its plain version, relative to the
+# output's largest magnitude: 3xTF32 keeps ~2^-22 a product, one TF32 pass
+# ~2^-11 (~1e-4 of the output), which this limit refuses
+K3_TF32X3_REL = 1e-5
+
+
+def _k3_tc_route(dtype):
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def _k3_close(got, want, dtype):
+    """The tensor-core routes' limits: bf16 as _close; float32 1e-5 of the
+    output's largest magnitude."""
+    if dtype == torch.bfloat16:
+        _close(got, want, dtype)
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= K3_TF32X3_REL * want.abs().max().item(), err
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Q,K,D,n", [
     (2, 2, 10, 70, 32, 1),     # ragged K tile, left pad
@@ -442,35 +466,38 @@ def test_k3_matches_plain(B, H, Q, K, D, n, dtype):
     valid = torch.ones((B, K), dtype=torch.int32, device="cuda")
     valid[-1, :12] = 0         # left pad (queries before slot 12 see no key)
     full = masks.block_decode_mask(K - Q, K, Q, valid, n)
-    route = "tc" if dtype == torch.bfloat16 and D in (64, 128) else "fma"
+    route = _k3_tc_route(dtype) if D in (64, 128) else "fma"
     got = _k3_routed(q, k, v, full, route)
     _close(got, k3.flash_attention_plain(q, k, v, full), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("Q,K,n", [
     (1, 70, 1), (9, 200, 2), (130, 2176, 4), (130, 70, 1), (9, 2176, 1),
     (1, 200, 4), (64, 64, 2), (200, 130, 1),
 ])
-def test_k3_tensor_cores_match_plain(Q, K, n, D):
-    """bf16 on the tensor cores: ragged Q and K, block-causal masks with n
-    embeddings a block, a left-padded batch row whose first queries see no
-    key (the closing pass), and key tiles skipped past the diagonal."""
+def test_k3_tensor_cores_match_plain(Q, K, n, D, dtype):
+    """bf16 and float32 on the tensor cores: ragged Q and K, block-causal
+    masks with n embeddings a block, a left-padded batch row whose first
+    queries see no key (the closing pass), and key tiles skipped past the
+    diagonal."""
     g = _card()
     B, H = 2, 3
     q, k, v = (torch.randn((B, H, S, D), generator=g, device="cuda").to(
-        torch.bfloat16) for S in (Q, K, K))
+        dtype) for S in (Q, K, K))
     valid = torch.ones((B, K), dtype=torch.int32, device="cuda")
     valid[-1, :min(K - 1, 2 * n + 5)] = 0      # left pad
     mask = masks.block_decode_mask(max(0, K - Q), K, Q, valid, n)
-    got = _k3_routed(q, k, v, mask, "tc")
-    _close(got, k3.flash_attention_plain(q, k, v, mask), torch.bfloat16)
+    got = _k3_routed(q, k, v, mask, _k3_tc_route(dtype))
+    _k3_close(got, k3.flash_attention_plain(q, k, v, mask), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("case", ["causal", "unsorted", "all_masked",
                                   "prefix", "left_padded_prompt"])
-def test_k3_tensor_core_masks(case, D):
+def test_k3_tensor_core_masks(case, D, dtype):
     """causal: Q = 512 against K = 576 (a prompt after 64 cached slots);
     unsorted: kv_idx permuted, so skipping may not assume order;
     all_masked: a batch row with no valid key at all; prefix: queries that
@@ -481,7 +508,7 @@ def test_k3_tensor_core_masks(case, D):
     B, H = 2, 2
     Q, K = (512, 576) if case == "causal" else (70, 700)
     q, k, v = (torch.randn((B, H, S, D), generator=g, device="cuda").to(
-        torch.bfloat16) for S in (Q, K, K))
+        dtype) for S in (Q, K, K))
     valid = torch.ones((B, K), dtype=torch.int32, device="cuda")
     q_idx = torch.arange(K - Q, K, dtype=torch.int32, device="cuda")
     kv_idx = torch.arange(K, dtype=torch.int32, device="cuda")
@@ -496,8 +523,24 @@ def test_k3_tensor_core_masks(case, D):
         q_idx = torch.arange(Q, dtype=torch.int32, device="cuda")
         valid[1, :40] = 0
     mask = masks.AttnMask(q_idx, kv_idx.contiguous(), valid)
-    got = _k3_routed(q, k, v, mask, "tc")
-    _close(got, k3.flash_attention_plain(q, k, v, mask), torch.bfloat16)
+    got = _k3_routed(q, k, v, mask, _k3_tc_route(dtype))
+    _k3_close(got, k3.flash_attention_plain(q, k, v, mask), dtype)
+
+
+@pytest.mark.parametrize("D,offset", [(96, 0), (32, 0), (128, 1), (64, 1)])
+def test_k3_float32_off_the_tensor_cores_takes_fma(D, offset):
+    """float32 at a head dim the tensor-core routes do not take (96, 32),
+    or at D = 64 / 128 with operands 4 bytes off 16-byte alignment, still
+    launches the CUDA-core kernel, held against its plain version."""
+    g = _card()
+    B, H, Q, K = 2, 2, 40, 100
+    q, k, v = (torch.randn(B * H * S * D + offset, generator=g,
+                           device="cuda")[offset:].view(B, H, S, D)
+               for S in (Q, K, K))
+    mask = masks.block_decode_mask(K - Q, K, Q, torch.ones(
+        (B, K), dtype=torch.int32, device="cuda"), 1)
+    got = _k3_routed(q, k, v, mask, "fma")
+    _close(got, k3.flash_attention_plain(q, k, v, mask), torch.float32)
 
 
 def test_launch_counters_move_on_the_card_only():

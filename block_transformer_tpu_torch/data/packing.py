@@ -149,8 +149,9 @@ def add_labels(input_ids: np.ndarray, attention_mask: np.ndarray) -> np.ndarray:
     return np.where(attention_mask == 0, -100, input_ids)
 
 
-def make_train_batch(input_ids: np.ndarray, attention_mask: np.ndarray,
-                     block_length: int) -> dict:
+def make_train_batch_from_rows(input_ids: np.ndarray,
+                               attention_mask: np.ndarray,
+                               block_length: int) -> dict:
     """Token rows [B, T] -> the train step's batch: ``split_blocks`` plus
     ``labels`` [B, N, L], every array int32."""
     labels = add_labels(input_ids, attention_mask)
@@ -163,10 +164,9 @@ def make_train_batch(input_ids: np.ndarray, attention_mask: np.ndarray,
             "labels": labels.reshape(labels.shape[0], N, L).astype(np.int32)}
 
 
-def fetch_train_batch(ds: PackedDataset, idxs, block_length: int,
-                      distribution=None) -> dict:
-    """Fetch + blockify + label one training batch: the JAX package's
-    ``make_train_batch(ds, idxs, block_length, distribution)``.
+def make_train_batch(ds: PackedDataset, idxs, block_length: int,
+                     distribution=None) -> dict:
+    """Fetch + blockify + label one training batch.
 
     ``distribution``: an optional ``data.block_split``
     ``BlockLengthDistribution`` with no fixed ``length``, for variable
@@ -178,8 +178,8 @@ def fetch_train_batch(ds: PackedDataset, idxs, block_length: int,
     idxs = np.asarray(idxs)
     b = ds.get_batch(idxs)
     if distribution is None or getattr(distribution, "length", None) is not None:
-        return make_train_batch(b["input_ids"], b["attention_mask"],
-                                block_length)
+        return make_train_batch_from_rows(b["input_ids"], b["attention_mask"],
+                                          block_length)
     from block_transformer_tpu_torch.data.block_split import (
         split_blocks_variable)
     labels = add_labels(b["input_ids"], b["attention_mask"])

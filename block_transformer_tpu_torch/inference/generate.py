@@ -116,18 +116,25 @@ def decode_block_tokens_rerun(params, cfg: BlockTransformerConfig,
 def decode_block_tokens(params, cfg: BlockTransformerConfig, block_embeddings,
                         *, greedy: bool = True, temperature: float = 1.0,
                         generator: Optional[torch.Generator] = None,
+                        n_tokens: Optional[int] = None,
                         top_k: int = 0, top_p: float = 1.0):
     """Inner loop: block_embeddings [B, n_emb, projection_hidden] -> (tokens
-    [B, L] with pad after EOS, alive [B] bool). The GPT-NeoX prefix decoder
-    decodes against a local KV cache made here and dropped on return; every
-    other token decoder goes to ``decode_block_tokens_rerun``."""
+    [B, L] with pad after EOS, alive [B] bool), L = ``n_tokens`` if given,
+    else the block length. The GPT-NeoX prefix decoder decodes against a
+    local KV cache of n_exp + L slots made here and dropped on return; every
+    other token decoder goes to ``decode_block_tokens_rerun``, which decodes
+    whole blocks only (``n_tokens`` must be None there)."""
     tcfg = cfg.token_decoder
     if tcfg.cls != "gpt-neo-x" or tcfg.decoding_strategy != "prefix":
+        if n_tokens is not None:
+            raise ValueError("n_tokens is only taken by the GPT-NeoX prefix "
+                             f"token decoder, not {tcfg.cls!r} / "
+                             f"{tcfg.decoding_strategy!r}")
         return decode_block_tokens_rerun(
             params, cfg, block_embeddings, greedy=greedy,
             temperature=temperature, generator=generator, top_k=top_k,
             top_p=top_p)
-    L = cfg.block_length
+    L = cfg.block_length if n_tokens is None else n_tokens
     B = block_embeddings.shape[0]
     eos, pad = cfg.eos_token_id, cfg.pad_token_id
 

@@ -194,6 +194,14 @@ def decode_attention_int8_stacked(q: torch.Tensor, k_q: torch.Tensor,
 decode_attention_int8_stacked.launches = 0
 
 
+def decode_attention_int8(q, k_q, k_s, v_q, v_s,
+                          mask: masks_lib.AttnMask) -> torch.Tensor:
+    """One-layer form: q [B, H, S, D]; k_q/v_q int8 [B, H, cap, D]; k_s/v_s
+    f32 [B, H, cap] -> [B, H, S, D]."""
+    return decode_attention_int8_stacked(q, k_q[None], k_s[None], v_q[None],
+                                         v_s[None], 0, mask)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 

@@ -13,10 +13,12 @@ slice is ever copied.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors, raising on input the kernel does not take. Which
-kernel is one pure function of the shapes, ``plan``: the tensor-core route
-(``"tc"``: bf16 x, K or K/2 a multiple of 32, N a multiple of 16, 16-byte
-aligned operands; every main-path shape) or the CUDA-core route (``"fma"``:
-float32 x, ragged or unaligned shapes). ``int8_matmul_stacked.launches`` and
+kernel is one pure function of the shapes, ``plan``: with K (K1) or K/2 (K4)
+a multiple of 32, N a multiple of 16 and 16-byte aligned operands (every
+main-path shape), bf16 x takes the bf16 tensor cores (``"tc"``) and float32
+x the TF32 tensor cores in two passes (``"tf32x2"``; K4 also needs groups of
+a multiple of 32 rows, or G = 1); everything else takes the CUDA cores
+(``"fma"``). ``int8_matmul_stacked.launches`` and
 ``int4_matmul_stacked.launches`` count the launches, and each wrapper's
 ``route_launches`` dict counts them by route.
 """
@@ -53,49 +55,62 @@ def _fn(name: str, n_ints: int):
 
 
 class Plan(NamedTuple):
-    """How one dequant-matmul launches: ``route`` "tc" (tensor cores) or
-    "fma" (CUDA cores), ``tile`` (BM, BN, BK) of its output tile and K step,
-    K split over ``splits`` blocks of ``k_per_split`` rows (K1) or packed
-    rows (K4) each."""
+    """How one dequant-matmul launches: ``route`` "tc" (bf16 tensor cores),
+    "tf32x2" (TF32 tensor cores, two passes) or "fma" (CUDA cores), ``tile``
+    (BM, BN, BK) of its output tile and K step, K split over ``splits``
+    blocks of ``k_per_split`` rows (K1) or packed rows (K4) each."""
     route: str
     tile: tuple
     splits: int
     k_per_split: int
 
 
+# the C entries' route codes
+ROUTE_CODES = {"fma": 0, "tc": 1, "tf32x2": 2}
 _TC_BK = 32                # K step of the tensor-core tiles
 _TC_ALIGN = 16             # bytes of one cp.async copy
 _FMA_BN, _FMA_BK = 64, 32  # tile of the CUDA-core kernels
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(M: int, K: int, N: int, dtype, sms: int,
-         aligned: bool = True) -> Plan:
+def plan(M: int, K: int, N: int, dtype, sms: int, aligned: bool = True,
+         group: int = 0) -> Plan:
     """The launch of ``x [M, .] @ w [K, N]`` on a card with ``sms`` SMs; K
     is the weight's row count (K1) or packed row count K/2 (K4), ``aligned``
-    whether every operand's base pointer is 16-byte aligned.
+    whether every operand's base pointer is 16-byte aligned, ``group`` K4's
+    rows a scale group (0 for K1).
 
-    bf16 x with K a multiple of 32 and N of 16 takes the tensor cores, with
-    a 16-row tile at decode (M <= 16), 64 rows up to M = 64 and 128 beyond;
-    anything else the CUDA cores. Either way K is split over blocks when the
-    output has too few tiles for two blocks per SM: on the tensor cores in
-    whole 32-row steps, at least two blocks per SM at decode (an SM holds
-    three of its blocks) and at most two for the larger tiles (an SM holds
-    two), so that no launch runs in a second, mostly empty wave."""
-    if (dtype == torch.bfloat16 and aligned and K % _TC_BK == 0
-            and N % _TC_ALIGN == 0):
-        bm = 16 if M <= 16 else 64 if M <= 64 else 128
-        tile = (bm, 128, _TC_BK)
-        tiles = -(-N // tile[1]) * -(-M // bm)
-        steps = K // _TC_BK
-        if bm == 16:
-            want = -(-2 * sms // tiles)
-            per_split = max(1, steps // want)           # splits >= want
-        else:
-            want = max(1, 2 * sms // tiles)
-            per_split = -(-steps // want)               # splits <= want
-        kps = per_split * _TC_BK
-        return Plan("tc", tile, -(-K // kps), kps)
+    With K a multiple of 32, N of 16 and aligned operands, bf16 x takes the
+    bf16 tensor cores ("tc") and float32 x the TF32 ones ("tf32x2"; K4 only
+    with ``group`` a multiple of 32); both with a 16-row tile at decode (M
+    <= 16), 64 rows up to M = 64 and 128 beyond, 128 columns, 32-row steps.
+    Anything else takes the CUDA cores (``fma_plan``). Either way K is split
+    over blocks when the output has too few tiles for two blocks per SM: on
+    the tensor cores in whole 32-row steps, at least two blocks per SM at
+    decode (an SM holds three of its blocks) and at most two for the larger
+    tiles, so that no launch runs in a second, mostly empty wave."""
+    route = {torch.bfloat16: "tc", torch.float32: "tf32x2"}.get(dtype)
+    if (route is None or not aligned or K % _TC_BK or N % _TC_ALIGN
+            or (route == "tf32x2" and group % _TC_BK)):
+        return fma_plan(M, K, N, sms)
+    bm = 16 if M <= 16 else 64 if M <= 64 else 128
+    tile = (bm, 128, _TC_BK)
+    tiles = -(-N // tile[1]) * -(-M // bm)
+    steps = K // _TC_BK
+    if bm == 16:
+        want = -(-2 * sms // tiles)
+        per_split = max(1, steps // want)               # splits >= want
+    else:
+        want = max(1, 2 * sms // tiles)
+        per_split = -(-steps // want)                   # splits <= want
+    kps = per_split * _TC_BK
+    return Plan(route, tile, -(-K // kps), kps)
+
+
+def fma_plan(M: int, K: int, N: int, sms: int) -> Plan:
+    """The CUDA-core route's launch: BM x 64 tiles (16 rows at decode, else
+    64), K split into 32-row multiples of at least 256 rows each while
+    there are fewer than two blocks per SM."""
     bm = 16 if M <= 16 else 64
     tiles = -(-N // _FMA_BN) * -(-M // bm)
     want = -(-2 * sms // tiles)
@@ -122,31 +137,46 @@ def _together(*ts) -> bool:
     return all(t.get_device() == dev and t.is_contiguous() for t in ts)
 
 
-def _launch(name: str, fn, x, w, scale, layer: int, out, ints) -> None:
+def _launch(name: str, fn, x, w, scale, layer: int, out, ints,
+            group: int = 0) -> None:
     """Plan, launch ``bt_<name>`` on layer ``layer`` of the stacked ``w`` and
     ``scale`` (by base pointer: no view is made) on the current stream, and
     count it."""
     M, N = out.shape
     K = w.shape[1]
-    ptrs = (x.data_ptr(), w.data_ptr() + layer * K * N,   # int8: 1 byte
-            scale.data_ptr() + layer * (scale.numel() // scale.shape[0]) * 4,
-            out.data_ptr())
+    ptrs = layer_pointers(x, w, scale, layer, out)
     aligned = not any(q % _TC_ALIGN for q in ptrs)
     dev = x.device.index or 0
-    p = plan(M, K, N, x.dtype, build.sm_count(dev), aligned)
+    p = plan(M, K, N, x.dtype, build.sm_count(dev), aligned, group)
+    launch_plan(name, p, ptrs, M, ints, x.dtype, dev)
+    fn.launches += 1
+    fn.route_launches[p.route] += 1
+
+
+def layer_pointers(x, w, scale, layer: int, out) -> tuple:
+    """(x, layer ``layer`` of w, its scales, out) as device addresses."""
+    K, N = w.shape[1:]
+    return (x.data_ptr(), w.data_ptr() + layer * K * N,   # int8: 1 byte
+            scale.data_ptr() + layer * (scale.numel() // scale.shape[0]) * 4,
+            out.data_ptr())
+
+
+def launch_plan(name: str, p: Plan, ptrs, M: int, ints, dtype,
+                dev: int) -> None:
+    """Launch ``bt_<name>`` by plan ``p`` (its route code, tile and split)
+    on the current stream, with split-K scratch when it splits; counts
+    nothing."""
     stream = build.raw_stream(dev)
     ws = ctr = None
     if p.splits > 1:
+        N = ints[1]                       # ints: (K, N) or (Kh, N, gs)
         ws, ctr = build.scratch(dev, stream, workspace_floats(p, M, N),
                                tile_count(p, M, N))
         ws, ctr = ws.data_ptr(), ctr.data_ptr()
-    err = _fn(f"bt_{name}", len(ints) + 5)(
+    err = _fn(f"bt_{name}", len(ints) + 6)(
         *ptrs, ws, ctr, M, *ints, p.splits, p.k_per_split,
-        int(x.dtype == torch.bfloat16), p.tile[0] if p.route == "tc" else 0,
-        stream)
+        int(dtype == torch.bfloat16), ROUTE_CODES[p.route], p.tile[0], stream)
     build.check(err, name)
-    fn.launches += 1
-    fn.route_launches[p.route] += 1
 
 
 def int8_matmul_stacked(x: torch.Tensor, w_q: torch.Tensor,
@@ -177,7 +207,7 @@ def int8_matmul_stacked(x: torch.Tensor, w_q: torch.Tensor,
 
 
 int8_matmul_stacked.launches = 0
-int8_matmul_stacked.route_launches = {"tc": 0, "fma": 0}
+int8_matmul_stacked.route_launches = dict.fromkeys(ROUTE_CODES, 0)
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -230,12 +260,12 @@ def int4_matmul_stacked(x: torch.Tensor, w_p: torch.Tensor,
     if M == 0:
         return out
     _launch("int4_matmul", int4_matmul_stacked, x, w_p, s, layer, out,
-            (Kh, N, gs))
+            (Kh, N, gs), gs)
     return out
 
 
 int4_matmul_stacked.launches = 0
-int4_matmul_stacked.route_launches = {"tc": 0, "fma": 0}
+int4_matmul_stacked.route_launches = dict.fromkeys(ROUTE_CODES, 0)
 
 
 def int4_matmul(x: torch.Tensor, w_p: torch.Tensor,

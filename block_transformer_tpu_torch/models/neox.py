@@ -104,6 +104,12 @@ def init_neox_params(gen: torch.Generator, cfg: NeoXConfig, *,
 # Building blocks
 # ---------------------------------------------------------------------------
 
+def dense(x: torch.Tensor, p) -> torch.Tensor:
+    """A linear through ``ops.linear.apply_linear``: quantized trees take the
+    dequant-matmul kernels."""
+    return linear_ops.apply_linear(x, p)
+
+
 def layer_norm(x: torch.Tensor, p, eps: float) -> torch.Tensor:
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
@@ -170,8 +176,11 @@ class QuantKVCache(NamedTuple):
     length: int
 
     @staticmethod
-    def create(cfg: NeoXConfig, batch: int, capacity: int, *, bits: int = 8,
-               device="cuda"):
+    def create(cfg: NeoXConfig, batch: int, capacity: int, dtype=None,
+               bits: int = 8, *, device="cuda"):
+        """``dtype`` is taken and ignored, as in the JAX package: the
+        values' type follows from ``bits``."""
+        del dtype
         shape = (cfg.num_layers, batch, cfg.num_heads, capacity, cfg.head_dim)
         f32 = dict(dtype=torch.float32, device=device)
         return QuantKVCache(_zero_values(shape, bits, device),
@@ -341,7 +350,6 @@ def layer_qkv(p, x, *, cfg: NeoXConfig, cos, sin, positions):
 def layer_finish(p, x, attn_heads, *, cfg: NeoXConfig):
     """Output projection + MLP + residual(s). attn_heads: [B, H, S, D]."""
     B, S = x.shape[0], x.shape[1]
-    dense = linear_ops.apply_linear
 
     def mlp(h):
         up = F.gelu(dense(layer_norm(h, p["ln2"], cfg.layer_norm_eps),

@@ -241,7 +241,8 @@ def device_breakdown(fn):
 
 
 # the kernels of csrc/*.cu, as the profiler names them
-OWN_KERNELS = ("tc_matmul_kernel", "int8_matmul_kernel", "int4_matmul_kernel",
+OWN_KERNELS = ("tc_matmul_kernel", "tf32_matmul_kernel",
+               "int8_matmul_kernel", "int4_matmul_kernel",
                "splitk_reduce_kernel",
                "decode_attn_int8_kernel", "decode_attn_kernel",
                "decode_attn_warp_kernel",

@@ -46,7 +46,8 @@ def make_loss_fn(cfg: BlockTransformerConfig, remat: bool = True,
     ``loss_by_position``, and ``block_decoding_loss`` /
     ``auto_encoding_loss`` where the config enables them). ``batch`` holds
     ``input_ids``, ``attention_mask``, ``labels`` [B, N, L] and
-    ``block_attention_mask`` [B, N] (``data.packing.make_train_batch``)."""
+    ``block_attention_mask`` [B, N] (``data.packing.make_train_batch`` or
+    ``make_train_batch_from_rows``)."""
     def loss_fn(params, batch):
         if param_transform is not None:
             params = param_transform(params)

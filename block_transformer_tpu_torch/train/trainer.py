@@ -205,7 +205,7 @@ class Trainer:
                 idxs = (np.arange(cursor, cursor + self.micro_batch)
                         % len(self.dataset))
                 cursor += self.micro_batch
-                batch = packing.to_device(packing.fetch_train_batch(
+                batch = packing.to_device(packing.make_train_batch(
                     self.dataset, idxs, self.model_cfg.block_length,
                     distribution=self._distribution), self.device)
                 grads, metrics = self.grad_fn(self.state.params, batch, grads)

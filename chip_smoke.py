@@ -145,11 +145,12 @@ one process it:
    ``vanilla_410`` (INT8) on the 64 lambada docs (``eval vanilla``); (c)
    ``eval_longctx.main`` in ``ppl`` mode (4 chunks of 2048) and ``needle``
    mode (depths 0, 50, 100); (f) the adapter on the card against the CPU
-   at the small configuration (float32 loglikelihoods within
-   EVAL_F32_TOL, greedy flags and generations equal; K3 and K1 by their
-   CUDA-core routes there, head dim 32 and float32 x, and a row of each
-   counting those launches: K3 at that scoring shape, K1 at a float32
-   decode shape of ``block_main_b4_1.2b``) and
+   at the small configuration with INT8 and with INT4 weights (float32
+   loglikelihoods within EVAL_F32_TOL, greedy flags and generations equal;
+   K3 by its CUDA-core route there, head dim 32, K1 and K4 by their TF32
+   route, and a row of K3 and K1 counting those launches: K3 at that
+   scoring shape, K1 at a float32 decode shape of ``block_main_b4_1.2b``
+   within K14_F32_TOL beside its CUDA-core kernel) and
    ``pretrain_block_transformer.main --from_vanilla`` on a tiny vanilla
    tree in the HF layout, one step; (g) the eval entry points as a user
    calls them, at full width with float32 weights and ``--quantize int8``
@@ -158,15 +159,20 @@ one process it:
    ``checkpoint-1`` and scored through ``--ckpt``, then
    ``export_checkpoint.main`` on it and ``--ckpt`` of the HF tree, the
    three results equal within EVAL_F32_TOL (``eval entry``: W8A8 and K3
-   by its float32 tensor-core route, 3xTF32), and kernel rows in float32
-   at its longest batch (K3 within K3_F32_TOL of its plain version, beside
-   its CUDA-core kernel timed at the same inputs).
+   by its float32 tensor-core route, 3xTF32); ``--random --quantize int4``
+   (``eval entry int4``: every linear by K4's TF32 route, ``tf32x2``, K3 by
+   ``tf32x3``, no K1 and no W8A8); and kernel rows in float32 at its
+   longest batch (K3 within K3_F32_TOL of its plain version, beside its
+   CUDA-core kernel timed at the same inputs; K4 at the int4 run's LM head
+   and mlp_up within K14_F32_TOL, beside its CUDA-core kernel and
+   ``torch.matmul`` on the dequantized float32 weight).
 
 Every timed full-width run of steps 5-9 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
 other one (the baseline: its 96 prefill linears at M = 16384 by W8A8),
-that K1, K3 and K4 launched by the tensor-core route only (K3 by its
-float32 one, ``tf32x3``, on ``eval entry``) and W8A8-mm by its wgmma
+that K1, K3 and K4 launched by the tensor-core route only (in float32 on
+``eval entry`` and ``eval entry int4``: K3 by ``tf32x3``, K1 and K4 by
+``tf32x2``) and W8A8-mm by its wgmma
 route only, and every one with a token decoder that K2's bf16
 form took the warp route there (its split route runs only on the bf16
 global cache). The last three lines are
@@ -244,8 +250,14 @@ BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 FP32_FLOPS = 67e12      # float32 outside the tensor cores
 # float32 products on the TF32 tensor cores three times over (K3's tf32x3
-# route): a third of the 495 TFLOP/s TF32 rate
+# route): a third of the 495 TFLOP/s TF32 rate; twice over (K1/K4's
+# tf32x2 route: x split, the integer weights exact): half of it
 TF32X3_FLOPS = 495e12 / 3
+TF32X2_FLOPS = 495e12 / 2
+# the fastest exact rate for float32 x times INT8 / INT4 weights, K1/K4's
+# float32 bound: the weights are exact in bf16 and x in three bf16 parts
+# (3 x 8 significant bits), so three bf16 passes, a third of 989 TFLOP/s
+F32_X_INT_FLOPS = BF16_FLOPS / 3
 TOL = 2e-2      # max |kernel - plain| / max |plain| in bf16 (~2^-8 rounding
                 # of outputs and probabilities, summed in another order)
 
@@ -326,6 +338,7 @@ PATH_KERNELS = {
     # generation tasks' prompts fill a bf16 global cache
     "eval score": ("K3", *W8A8),
     "eval entry": ("K3", *W8A8),
+    "eval entry int4": ("K3", "K4"),
     "eval generate": ("K1", "K2 bf16", "K3", *W8A8),
     "eval vanilla": ("K3", *W8A8),
     "eval longctx ppl": ("K3",),
@@ -346,6 +359,7 @@ PATH_ABSENT = {
     "vanilla": ("K2 bf16",),
     "eval score": ("K2", "K2 bf16", "K4", *SERVING),
     "eval entry": ("K2", "K2 bf16", "K4", *SERVING),
+    "eval entry int4": ("K1", "K2", "K2 bf16", *W8A8, *SERVING),
     "eval generate": ("K2", "K4", *SERVING),
     "eval vanilla": ("K2", "K2 bf16", "K4", *SERVING),
     "eval longctx ppl": ("K1", "K2", "K2 bf16", "K4", *W8A8, *SERVING),
@@ -379,9 +393,10 @@ ROUTED = {"K1": (k1.int8_matmul_stacked, "tc"),
           "K4": (k1.int4_matmul_stacked, "tc"),
           "W8A8-mm": (w8a8.w8a8_matmul_stacked, "wgmma")}
 # the paths that take another route than ROUTED's: the eval entry point
-# scores float32 activations, which K1 takes by its CUDA-core route and K3
-# by its float32 tensor-core route (3xTF32)
-PATH_ROUTES = {"eval entry": {"K1": "fma", "K3": "tf32x3"}}
+# scores float32 activations, which K1 and K4 take by their TF32 route (x
+# split in two) and K3 by its float32 tensor-core route (3xTF32)
+PATH_ROUTES = {"eval entry": {"K1": "tf32x2", "K3": "tf32x3"},
+               "eval entry int4": {"K3": "tf32x3", "K4": "tf32x2"}}
 
 
 def log(msg: str) -> None:
@@ -456,31 +471,40 @@ def attention_need(mask: masks.AttnMask, H: int, D: int, B: int = 1):
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
-            tol: float = TOL) -> float:
+            tol: float = TOL):
+    """(max |kernel - plain|, max|plain|); fails past ``tol`` * max|plain|."""
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got.float() - want.float()).abs().max().item()
-    scale = want.float().abs().max().item()
+    scale = abs_max(want)
     if err > tol * scale:
         raise AssertionError(f"{name}: max |kernel - plain| {err:.3e} > "
                              f"{tol} * max|plain| {scale:.3e}")
-    return err
+    return err, scale
+
+
+def abs_max(*ts) -> float:
+    """The largest magnitude in the tensors ``ts``."""
+    return max(t.float().abs().max().item() for t in ts)
 
 
 def record(rows, tag, label, err, ms, plain_ms, library_ms, nbytes, flops,
-           plan=None, host_us=None, extra=None, path=None, peak=BF16_FLOPS):
+           plan=None, host_us=None, extra=None, path=None, peak=BF16_FLOPS,
+           plain_max=None):
     """One kernel row of the kernel ``tag`` in KERNELS; ``plan`` (K1, K4) is
     the dequant-matmul's launch, ``host_us`` the wrapper's host time a call,
     ``extra`` more keys (K2's split, K3's route), ``path`` the main path
     whose launches the row reports (by default the kernel's own in
-    KERNELS)."""
+    KERNELS), ``plain_max`` the plain version's largest magnitude, which
+    ``err`` is held against (None for a row held bit for bit)."""
     fn, _, source, replaces, own_path, _ = next(k for k in KERNELS
                                                 if k[1] == tag)
     bound_ms, bound_by = bound(nbytes, flops, peak)
     row = {"name": f"{tag} {fn.__name__} [{label}]", "tag": tag,
            "route": "cuda",
            "path": path or own_path, "source": source, "replaces": replaces, "launches": None,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": err, "max_abs_plain": plain_max, "ms": ms,
+           "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms}
     row.update(extra or {})
@@ -488,21 +512,45 @@ def record(rows, tag, label, err, ms, plain_ms, library_ms, nbytes, flops,
     if plan is not None:
         row["matmul_route"] = (f"{plan.route} {'x'.join(map(str, plan.tile))}"
                                f" splits {plan.splits}")
-        note = f", route {row['matmul_route']}"
+        note += f", route {row['matmul_route']}"
     if host_us is not None:
         row["host_us"] = host_us
         note += f", host {host_us:.1f} us/call"
     rows.append(row)
     lib = "none" if library_ms is None else f"{library_ms:.5f} ms"
+    held = ("bit-exact" if plain_max is None
+            else f"max|plain| {plain_max:.3e}")
     log(f"{tag} [{label}]: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
         f"library {lib}, bound {bound_ms:.5f} ms ({bound_by}), "
-        f"max_abs_err {err:.3e}{note}")
+        f"max_abs_err {err:.3e} ({held}){note}")
 
 
-def matmul_plan(M, K, N, dtype=torch.bfloat16):
+def matmul_plan(M, K, N, dtype=torch.bfloat16, group=0):
     """K1's / K4's launch plan for x of ``dtype`` on this card (K: packed
-    rows for K4)."""
-    return k1.plan(M, K, N, dtype, build.sm_count(0))
+    rows for K4, ``group`` its rows a scale group)."""
+    return k1.plan(M, K, N, dtype, build.sm_count(0), group=group)
+
+
+def matmul_fma(name, x, w, scale, layer, ints):
+    """K1's or K4's CUDA-core kernel (``name`` "int8_matmul" or
+    "int4_matmul") through the C entry with the "fma" route code, whatever
+    ``plan`` would take: a yardstick, not counted as a launch. ``ints``: the
+    C entry's (K, N) or (Kh, N, gs)."""
+    out = torch.empty((x.shape[0], w.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    p = k1.fma_plan(x.shape[0], w.shape[1], w.shape[2], build.sm_count(0))
+    k1.launch_plan(name, p, k1.layer_pointers(x, w, scale, layer, out),
+                   x.shape[0], ints, x.dtype, 0)
+    return out
+
+
+# max |kernel - plain| / max|plain| of K1's and K4's float32 route: x split
+# into two TF32 halves over exact integer weights keeps ~2^-22 of each
+# product, summed in short chains joined by rounded float32 adds (a torch
+# model of it: <= 7.2e-7 against JAX's kernels, tests/test_torch_matmul_
+# tf32.py); one TF32 pass keeps ~2^-11 (1.5-2.2e-4 in that model), which
+# bf16's TOL would pass and this refuses
+K14_F32_TOL = 1e-5
 
 
 def k1_row(rows, g, label, M, K, N, layers, path=None,
@@ -510,20 +558,38 @@ def k1_row(rows, g, label, M, K, N, layers, path=None,
     """K1 at x [M, K] @ an INT8 [layers, K, N] stack against its plain
     version and ``torch.matmul`` on the dequantized layer, cycling through
     the layers so the weights come from device memory, as in the layer
-    loop, not from L2; x in ``dtype`` (float32 takes the CUDA cores)."""
+    loop, not from L2; x in ``dtype`` (float32: the TF32 route, held within
+    K14_F32_TOL, beside the CUDA-core kernel at the same inputs as
+    ``fma_ms``)."""
     dev = CARD
+    f32 = dtype == torch.float32
     w_q, scale = quant.quantize_int8(torch.randn((layers, K, N), generator=g,
                                                  device=dev, dtype=dtype)
                                      * 0.02)
     x = torch.randn((M, K), generator=g, device=dev, dtype=dtype)
     w_deq = [quant.dequantize_int8(w_q[i], scale[i], dtype)
              for i in range(layers)]
+    p = matmul_plan(M, K, N, dtype)
+    before = dict(k1.int8_matmul_stacked.route_launches)
     got = k1.int8_matmul_stacked(x, w_q, scale, layers - 1)
+    if routes_since(k1.int8_matmul_stacked, before)[p.route] != 1:
+        raise AssertionError(f"K1 {label}: not the {p.route} route")
     want = k1.int8_matmul_stacked_plain(x, w_q, scale, layers - 1)
-    err = compare(f"K1 {label}", got, want)
+    tol = K14_F32_TOL if f32 else TOL
+    err, pmax = compare(f"K1 {label}", got, want, tol)
     it = iter(range(10 ** 9))
     nxt = lambda: next(it) % layers          # noqa: E731
     iters = 10 if M > 64 else 60
+    extra = {}
+    if f32:
+        ints = (K, N)
+        extra["fma_max_abs_err"], _ = compare(
+            f"K1 {label} fma", matmul_fma("int8_matmul", x, w_q, scale,
+                                          layers - 1, ints), want, tol)
+        extra["fma_ms"] = time_ms(lambda: matmul_fma(
+            "int8_matmul", x, w_q, scale, nxt(), ints), iters)
+        extra["allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
+    del got, want
     ms, host_us = time_ms_host(
         lambda: k1.int8_matmul_stacked(x, w_q, scale, nxt()), iters)
     plain_ms = time_ms(lambda: k1.int8_matmul_stacked_plain(
@@ -531,9 +597,13 @@ def k1_row(rows, g, label, M, K, N, layers, path=None,
     lib_ms = time_ms(lambda: torch.matmul(x, w_deq[nxt()]), iters)
     size = x.element_size()
     nbytes = M * K * size + K * N + N * 4 + M * N * size
+    if f32:     # the bound of the route's own two TF32 passes, beside
+        extra["tf32x2_bound_ms"] = bound(nbytes, 2 * M * K * N,
+                                         TF32X2_FLOPS)[0]
     record(rows, "K1", label, err, ms, plain_ms, lib_ms,
-           nbytes, 2 * M * K * N, matmul_plan(M, K, N, dtype), host_us,
-           path=path, peak=BF16_FLOPS if size == 2 else FP32_FLOPS)
+           nbytes, 2 * M * K * N, p, host_us, path=path,
+           peak=F32_X_INT_FLOPS if f32 else BF16_FLOPS, plain_max=pmax,
+           extra=extra)
 
 
 def phase_k1(rows, cfg):
@@ -569,7 +639,7 @@ def phase_k4(rows, cfg):
                  for i in range(layers)]
         got = k1.int4_matmul_stacked(x, w_p, scale, layers - 1)
         want = k1.int4_matmul_stacked_plain(x, w_p, scale, layers - 1)
-        err = compare(f"K4 {label}", got, want)
+        err, pmax = compare(f"K4 {label}", got, want)
         it = iter(range(10 ** 9))
         nxt = lambda: next(it) % layers          # noqa: E731
         iters = 10 if M > 64 else 60
@@ -581,7 +651,7 @@ def phase_k4(rows, cfg):
         nbytes = M * K * 2 + K * N // 2 + G * N * 4 + M * N * 2
         record(rows, "K4", f"{label} G={G}", err, ms,
                plain_ms, lib_ms, nbytes, 2 * M * K * N,
-               matmul_plan(M, K // 2, N), host_us)
+               matmul_plan(M, K // 2, N), host_us, plain_max=pmax)
         del w_p, scale, w_deq
 
 
@@ -631,11 +701,13 @@ def w8a8_rows(rows, g, label, M, K, N, L, path, dtype=torch.bfloat16):
         (L, K, N), generator=g, device=dev, dtype=bf16) * 0.02)
     x = torch.randn((M, K), generator=g, device=dev, dtype=dtype)
     xq, sx = w8a8.w8a8_quant(x)
-    exact_pair(f"W8A8-q {label}", (xq, sx), w8a8.w8a8_quant_plain(x))
+    want = w8a8.w8a8_quant_plain(x)
+    exact_pair(f"W8A8-q {label}", (xq, sx), want)
     got = w8a8.w8a8_matmul_stacked(xq, sx, w_q, scale, L - 1, dtype)
-    exact_pair(f"W8A8-mm {label}", (got,), (
-        w8a8.w8a8_matmul_stacked_plain(xq, sx, w_q, scale, L - 1, dtype),))
-    del got
+    want = w8a8.w8a8_matmul_stacked_plain(xq, sx, w_q, scale, L - 1, dtype)
+    exact_pair(f"W8A8-mm {label}", (got,), (want,))
+    mm_max = abs_max(want)
+    del got, want
     it = iter(range(10 ** 9))
     nxt = lambda: next(it) % L             # noqa: E731
     q_ms = time_ms(lambda: w8a8.w8a8_quant(x), 20)
@@ -645,17 +717,19 @@ def w8a8_rows(rows, g, label, M, K, N, L, path, dtype=torch.bfloat16):
     mm_plain = time_ms(lambda: w8a8.w8a8_matmul_stacked_plain(
         xq, sx, w_q, scale, nxt(), dtype), 3)
     lib_ms, layout = int_mm_ms(xq, w_q, nxt)
-    # K1 beside it in bf16 only: its float32 route is the CUDA cores'
+    # K1 beside it (float32 x: its TF32 route)
     k1_ms = time_ms(lambda: k1.int8_matmul_stacked(x, w_q, scale, nxt()),
-                    10) if dtype == bf16 else None
+                    10)
     extra = {"k1_ms": k1_ms, "pair_ms": q_ms + mm_ms}
     size = x.element_size()
     record(rows, "W8A8-q", f"{label} M={M} K={K}", 0.0, q_ms, q_plain,
-           None, M * K * size + M * K + M * 4, 0, path=path, extra=extra)
+           None, M * K * size + M * K + M * 4, 0, path=path, extra=extra,
+           plain_max=None)
     p = w8a8.plan(M, K, N, build.sm_count(0))
     record(rows, "W8A8-mm", f"{label} M={M} K={K} N={N}", 0.0, mm_ms,
            mm_plain, lib_ms, M * K + K * N + M * 4 + N * 4 + M * N * size,
            2 * M * K * N, path=path, peak=INT8_OPS, host_us=mm_host_us,
+           plain_max=mm_max,
            extra={**extra, "w8a8_plan": (
                       f"{p.route} {'x'.join(map(str, p.tile))} splits "
                       f"{p.splits} blocks {p.blocks}"),
@@ -726,7 +800,8 @@ def k2_row(rows, label, cache, q, mask, iters, path=None):
     if not int8 and (k2.decode_attention_stacked.route_launches[route]
                      != before[route] + 1):
         raise AssertionError(f"{tag} {label}: not the {route} route")
-    err = compare(f"{tag} {label}", got, plain(q, *cache, L // 2, mask))
+    err, pmax = compare(f"{tag} {label}", got,
+                        plain(q, *cache, L // 2, mask))
     it = iter(range(10 ** 9))
     nxt = lambda: next(it) % L                 # noqa: E731
     ms = time_ms(lambda: fn(q, *cache, nxt(), mask), iters)
@@ -757,7 +832,8 @@ def k2_row(rows, label, cache, q, mask, iters, path=None):
         p = k2.plan(B, H, cap, build.sm_count(0))
         how = f"splits {p.splits} x {p.slots_per_split} slots"
     record(rows, tag, label, err, ms, plain_ms, lib_ms, nbytes, ops,
-           path=path, extra={"decode_route": route, "decode_plan": how})
+           path=path, extra={"decode_route": route, "decode_plan": how},
+           plain_max=pmax)
     del layers
 
 
@@ -874,13 +950,13 @@ def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None,
     if k3.flash_attention.route_launches[route] != before[route] + 1:
         raise AssertionError(f"K3 {label}: not the {route} route")
     want = k3.flash_attention_plain(q0, k0, v0, mask)
-    err = compare(f"K3 {label}", got, want, tol)
+    err, pmax = compare(f"K3 {label}", got, want, tol)
     extra = {"attention_route": k3.route(q0.dtype, D, K)}
     it = iter(range(10 ** 9))
     pick = lambda: qkv[next(it) % len(qkv)]   # noqa: E731
     if fma:
         vecs = k3.index_vectors(mask, B, Q, K, q0.device)
-        extra["fma_max_abs_err"] = compare(
+        extra["fma_max_abs_err"], _ = compare(
             f"K3 {label} fma", k3_fma(q0, k0, v0, vecs), want, tol)
         extra["fma_ms"] = time_ms(lambda: k3_fma(*pick(), vecs), iters)
     del got, want
@@ -894,7 +970,7 @@ def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None,
     nbytes = ((2 * B * H * Q + k_rows + v_rows) * D * q0.element_size()
               + (B * Q + K + B * K) * 4)
     record(rows, "K3", label, err, ms, plain_ms, lib_ms, nbytes,
-           ops, path=path, peak=peak, extra=extra)
+           ops, path=path, peak=peak, extra=extra, plain_max=pmax)
 
 
 def phase_k3(rows, cfg, vcfg):
@@ -967,14 +1043,15 @@ def random_step(g, lead, H, D):
             torch.rand((*lead, H), generator=g, device="cuda"))
 
 
-def exact(name: str, got, want, skip_page0: bool) -> float:
-    """Pools must be equal bit for bit (outside page 0 if asked)."""
+def exact(name: str, got, want, skip_page0: bool):
+    """Pools must be equal bit for bit (outside page 0 if asked): (0.0,
+    None), a bit-exact row's error and max|plain|."""
     for a, b in zip(got, want):
         if skip_page0:
             a, b = a[:, 1:], b[:, 1:]
         if not torch.equal(a, b):
             raise AssertionError(f"{name}: kernel and plain pools differ")
-    return 0.0
+    return 0.0, None
 
 
 def clones(ts):
@@ -996,7 +1073,7 @@ def phase_k5(rows, cfg):
     step = random_step(g, (B,), H, D)
     want = kp.paged_write_int8_plain(*clones(pools), L // 2, page, off, *step)
     got = kp.paged_write_int8(*clones(pools), L // 2, page, off, *step)
-    err = exact("K5", got, want, skip_page0=False)
+    err, pmax = exact("K5", got, want, skip_page0=False)
     for a, b in zip(got, pools):
         if not torch.equal(a[:, 3], b[:, 3]):
             raise AssertionError("K5: the row at off == cap was written")
@@ -1019,7 +1096,7 @@ def phase_k5(rows, cfg):
     n = int(ok.sum())
     nbytes = 2 * 2 * n * H * (D + 4) + 2 * B * 4     # read + write, page/off
     record(rows, "K5", "B=16 H=16 D=128 pool [12,16,16,640]",
-           err, ms, plain_ms, lib_ms, nbytes, 0)
+           err, ms, plain_ms, lib_ms, nbytes, 0, plain_max=pmax)
 
 
 def engine_pool_case(g, cfg, packed=False):
@@ -1066,7 +1143,7 @@ def phase_k6(rows, cfg, int4=False):
                                          fresh=fresh)
     want = kp.paged_decode_attention_int8_plain(q, *pools, L // 2, pt, mask,
                                                 fresh=fresh)
-    err = compare(tag, got, want)
+    err, pmax = compare(tag, got, want)
     it = iter(range(10 ** 9))
     nxt = lambda: next(it) % L                 # noqa: E731
     ms = time_ms(lambda: kp.paged_decode_attention_int8(
@@ -1111,7 +1188,7 @@ def phase_k6(rows, cfg, int4=False):
     p = k2.plan(B, H, K, build.sm_count(0))
     record(rows, tag, label, err, ms, plain_ms, lib_ms, nbytes, ops,
            extra={"decode_plan": f"splits {p.splits} x {p.slots_per_split} "
-                                 "slots"})
+                                 "slots"}, plain_max=pmax)
     del k_deq, v_deq
 
 
@@ -1129,7 +1206,7 @@ def phase_k7(rows, cfg):
     step = random_step(g, (L, B), H, D)
     want = kp.paged_write_layers_int8_plain(*clones(pools), page, off, *step)
     got = kp.paged_write_layers_int8(*clones(pools), page, off, *step)
-    err = exact("K7", got, want, skip_page0=True)
+    err, pmax = exact("K7", got, want, skip_page0=True)
     ms = time_ms(lambda: kp.paged_write_layers_int8(*pools, page, off, *step),
                  200)
     plain_ms = time_ms(lambda: kp.paged_write_layers_int8_plain(
@@ -1145,7 +1222,7 @@ def phase_k7(rows, cfg):
     nbytes = 2 * 2 * L * B * H * (D + 4) + 2 * B * 4
     record(rows, "K7",
            "L=12 B=16 H=16 D=128 pool [12,49,16,256]", err, ms, plain_ms,
-           lib_ms, nbytes, 0)
+           lib_ms, nbytes, 0, plain_max=pmax)
 
 
 def phase_k8(rows, cfg, int4=False):
@@ -1159,7 +1236,7 @@ def phase_k8(rows, cfg, int4=False):
     src = random_pools(g, L, B, H, n_virt * ps, D, int4)
     want = kp.paged_page_copy_int8_plain(*clones(pools), pt, *src)
     got = kp.paged_page_copy_int8(*clones(pools), pt, *src)
-    err = exact(tag, got, want, skip_page0=True)
+    err, pmax = exact(tag, got, want, skip_page0=True)
     ms = time_ms(lambda: kp.paged_page_copy_int8(*pools, pt, *src), 20)
     plain_ms = time_ms(lambda: kp.paged_page_copy_int8_plain(
         *pools, pt, *src), 5)
@@ -1174,7 +1251,8 @@ def phase_k8(rows, cfg, int4=False):
     row_bytes = (D // 2 if int4 else D) + 4
     nbytes = 2 * 2 * L * B * n_virt * H * ps * row_bytes + B * n_virt * 4
     record(rows, tag, "L=12 G=16 nv=3 ps=256 H=16 D=128"
-           + (" packed" if int4 else ""), err, ms, plain_ms, lib_ms, nbytes, 0)
+           + (" packed" if int4 else ""), err, ms, plain_ms, lib_ms, nbytes, 0,
+           plain_max=pmax)
     del src, pages
 
 
@@ -1454,10 +1532,10 @@ def phase_families(smi: str) -> dict:
     return out
 
 
-def small_config():
+def small_config(bits: int = 8):
     cfg = config.make_block_config("smoke", 128, 2, vocab_size=512)
     params = bt.init_block_transformer_params(0, cfg, device="cpu")
-    return cfg, quant.quantize_block_transformer(params, bits=8)
+    return cfg, quant.quantize_block_transformer(params, bits=bits)
 
 
 def to_card(tree):
@@ -1972,7 +2050,7 @@ def train_batch(cfg, seed: int, tokens: int = TRAIN_TOKENS,
     ids = rng.integers(1, cfg.vocab_size, (rows, tokens))
     att = np.ones_like(ids)
     ids[1, :96], att[1, :96] = 0, 0
-    return packing.make_train_batch(ids, att, cfg.block_length)
+    return packing.make_train_batch_from_rows(ids, att, cfg.block_length)
 
 
 def calibration(batch):
@@ -2721,6 +2799,67 @@ def eval_path(lm, task_list, path: str, smi: str):
     return launches, results, decisions
 
 
+def scoring_linear_rows(cfg, batches):
+    """(M of the LM head, M of the token decoder's linears) in the scoring
+    forward of the longest batch (B rows of S tokens, the adapter's left
+    pad of L - 1 and right pad to a block boundary: N blocks, of which the
+    token decoder takes N - 1)."""
+    B, S, _ = max(batches, key=lambda b: b[1])
+    L = cfg.block_length
+    left = L - 1
+    N = (S + left + ((-(S + left)) % L or L)) // L
+    Bb = B * (N - 1)
+    return Bb * L, Bb * (cfg.n_expanded_emb + L - 1)
+
+
+def k4_f32_row(rows, g, label, M, K, N, layers, path, iters, slow_iters):
+    """K4 with float32 x [M, K] @ an INT4 [layers, K/2, N] stack (groups of
+    GROUP_SIZE rows) by its TF32 route, within K14_F32_TOL of its plain
+    version, beside its CUDA-core kernel at the same inputs (``fma_ms``)
+    and ``torch.matmul`` on the dequantized float32 layer, cycling through
+    the layers; the plain version and the CUDA-core kernel ``slow_iters``
+    times. Bound at F32_X_INT_FLOPS, the route's own two-pass TF32 bound
+    beside it (``tf32x2_bound_ms``)."""
+    dev = CARD
+    w_p, scale = quant.quantize_int4(torch.randn(
+        (layers, K, N), generator=g, device=dev) * 0.02, GROUP_SIZE)
+    G = scale.shape[1]
+    gs = K // G
+    x = torch.randn((M, K), generator=g, device=dev)
+    p = matmul_plan(M, K // 2, N, torch.float32, gs)
+    before = dict(k1.int4_matmul_stacked.route_launches)
+    got = k1.int4_matmul_stacked(x, w_p, scale, layers - 1)
+    if routes_since(k1.int4_matmul_stacked, before)[p.route] != 1 or \
+            p.route != "tf32x2":
+        raise AssertionError(f"K4 {label}: not the tf32x2 route ({p})")
+    want = k1.int4_matmul_stacked_plain(x, w_p, scale, layers - 1)
+    err, pmax = compare(f"K4 {label}", got, want, K14_F32_TOL)
+    ints = (K // 2, N, gs)
+    fma_err, _ = compare(f"K4 {label} fma", matmul_fma(
+        "int4_matmul", x, w_p, scale, layers - 1, ints), want, K14_F32_TOL)
+    del got, want
+    it = iter(range(10 ** 9))
+    nxt = lambda: next(it) % layers          # noqa: E731
+    ms, host_us = time_ms_host(
+        lambda: k1.int4_matmul_stacked(x, w_p, scale, nxt()), iters)
+    fma_ms = time_ms(lambda: matmul_fma("int4_matmul", x, w_p, scale, nxt(),
+                                        ints), slow_iters)
+    plain_ms = time_ms(lambda: k1.int4_matmul_stacked_plain(
+        x, w_p, scale, nxt()), slow_iters)
+    w_deq = [quant.dequantize_int4(w_p[i], scale[i], torch.float32)
+             for i in range(layers)]
+    lib_ms = time_ms(lambda: torch.matmul(x, w_deq[nxt()]), iters)
+    del w_deq
+    nbytes = M * K * 4 + K * N // 2 + G * N * 4 + M * N * 4
+    record(rows, "K4", f"{label} G={G}", err, ms, plain_ms, lib_ms, nbytes,
+           2 * M * K * N, p, host_us, path=path, peak=F32_X_INT_FLOPS,
+           plain_max=pmax, extra={
+               "fma_ms": fma_ms, "fma_max_abs_err": fma_err,
+               "tf32x2_bound_ms": bound(nbytes, 2 * M * K * N,
+                                        TF32X2_FLOPS)[0],
+               "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+
+
 def eval_kernel_rows(rows, cfg, batches, decisions, path="eval score",
                      dtype=torch.bfloat16):
     """The kernels at the scoring forward's new shapes, from its longest
@@ -2758,8 +2897,7 @@ def eval_kernel_rows(rows, cfg, batches, decisions, path="eval score",
            peak=TF32X3_FLOPS if f32 else BF16_FLOPS,
            tol=K3_F32_TOL if f32 else TOL, fma=f32)
     del qkv
-    Bb = B * (N - 1)
-    m_head, m_td = Bb * L, Bb * (cfg.n_expanded_emb + L - 1)
+    m_head, m_td = scoring_linear_rows(cfg, batches)
     taken = {m for m, t in decisions.seen if t}
     if not {m_head, m_td, B * Q} <= taken:
         raise AssertionError(f"{path}: W8A8 at M {sorted(taken)}, not at "
@@ -2848,12 +2986,13 @@ def phase_eval_longctx(smi) -> dict:
     return out
 
 
-def fma_rows(rows, cfg):
-    """The CUDA-core routes that no full-width path takes, each row counting
-    the launches of (f)'s float32 card run (``eval small``): K3 at the
-    small configuration's head dim, at the adapter's scoring forward there
-    (max_length 256: B = 4 rows of N = 65 blocks, block-causal), and K1
-    with float32 x at a decode shape of MODEL (qkv, M = 8)."""
+def eval_small_rows(rows, cfg):
+    """The rows that count the launches of (f)'s float32 card run (``eval
+    small``): K3 by its CUDA-core route at the small configuration's head
+    dim (no full-width path takes it), at the adapter's scoring forward
+    there (max_length 256: B = 4 rows of N = 65 blocks, block-causal), and
+    K1 by its TF32 route at a decode shape of MODEL (qkv, M = 8) beside its
+    CUDA-core kernel."""
     g = torch.Generator(device=CARD).manual_seed(16)
     bcfg = cfg.block_decoder
     B, H, D = 4, bcfg.num_heads, bcfg.head_dim
@@ -2871,22 +3010,12 @@ def fma_rows(rows, cfg):
            3 * big.hidden_size, 12, path="eval small", dtype=torch.float32)
 
 
-def phase_eval_small(rows, smi) -> dict:
-    """(f) The block adapter on the card against the CPU at the small
-    configuration (INT8 weights, float32; the CPU takes W8A8's plain
-    versions where the card takes W8A8, through the card gate opened for
-    it): 8 lambada loglikelihoods and 1 wikitext page's rolling windows
+def small_card_vs_cpu(cfg, qparams, what: str) -> None:
+    """The block adapter on ``qparams`` on the card against the CPU (W8A8's
+    plain versions where the card takes W8A8, through the card gate opened
+    for it): 8 lambada loglikelihoods and 1 wikitext page's rolling windows
     within EVAL_F32_TOL relative with equal greedy flags, and 4 TriviaQA
-    generations equal; K3's and K1's routes on the card are logged and
-    checked (head dim 32: K3's CUDA-core route; float32 x: K1's), and
-    ``fma_rows`` counts their launches. Then ``--from_vanilla`` on the
-    card: a random ``vanilla_31`` tree in the HF layout (a directory named
-    after its config) uptrained into FROM_VANILLA_YAML (``partition``), one
-    step. Returns {"eval small": {"K1": launches, "K3": launches}}."""
-    from block_transformer_tpu_torch import pretrain_block_transformer
-    cfg, qparams = small_config()
-    k1_before = dict(k1.int8_matmul_stacked.route_launches)
-    k3_before = dict(k3.flash_attention.route_launches)
+    generations equal."""
     tok = ByteTokenizer()
     reqs = [(d["text"].rsplit(" ", 1)[0], " " + d["text"].rsplit(" ", 1)[1])
             for d in fixture("lambada_pg", 8)]
@@ -2913,21 +3042,47 @@ def phase_eval_small(rows, smi) -> dict:
     if worst > EVAL_F32_TOL or [g for _, g in card_ll] != [
             g for _, g in cpu_ll] \
             or card_gen != cpu_gen:
-        raise AssertionError(f"eval small: card and CPU differ: {card_ll} / "
-                             f"{cpu_ll}, {card_roll} / {cpu_roll}, "
-                             f"{card_gen} / {cpu_gen}")
-    log(f"(f) small adapter card vs CPU (INT8, float32): 8 loglikelihoods "
-        f"and {len(page)} rolling page, max relative diff {worst:.3e} (limit "
-        f"{EVAL_F32_TOL}), greedy flags equal; {len(greqs)} generations "
-        "equal")
-    k3_routes = check_k3_routes("(f) small adapter on the card", k3_before,
+        raise AssertionError(f"eval small {what}: card and CPU differ: "
+                             f"{card_ll} / {cpu_ll}, {card_roll} / "
+                             f"{cpu_roll}, {card_gen} / {cpu_gen}")
+    log(f"(f) small adapter card vs CPU ({what}, float32): 8 "
+        f"loglikelihoods and {len(page)} rolling page, max relative diff "
+        f"{worst:.3e} (limit {EVAL_F32_TOL}), greedy flags equal; "
+        f"{len(greqs)} generations equal")
+
+
+def phase_eval_small(rows, smi) -> dict:
+    """(f) The block adapter on the card against the CPU at the small
+    configuration in float32 (``small_card_vs_cpu``), with INT8 weights and
+    then INT4 (``--quantize int4``'s groups of 128, one group where a
+    weight has fewer rows); K3's, K1's and K4's routes on the card are
+    logged and checked (head dim 32: K3's CUDA-core route; float32 x in the
+    TF32 envelope: K1's and K4's TF32 route), and ``eval_small_rows``
+    counts their launches. Then ``--from_vanilla`` on the card: a random
+    ``vanilla_31`` tree in the HF layout (a directory named after its
+    config) uptrained into FROM_VANILLA_YAML (``partition``), one step.
+    Returns {"eval small": {"K1": launches, "K3": launches, "K4":
+    launches}}."""
+    from block_transformer_tpu_torch import pretrain_block_transformer
+    cfg, q8 = small_config()
+    _, q4 = small_config(bits=4)
+    before = {fn: dict(fn.route_launches) for fn in (
+        k1.int8_matmul_stacked, k1.int4_matmul_stacked, k3.flash_attention)}
+    small_card_vs_cpu(cfg, q8, "INT8")
+    small_card_vs_cpu(cfg, q4, "INT4")
+    k3_routes = check_k3_routes("(f) small adapter on the card",
+                                before[k3.flash_attention],
                                 cfg.block_decoder.head_dim)
-    k1_routes = routes_since(k1.int8_matmul_stacked, k1_before)
-    log(f"(f) small adapter on the card: K1 by route {json.dumps(k1_routes)}")
-    if k1_routes["fma"] <= 0 or k1_routes["tc"]:
-        raise AssertionError(f"(f) K1 not by its fma route alone: "
-                             f"{k1_routes}")
-    fma_rows(rows, cfg)
+    mm_routes = {tag: routes_since(fn, before[fn]) for tag, fn in (
+        ("K1", k1.int8_matmul_stacked), ("K4", k1.int4_matmul_stacked))}
+    log(f"(f) small adapter on the card: K1 / K4 by route "
+        f"{json.dumps(mm_routes)}")
+    for tag, by_route in mm_routes.items():
+        if by_route["tf32x2"] <= 0 or by_route["tf32x2"] != sum(
+                by_route.values()):
+            raise AssertionError(f"(f) {tag} not by its tf32x2 route alone: "
+                                 f"{by_route}")
+    eval_small_rows(rows, cfg)
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_uptrain_",
@@ -2958,8 +3113,9 @@ def phase_eval_small(rows, smi) -> dict:
             f"{recs[-1]['loss']:.5f} [{smi}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"eval small": {"K1": k1_routes["fma"], "K3": sum(
-        k3_routes.values())}}
+    return {"eval small": {"K1": mm_routes["K1"]["tf32x2"],
+                           "K3": sum(k3_routes.values()),
+                           "K4": mm_routes["K4"]["tf32x2"]}}
 
 
 def write_byte_corpus(prefix: str) -> None:
@@ -2974,12 +3130,12 @@ def write_byte_corpus(prefix: str) -> None:
     mmap_dataset.write_mmap_dataset(prefix, [tok.encode(t) for t in texts])
 
 
-def entry_eval(argv, what: str, smi: str):
+def entry_eval(argv, what: str, smi: str, path: str = "eval entry"):
     """``eval_zero_shot_task.main(argv)`` between a launch-count reset and
-    the ``eval entry`` path's check, its W8A8 decisions checked too; the
-    byte tasks' metrics finite. Returns (launches, results, decisions,
-    the scoring batches)."""
-    path = "eval entry"
+    the check of ``path`` ("eval entry", or "eval entry int4" for
+    ``--quantize int4``), its W8A8 decisions checked too; the byte tasks'
+    metrics finite. Returns (launches, results, decisions, the scoring
+    batches)."""
     torch.cuda.synchronize()
     reset_launches()
     with W8A8Decisions() as decisions, ScoringBatches() as batches:
@@ -2994,9 +3150,11 @@ def entry_eval(argv, what: str, smi: str):
             all(math.isfinite(v) for r in results.values()
                 for v in r.values()):
         raise AssertionError(f"{path} {what}: {results}")
-    log(json.dumps({"eval_entry": what, "s": secs, "scored_rows": sum(
+    log(json.dumps({"eval_entry": what, "path": path, "s": secs,
+                    "scored_rows": sum(
         b[0] for b in batches.seen), "metrics": results,
         "K3_by_route": dict(k3.flash_attention.route_launches),
+        "K4_by_route": dict(k1.int4_matmul_stacked.route_launches),
         "note": "main() with loading and quantization; "
         "random weights: the metrics prove the path, not the model's "
         "quality", "card": smi}))
@@ -3031,6 +3189,10 @@ def phase_eval_entry(rows, cfg, smi) -> dict:
                   str(EVAL_BATCH), "--max_length", str(EVAL_MAX_LENGTH)]
         launches, want, decisions, batches = entry_eval(
             common + ["--random"], "--random", smi)
+        int4 = [{"int8": "int4"}.get(a, a) for a in common]
+        launches4, *_ = entry_eval(int4 + ["--random"],
+                                   "--random --quantize int4", smi,
+                                   "eval entry int4")
 
         params = bt.init_block_transformer_params(0, cfg, dtype=torch.float32,
                                                   device=CARD)
@@ -3059,9 +3221,19 @@ def phase_eval_entry(rows, cfg, smi) -> dict:
                 f"relative (limit {EVAL_F32_TOL})")
         eval_kernel_rows(rows, cfg, batches, decisions, "eval entry",
                          torch.float32)
+        g = torch.Generator(device=CARD).manual_seed(17)
+        m_head, m_td = scoring_linear_rows(cfg, batches)
+        tcfg = cfg.token_decoder.neox
+        k4_f32_row(rows, g, f"float32 scoring lm_head M={m_head}", m_head,
+                   tcfg.hidden_size, tcfg.vocab_size, 1, "eval entry int4",
+                   5, 2)
+        k4_f32_row(rows, g, f"float32 scoring token decoder mlp_up "
+                   f"M={m_td}", m_td, tcfg.hidden_size,
+                   tcfg.intermediate_size, tcfg.num_layers,
+                   "eval entry int4", 10, 3)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return {"eval entry": launches}
+    return {"eval entry": launches, "eval entry int4": launches4}
 
 
 def phase_eval(rows, smi) -> dict:

@@ -7,8 +7,8 @@ the same seeded numpy inputs through both sides, every comparison exact.
   ``build/torch_packer/``) equals the numpy mapping, and ``last_route``
   says which ran.
 - ``block_split``: the sampled lengths of every distribution, the
-  variable-length split and ``fetch_train_batch`` against JAX's
-  ``make_train_batch`` (fixed and variable).
+  variable-length split and ``make_train_batch(ds, idxs, block_length,
+  distribution)`` against JAX's (fixed and variable).
 - ``mmap_dataset``: a corpus written by each side gives the same bytes and
   reads back equal through either reader.
 - ``tokenizer``, ``streaming``, ``retokenized_corpus`` and ``dispatch``'s
@@ -172,7 +172,7 @@ def test_fetch_train_batch_equals_jax_make_train_batch(dist):
           "uniform": lambda m: m.UniformDistribution(mean=4, radius=3,
                                                      seed=1)}[dist]
     idxs = np.array([2, 0, 11, 5])
-    got = packing.fetch_train_batch(got_ds, idxs, L, distribution=mk(bs))
+    got = packing.make_train_batch(got_ds, idxs, L, distribution=mk(bs))
     want = jax_packing.make_train_batch(want_ds, idxs, L,
                                         distribution=mk(jax_bs))
     assert sorted(got) == sorted(want)

@@ -17,8 +17,10 @@ order of float32 sums, so 1e-4 (abs and rel); bf16 outputs carry one bf16
 rounding (2^-8 relative) on each side, so 1e-2 of the output's largest
 magnitude (K4's tensor-core route also rounds each scaled weight to bf16,
 2^-9 relative, which sums to far less). K1 and K4 cases assert which route
-``plan`` took: bf16 x with K (K/2) a multiple of 32 and N of 16 goes to the
-tensor cores, float32 x and ragged shapes to the CUDA cores; K3 cases
+``plan`` took: with K (K/2) a multiple of 32, N of 16 and aligned operands,
+bf16 x goes to the bf16 tensor cores ("tc") and float32 x to the TF32 ones
+("tf32x2", K4 with groups of a multiple of 32 rows; held at 1e-5 of the
+output's largest magnitude), the rest to the CUDA cores; K3 cases
 assert the route ``route`` took (D = 64 or 128 on the tensor cores: bf16
 by "tc", float32 by "tf32x3", held at 1e-5 of the output's largest
 magnitude, which one TF32 pass would miss; other head dims and unaligned
@@ -67,20 +69,38 @@ def _card():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, route=None):
+    """``route`` "tf32x2": within K14_F32_TOL of max|plain|, and also
+    element by element within the CUDA-core route's F32_TOL."""
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.isfinite(got).all()
-    if dtype == torch.float32:
+    if route == "tf32x2":
+        err = (got - want).abs().max().item()
+        assert err <= K14_F32_TOL * want.abs().max().item(), err
+        torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    elif dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
     else:
         err = (got.float() - want.float()).abs().max().item()
         assert err <= BF16_REL * want.float().abs().max().item(), err
 
 
-def _route(dtype, K, N):
-    """The route plan() must take (K: rows of the weight, packed for K4)."""
-    return "tc" if dtype == torch.bfloat16 and K % 32 == 0 and N % 16 == 0 \
-        else "fma"
+# K1/K4's float32 TF32 route ("tf32x2"): max |kernel - plain| within 1e-5 of
+# the output's largest magnitude (K3's float32 limit): x is split into two
+# TF32 halves (2^-22 relative left out) over exact integer weights, and
+# the tensor cores' truncating sums run in short chains joined by rounded
+# adds; one TF32 pass keeps ~2^-11 and misses it
+K14_F32_TOL = 1e-5
+
+
+def _route(dtype, K, N, gs=0):
+    """The route plan() must take (K: rows of the weight, packed for K4;
+    gs: K4's rows a group)."""
+    if K % 32 or N % 16:
+        return "fma"
+    if dtype == torch.bfloat16:
+        return "tc"
+    return "tf32x2" if dtype == torch.float32 and gs % 32 == 0 else "fma"
 
 
 def _routed(fn, route, call):
@@ -115,9 +135,11 @@ def test_k1_matches_plain(M, K, N, L, layer, x_scale, dtype):
     w_q, scale = quant.quantize_int8(
         torch.randn((L, K, N), generator=g, device="cuda"))
     x = (x_scale * torch.randn((M, K), generator=g, device="cuda")).to(dtype)
-    got = _routed(k1.int8_matmul_stacked, _route(dtype, K, N),
+    route = _route(dtype, K, N)
+    got = _routed(k1.int8_matmul_stacked, route,
                   lambda: k1.int8_matmul_stacked(x, w_q, scale, layer))
-    _close(got, k1.int8_matmul_stacked_plain(x, w_q, scale, layer), dtype)
+    _close(got, k1.int8_matmul_stacked_plain(x, w_q, scale, layer), dtype,
+           route)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -148,13 +170,61 @@ def test_k4_matches_plain(M, Kh, N, G, L, layer, legacy, x_scale, dtype):
         scale = scale[:, 0].contiguous()
     x = (x_scale * torch.randn((M, 2 * Kh), generator=g,
                                device="cuda")).to(dtype)
-    got = _routed(k1.int4_matmul_stacked, _route(dtype, Kh, N),
+    gs = 2 * Kh // G
+    route = _route(dtype, Kh, N, gs)
+    got = _routed(k1.int4_matmul_stacked, route,
                   lambda: k1.int4_matmul_stacked(x, w_p, scale, layer))
-    _close(got, k1.int4_matmul_stacked_plain(x, w_p, scale, layer), dtype)
-    p = k1.plan(M, Kh, N, dtype, 132)
-    assert p.route == _route(dtype, Kh, N)
+    _close(got, k1.int4_matmul_stacked_plain(x, w_p, scale, layer), dtype,
+           route)
+    p = k1.plan(M, Kh, N, dtype, 132, group=gs)
+    assert p.route == route
     if M <= 16 and Kh == 1024 and N == 384:         # decode: K is split
         assert p.splits > 1
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [8, 16])
+def test_k14_tf32x2_splits_k_at_8192(bits, M):
+    """float32 x at the mlp_down decode shape (K = 8192, N = 2048; K4 with
+    groups of 128): the TF32 route, K split over blocks and merged by the
+    last split to arrive, within K14_F32_TOL."""
+    g = _card()
+    K, N = 8192, 2048
+    x = torch.randn((M, K), generator=g, device="cuda")
+    w = torch.randn((2, K, N), generator=g, device="cuda") * 0.02
+    if bits == 8:
+        w_q, scale = quant.quantize_int8(w)
+        fn, plain, Kd, gs = (k1.int8_matmul_stacked,
+                             k1.int8_matmul_stacked_plain, K, 0)
+    else:
+        w_q, scale = quant.quantize_int4(w, 128)
+        fn, plain, Kd, gs = (k1.int4_matmul_stacked,
+                             k1.int4_matmul_stacked_plain, K // 2, 128)
+    p = k1.plan(M, Kd, N, torch.float32, build.sm_count(0), group=gs)
+    assert p.route == "tf32x2" and p.splits > 1
+    for _ in range(2):                 # the counters are left at zero
+        got = _routed(fn, "tf32x2", lambda: fn(x, w_q, scale, 1))
+        _close(got, plain(x, w_q, scale, 1), torch.float32, "tf32x2")
+
+
+@pytest.mark.parametrize("case", ["unaligned", "ragged N", "groups of 16"])
+def test_k14_float32_off_the_tensor_cores_takes_fma(case):
+    """float32 x outside the TF32 route's envelope takes the CUDA cores:
+    an x 4 bytes off a 16-byte boundary, N not a multiple of 16, and K4
+    groups of 16 rows (less than a 32-row step)."""
+    g = _card()
+    M, K, N = 8, 2048, 200 if case == "ragged N" else 384
+    buf = torch.randn((M * K + 1,), generator=g, device="cuda")
+    x = buf[1:].view(M, K) if case == "unaligned" else buf[:-1].view(M, K)
+    w = torch.randn((1, K, N), generator=g, device="cuda") * 0.02
+    if case == "groups of 16":
+        w_q, scale = quant.quantize_int4(w, 16)
+        fn, plain = k1.int4_matmul_stacked, k1.int4_matmul_stacked_plain
+    else:
+        w_q, scale = quant.quantize_int8(w)
+        fn, plain = k1.int8_matmul_stacked, k1.int8_matmul_stacked_plain
+    got = _routed(fn, "fma", lambda: fn(x, w_q, scale, 0))
+    _close(got, plain(x, w_q, scale, 0), torch.float32)
 
 
 def test_k4_raises_and_counts():
@@ -1178,7 +1248,7 @@ def test_train_step_card_vs_cpu(qat):
     ids = rng.integers(1, 512, (2, 64))
     att = np.ones_like(ids)
     ids[1, :6], att[1, :6] = 0, 0
-    batch = packing.make_train_batch(ids, att, cfg.block_length)
+    batch = packing.make_train_batch_from_rows(ids, att, cfg.block_length)
     params0 = ts.create_train_state(0, cfg, tx, device="cpu").params
     runs = []
     for dev in ("cpu", "cuda"):

@@ -1,6 +1,7 @@
 """``plan``, the pure function that picks how K1 and K4 launch
-(``kernels/dequant_matmul.py``): the route (tensor cores or CUDA cores), the
-tile, and the split of K over blocks. No card needed.
+(``kernels/dequant_matmul.py``): the route (bf16 tensor cores, TF32 tensor
+cores for float32 x, or CUDA cores), the tile, and the split of K over
+blocks. No card needed.
 
 The main path's shapes come from the two configurations the port runs at
 full width: every linear of ``block_main_b4_1.2b`` and of ``vanilla_410``,
@@ -92,22 +93,50 @@ def test_prefill_is_not_split(M, K, N):
         "tc", (128, 128, 32), 1, K)
 
 
-@pytest.mark.parametrize("M,K,N,dtype,aligned", [
-    (8, 2048, 6144, torch.float32, True),       # float32 x
-    (4096, 2048, 6144, torch.float32, True),
-    (3, 100, 37, torch.bfloat16, True),         # ragged K and N
-    (8, 2048, 37, torch.bfloat16, True),        # ragged N
-    (8, 2048, 200, torch.bfloat16, True),       # N not a multiple of 16
-    (8, 2040, 6144, torch.bfloat16, True),      # K not a multiple of 32
-    (8, 2048, 6144, torch.bfloat16, False),     # an unaligned base pointer
-    (8, 2048, 6144, torch.float16, True),       # no tensor-core form
+@pytest.mark.parametrize("M,K,N,dtype,aligned,group", [
+    (3, 100, 37, torch.bfloat16, True, 0),      # ragged K and N
+    (8, 2048, 37, torch.bfloat16, True, 0),     # ragged N
+    (8, 2048, 200, torch.bfloat16, True, 0),    # N not a multiple of 16
+    (8, 2040, 6144, torch.bfloat16, True, 0),   # K not a multiple of 32
+    (8, 2048, 6144, torch.bfloat16, False, 0),  # an unaligned base pointer
+    (8, 2048, 6144, torch.float16, True, 0),    # no tensor-core form
+    (8, 2048, 6144, torch.float32, False, 0),   # float32, unaligned
+    (4096, 2048, 6144, torch.float32, False, 0),
+    (3, 100, 37, torch.float32, True, 0),       # float32, ragged K and N
+    (8, 2048, 200, torch.float32, True, 0),     # float32, N % 16
+    (8, 2040, 6144, torch.float32, True, 0),    # float32, K % 32
+    (8, 1024, 6144, torch.float32, True, 16),   # K4 groups of 16 rows
+    (4096, 1024, 6144, torch.float32, True, 16),
+    (8, 1024, 384, torch.float32, True, 8),     # groups of 8
+    (40, 96, 256, torch.float32, True, 48),     # groups of 48: not whole
+                                                # 32-row steps
 ])
-def test_everything_else_takes_the_cuda_cores(M, K, N, dtype, aligned):
-    p = k1.plan(M, K, N, dtype, SMS, aligned)
+def test_everything_else_takes_the_cuda_cores(M, K, N, dtype, aligned,
+                                              group):
+    p = k1.plan(M, K, N, dtype, SMS, aligned, group)
     assert p.route == "fma"
     assert p.tile == (16 if M <= 16 else 64, 64, 32)
     assert p.k_per_split % 32 == 0
     assert p.splits * p.k_per_split >= K > (p.splits - 1) * p.k_per_split
+
+
+@pytest.mark.parametrize("M,K,N,group", [
+    (8, 2048, 6144, 0),                         # float32 x (K1)
+    (4096, 2048, 6144, 0),
+    (8, 1024, 6144, 128),                       # K4, groups of 128
+    (16384, 1024, 50304, 128),                  # the scoring LM head
+    (20480, 1024, 8192, 128),                   # the scoring mlp_up
+    (8, 4096, 2048, 128),                       # mlp_down, K = 8192
+    (32, 1024, 384, 2048),                      # K4 with G = 1
+    (8, 1024, 384, 32),                         # groups of one step
+])
+def test_float32_takes_tf32x2(M, K, N, group):
+    """float32 x in the tensor-core envelope takes the TF32 route, with the
+    bf16 route's tiles and split of K."""
+    p = k1.plan(M, K, N, torch.float32, SMS, True, group)
+    assert p.route == "tf32x2"
+    assert (p.tile, p.splits, p.k_per_split) == k1.plan(
+        M, K, N, torch.bfloat16, SMS)[1:]
 
 
 @pytest.mark.parametrize("M,K,N,dtype", [

@@ -62,7 +62,7 @@ def train_batch(seed, B=2, T=24):
     ids = rng.integers(1, VOCAB, (B, T))
     att = np.ones_like(ids)
     ids[1, :5], att[1, :5] = 0, 0
-    return packing.make_train_batch(ids, att, L)
+    return packing.make_train_batch_from_rows(ids, att, L)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,137 @@
+"""The port keeps the JAX package's module names and public signatures.
+
+Both packages are parsed with ``ast`` (nothing is imported). For every JAX
+module that the port has, each public function, class and method of the
+JAX module must exist in the port's module under the same name, with the
+same positional parameters in the same order and the same keyword-only
+parameters. The JAX ``ops/{dequant_matmul,decode_attention,
+flash_attention,paged_attention}.py`` (the Pallas kernels) are the port's
+``kernels/``. Names the port adds are free. The deliberate differences are
+listed below, each with its reason; anything else fails.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+JAX_PKG = ROOT / "block_transformer_tpu"
+PORT_PKG = ROOT / "block_transformer_tpu_torch"
+
+# the Pallas kernels' modules live in the port's kernels/
+MOVED = {f"ops/{n}.py": f"kernels/{n}.py" for n in (
+    "dequant_matmul", "decode_attention", "flash_attention",
+    "paged_attention")}
+
+# ROADMAP Queue 1 item 5 (parallelism), not ported yet: the mesh modules,
+# and what only the JAX mesh code calls or plugs into
+UNPORTED_MODULES = {"parallel/__init__.py", "parallel/pipeline.py",
+                    "parallel/sharding.py", "parallel/tp_decode.py"}
+QUEUE1_ITEM5_NAMES = {
+    "models/neox.py": {"init_layer_params", "neox_layer",
+                       "quantize_kv"},          # tp_decode's cache write
+    "ops/linear.py": {"pallas_disabled", "pallas_allowed"},
+    "ops/flash_attention.py": {"supported"},    # the pallas_allowed gate
+    "train/train_step.py": {"make_sharded_train_step",
+                            "make_sharded_grad_and_apply", "shard_state"},
+}
+QUEUE1_ITEM5_PARAMS = {
+    "block_transformer_forward": {"block_decoder_fn",
+                                  "token_decoder_stack_fn"},
+    "token_decoder_train_forward": {"stack_fn"},
+    "apply_linear": {"use_pallas"},
+    "attention": {"impl"},
+    "fresh_attn_tiles": {"attn_impl"},
+}
+# orbax's abstract state tree: the port restores into a tree of tensors
+# (``restore_checkpoint(..., like)``) and needs no abstract form
+JAX_ONLY_NAMES = {"utils/checkpoint.py": {"abstract_like"}}
+# the Pallas kernels' tile sizes and interpret mode: the hand kernels plan
+# their own tiles, and the CPU runs each kernel's plain version
+PALLAS_PARAMS = {"bm", "bn", "bk", "bq", "interpret"}
+# jax.random keys become torch generators; JAX's orbax abstract state
+# becomes the tree of tensors to restore into
+RENAMED = {"key": {"gen", "generator"}, "abstract_state": {"like"}}
+# parameters only the port has: the device each entry point allocates on
+# (JAX places arrays on its default device), and two options more
+PORT_ONLY_PARAMS = {"device"}
+PORT_ONLY_BY_NAME = {
+    "generate": {"fresh_prefill"},      # generate_blocks' switch, passed on
+    "gptq_quantize_block_transformer": {"stats"},   # seconds by trunk
+}
+
+
+def _public(path: Path) -> dict:
+    """{name: ast.arguments or None (a class)} of a module's top-level
+    public functions and classes and their public methods (and
+    ``__init__``), as ``Class.method``."""
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            out[node.name] = node.args
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            out[node.name] = None
+            for sub in node.body:
+                if isinstance(sub, ast.FunctionDef) and (
+                        not sub.name.startswith("_") or sub.name == "__init__"):
+                    out[f"{node.name}.{sub.name}"] = sub.args
+    return out
+
+
+def _params(args: ast.arguments, name: str, jax_side: bool):
+    """(positional names in order, keyword-only names as a set), the
+    deliberate differences taken out."""
+    fn = name.split(".")[-1]
+    if jax_side:
+        drop = PALLAS_PARAMS | QUEUE1_ITEM5_PARAMS.get(fn, set())
+    else:
+        drop = PORT_ONLY_PARAMS | PORT_ONLY_BY_NAME.get(fn, set())
+
+    def norm(a):
+        if not jax_side:
+            for jax_name, port_names in RENAMED.items():
+                if a in port_names:
+                    return jax_name
+        return a
+
+    pos = [norm(a.arg) for a in args.posonlyargs + args.args
+           if a.arg not in drop]
+    kw = {norm(a.arg) for a in args.kwonlyargs if a.arg not in drop}
+    return pos, kw, args.vararg is not None, args.kwarg is not None
+
+
+def _jax_modules():
+    return sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py"))
+
+
+def test_every_unported_module_is_a_listed_gap():
+    missing = {m for m in _jax_modules()
+               if not (PORT_PKG / MOVED.get(m, m)).exists()}
+    assert missing == UNPORTED_MODULES
+
+
+PORTED = [m for m in _jax_modules() if m not in UNPORTED_MODULES]
+
+
+@pytest.mark.parametrize("module", PORTED)
+def test_public_names_and_parameters_match_jax(module):
+    want = _public(JAX_PKG / module)
+    got = _public(PORT_PKG / MOVED.get(module, module))
+    skip = QUEUE1_ITEM5_NAMES.get(module, set()) | JAX_ONLY_NAMES.get(
+        module, set())
+    faults = []
+    for name, args in want.items():
+        if name in skip:
+            if name in got:
+                faults.append(f"{name} is listed as a gap but is ported")
+            continue
+        if name not in got:
+            faults.append(f"{name} is missing")
+        elif (args is None) != (got[name] is None):
+            faults.append(f"{name}: a class on one side only")
+        elif args is not None:
+            j, p = _params(args, name, True), _params(got[name], name, False)
+            if j != p:
+                faults.append(f"{name}: JAX {j}, port {p}")
+    assert not faults, f"{module}: " + "; ".join(faults)

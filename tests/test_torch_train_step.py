@@ -142,7 +142,7 @@ def test_batch_layout_equals_jax():
         np.testing.assert_array_equal(got[k], want[k])
     np.testing.assert_array_equal(packing.add_labels(ids, att),
                                   jax_packing.add_labels(ids, att))
-    batch = packing.make_train_batch(ids, att, 4)
+    batch = packing.make_train_batch_from_rows(ids, att, 4)
     np.testing.assert_array_equal(batch["labels"].reshape(3, 24),
                                   jax_packing.add_labels(ids, att))
     assert all(v.dtype == np.int32 for v in batch.values())

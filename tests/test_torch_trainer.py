@@ -195,8 +195,8 @@ def test_variable_block_lengths_equal_jax(tmp_path):
     idxs = np.arange(4)
     want = jax_packing.make_train_batch(jt.dataset, idxs, 7,
                                         distribution=jt._distribution)
-    got = packing.fetch_train_batch(tt.dataset, idxs, 7,
-                                    distribution=tt._distribution)
+    got = packing.make_train_batch(tt.dataset, idxs, 7,
+                                   distribution=tt._distribution)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
     assert got["input_ids"].shape == (4, 7, 7)

@@ -25,6 +25,35 @@
 // moves 2 * B * L * H * (D + 4) bytes in each direction; one block per
 // (slot, layer tile) with 16-byte copies keeps every store a full sector.
 //
+// K5 / K7 fused with the INT8 KV quantization (paged_quantize_write_kernel):
+// the decode step's K and V rows [B, H, D] (bf16 or float32, strided) are
+// quantized as ops/quant.py quantize_kv does and written in the same launch,
+// where the unfused path spent ~10 PyTorch launches a tensor on the
+// quantization and one more on the write. That launch count, not the bytes
+// (a few hundred KB), is what the decode step pays for on this card: each
+// small launch costs ~2 us of device time and several of host time. One warp
+// a (b, h) row: each lane loads its D/32 elements of K and of V (vector
+// loads where rows are aligned), takes max |x| by __shfl_xor_sync, and
+// computes scale = max(a, 1e-8) / 127 and q = clamp(rint(x / scale), -127,
+// 127) with IEEE divisions (__fdiv_rn), exactly the plain version's
+// operations, so the result is the same bit for bit. Three forms share the
+// body (`mode`):
+//   QW_POOL (K5): into layer `layer` of the pool at (page[b], off[b]), or of
+//     the contiguous cache [L, B, H, cap, D] (no page table: page b), with
+//     K5's drop rule; `off` may be one offset for every row.
+//   QW_STEP (K7's feed, layers < L - 1 of the paged engine's deferred
+//     write): into the step buffers [2, L, B, H(, D)] at layer `layer`, and
+//     the dequantized float32 pair q * scale that K6 takes as `fresh`.
+//   QW_STEP_LAYERS (K7, the last layer): QW_STEP for layer L - 1, that layer
+//     written into the pool from registers, then layers 0..L-2 of the (b, h)
+//     copied from the step buffers into the pool. Stream order: the K6
+//     launches of layers < L - 1 ran before this launch, so none of them
+//     sees the new slot; layer L - 1's K6 runs after it, but masks the
+//     frontier slot (q_idx - 1) and reads the fresh pair instead, so writing
+//     the pool first changes nothing it reads. A warp writes only its own
+//     (b, h), from its registers or from rows earlier launches wrote: no
+//     dependency between blocks, and no row is read that this launch writes.
+//
 // K6, paged_decode_attention_int8 (Pallas _paged_kernel / _paged_attn):
 // K2's math (csrc/decode_attention.cu) through the page table, for S <= 8
 // query rows:
@@ -175,6 +204,233 @@ paged_write_kernel(int8_t* __restrict__ kpool, float* __restrict__ kspool,
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K5 / K7 fused with the INT8 KV quantization
+// ---------------------------------------------------------------------------
+
+constexpr int QW_WARPS = 4;      // (b, h) rows a block, one a warp
+constexpr int QW_MAX_D = 256;
+constexpr int QW_BATCH = 8;      // copies a lane holds in flight (K7 form)
+enum { QW_POOL = 0, QW_STEP = 1, QW_STEP_LAYERS = 2 };
+
+struct QuantWriteArgs {
+  const void* k;
+  const void* v;                 // [B, H, D] rows, last dim contiguous
+  int8_t* kpool;                 // [L, P, H, ps, D]
+  float* kspool;                 // [L, P, H, ps]
+  int8_t* vpool;
+  float* vspool;
+  const int* page;               // [B]; null: row b's page is b
+  const int* off;                // [B]; null: off_value for every row
+  int8_t* step_q;                // [2, L, B, H, D]
+  float* step_s;                 // [2, L, B, H]
+  float* kf;                     // [B, H, D]
+  float* vf;
+  int kb, kh, vb, vh;            // (b, h) strides of k and v, in elements
+  int off_value, mode, B, H, D, P, ps, L, layer;
+  int vec;      // every row aligned to its lane's pack: the vector forms
+  int copy16;   // D % 16 == 0 and 16-byte aligned pools and step buffers
+};
+
+// A lane's elements of a row: with EPL > 0, d = lane * EPL + e (one vector
+// load or store a lane); with EPL == 0 (other head dims, unaligned rows),
+// d = lane + 32 * e for d < D, one element at a time.
+template <int EPL>
+struct RowLanes {
+  static constexpr int N = EPL > 0 ? EPL : QW_MAX_D / 32;
+  __device__ static int d(int lane, int e) {
+    return EPL > 0 ? lane * EPL + e : lane + 32 * e;
+  }
+};
+
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Pack {
+  T e[N];
+};
+
+template <typename T, int EPL>
+__device__ __forceinline__ void load_row(const T* __restrict__ x, int D,
+                                         int lane,
+                                         float (&f)[RowLanes<EPL>::N]) {
+  if constexpr (EPL > 0) {
+    const Pack<T, EPL> p = *reinterpret_cast<const Pack<T, EPL>*>(
+        x + lane * EPL);
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) f[e] = bt::to_f32<T>(p.e[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < RowLanes<EPL>::N; ++e) {
+      const int d = RowLanes<EPL>::d(lane, e);
+      f[e] = d < D ? bt::to_f32<T>(x[d]) : 0.f;
+    }
+  }
+}
+
+// quantize_kv of one row: returns the scale, q the lane's values.
+template <int EPL>
+__device__ __forceinline__ float quantize_row(
+    const float (&f)[RowLanes<EPL>::N], int8_t (&q)[RowLanes<EPL>::N]) {
+  float a = 0.f;                       // elements past D hold 0
+#pragma unroll
+  for (int e = 0; e < RowLanes<EPL>::N; ++e) a = fmaxf(a, fabsf(f[e]));
+  const float scale = __fdiv_rn(fmaxf(warp_max(a), 1e-8f), 127.f);
+#pragma unroll
+  for (int e = 0; e < RowLanes<EPL>::N; ++e)
+    q[e] = static_cast<int8_t>(__float2int_rn(
+        fminf(fmaxf(rintf(__fdiv_rn(f[e], scale)), -127.f), 127.f)));
+  return scale;
+}
+
+template <int EPL>
+__device__ __forceinline__ void store_q(int8_t* __restrict__ dst,
+                                        const int8_t (&q)[RowLanes<EPL>::N],
+                                        int D, int lane) {
+  if constexpr (EPL > 0) {
+    Pack<int8_t, EPL> p;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) p.e[e] = q[e];
+    *reinterpret_cast<Pack<int8_t, EPL>*>(dst + lane * EPL) = p;
+  } else {
+#pragma unroll
+    for (int e = 0; e < RowLanes<EPL>::N; ++e) {
+      const int d = RowLanes<EPL>::d(lane, e);
+      if (d < D) dst[d] = q[e];
+    }
+  }
+}
+
+// The dequantized row q * scale in float32 (the fresh pair of K6).
+template <int EPL>
+__device__ __forceinline__ void store_fresh(
+    float* __restrict__ dst, const int8_t (&q)[RowLanes<EPL>::N], float scale,
+    int D, int lane) {
+  if constexpr (EPL > 0) {
+    Pack<float, EPL> p;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e)
+      p.e[e] = __fmul_rn(static_cast<float>(q[e]), scale);
+    *reinterpret_cast<Pack<float, EPL>*>(dst + lane * EPL) = p;
+  } else {
+#pragma unroll
+    for (int e = 0; e < RowLanes<EPL>::N; ++e) {
+      const int d = RowLanes<EPL>::d(lane, e);
+      if (d < D) dst[d] = __fmul_rn(static_cast<float>(q[e]), scale);
+    }
+  }
+}
+
+// K7's copy: the warp's (b, h) rows of layers 0..L-2 (K then V), `n_units`
+// units of U (16 bytes or 1) a row, from the step buffers into the pool.
+// Every lane loads up to QW_BATCH units before it stores them.
+template <typename U>
+__device__ __forceinline__ void copy_layers(const QuantWriteArgs& a, int b,
+                                            int h, int pg, int of,
+                                            int lane) {
+  const int units = a.D / static_cast<int>(sizeof(U));
+  const int total = 2 * (a.L - 1) * units;
+  for (int i0 = 0; i0 < total; i0 += 32 * QW_BATCH) {
+    U buf[QW_BATCH];
+#pragma unroll
+    for (int j = 0; j < QW_BATCH; ++j) {
+      const int i = i0 + j * 32 + lane;
+      if (i < total) {
+        const int row = i / units, t = row / (a.L - 1), l = row % (a.L - 1);
+        const size_t src = ((static_cast<size_t>(t) * a.L + l) * a.B + b) *
+                               a.H + h;
+        buf[j] = __ldg(reinterpret_cast<const U*>(a.step_q + src * a.D) +
+                       i % units);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < QW_BATCH; ++j) {
+      const int i = i0 + j * 32 + lane;
+      if (i < total) {
+        const int row = i / units, t = row / (a.L - 1), l = row % (a.L - 1);
+        const size_t dst =
+            ((static_cast<size_t>(l) * a.P + pg) * a.H + h) * a.ps + of;
+        reinterpret_cast<U*>((t ? a.vpool : a.kpool) + dst * a.D)[i % units] =
+            buf[j];
+      }
+    }
+  }
+  for (int i = lane; i < 2 * (a.L - 1); i += 32) {   // the scales
+    const int t = i / (a.L - 1), l = i % (a.L - 1);
+    const size_t src =
+        ((static_cast<size_t>(t) * a.L + l) * a.B + b) * a.H + h;
+    const size_t dst =
+        ((static_cast<size_t>(l) * a.P + pg) * a.H + h) * a.ps + of;
+    (t ? a.vspool : a.kspool)[dst] = __ldg(a.step_s + src);
+  }
+}
+
+template <typename T, int EPL>
+__global__ void __launch_bounds__(32 * QW_WARPS)
+paged_quantize_write_kernel(const QuantWriteArgs a) {
+  constexpr int N = RowLanes<EPL>::N;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * QW_WARPS + (threadIdx.x >> 5);   // b * H + h
+  if (r >= a.B * a.H) return;
+  const int b = r / a.H, h = r % a.H;
+  const int pg = a.page ? a.page[b] : b;
+  const int of = a.off ? a.off[b] : a.off_value;
+  // Out of range: the pool write is dropped (see the note at the top).
+  const bool to_pool = a.mode != QW_STEP && pg >= 0 && pg < a.P && of >= 0 &&
+                       of < a.ps;
+  if (a.mode == QW_POOL && !to_pool) return;
+  float f[2][N];
+  load_row<T, EPL>(static_cast<const T*>(a.k) + static_cast<size_t>(b) * a.kb +
+                       static_cast<size_t>(h) * a.kh, a.D, lane, f[0]);
+  load_row<T, EPL>(static_cast<const T*>(a.v) + static_cast<size_t>(b) * a.vb +
+                       static_cast<size_t>(h) * a.vh, a.D, lane, f[1]);
+  // the slot (layer, pg, h, of) of the pool
+  const size_t slot =
+      ((static_cast<size_t>(a.layer) * a.P + pg) * a.H + h) * a.ps + of;
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    int8_t q[N];
+    const float scale = quantize_row<EPL>(f[t], q);
+    if (to_pool) {
+      store_q<EPL>((t ? a.vpool : a.kpool) + slot * a.D, q, a.D, lane);
+      if (lane == 0) (t ? a.vspool : a.kspool)[slot] = scale;
+    }
+    if (a.mode != QW_POOL) {
+      const size_t row =
+          ((static_cast<size_t>(t) * a.L + a.layer) * a.B + b) * a.H + h;
+      store_q<EPL>(a.step_q + row * a.D, q, a.D, lane);
+      if (lane == 0) a.step_s[row] = scale;
+      store_fresh<EPL>((t ? a.vf : a.kf) + static_cast<size_t>(r) * a.D, q,
+                       scale, a.D, lane);
+    }
+  }
+  if (a.mode == QW_STEP_LAYERS && to_pool) {
+    if (a.copy16)
+      copy_layers<int4>(a, b, h, pg, of, lane);
+    else
+      copy_layers<int8_t>(a, b, h, pg, of, lane);
+  }
+}
+
+template <typename T>
+int launch_quantize_write(const QuantWriteArgs& a, cudaStream_t st) {
+  const dim3 grid((a.B * a.H + QW_WARPS - 1) / QW_WARPS);
+  const dim3 block(32 * QW_WARPS);
+  // the vector forms need every row aligned to its pack (`vec`)
+  switch (a.vec ? a.D : 0) {
+    case 32:
+      paged_quantize_write_kernel<T, 1><<<grid, block, 0, st>>>(a);
+      break;
+    case 64:
+      paged_quantize_write_kernel<T, 2><<<grid, block, 0, st>>>(a);
+      break;
+    case 128:
+      paged_quantize_write_kernel<T, 4><<<grid, block, 0, st>>>(a);
+      break;
+    default:
+      paged_quantize_write_kernel<T, 0><<<grid, block, 0, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -791,6 +1047,42 @@ extern "C" int bt_paged_write_int8(void* kpool, void* kspool, void* vpool,
       static_cast<const int8_t*>(vq), static_cast<const float*>(vs), L, B, P,
       H, ps, D, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5 / K7 fused with the quantization. k, v [B, H, D] of float (bf16 == 0)
+// or bf16, last dim contiguous, (b, h) strides kb, kh, vb, vh; D <= 256.
+// mode 0 (K5): pools int8 [L, P, H, ps, D] and f32 [L, P, H, ps] written at
+// layer `layer`; page int32 [B] or null (page b), off int32 [B] or null
+// (off_value). mode 1: step_q int8 [2, L, B, H, D], step_s f32 [2, L, B, H]
+// at layer `layer`, kf/vf f32 [B, H, D]. mode 2 (K7): mode 1 at layer =
+// L - 1, then every layer of each (b, h) into the pools at (page[b],
+// off[b]). vec: each k/v row aligned to D / 32 elements and every other
+// pointer to 16 bytes (the vector forms, D in {32, 64, 128}); copy16:
+// D % 16 == 0 and the pools and step_q 16-byte aligned.
+extern "C" int bt_paged_quantize_write_int8(
+    const void* k, const void* v, void* kpool, void* kspool, void* vpool,
+    void* vspool, const void* page, const void* off, void* step_q,
+    void* step_s, void* kf, void* vf, int kb, int kh, int vb, int vh,
+    int off_value, int mode, int B, int H, int D, int P, int ps, int L,
+    int layer, int bf16, int vec, int copy16, void* stream) {
+  if (D < 1 || D > QW_MAX_D || mode < QW_POOL || mode > QW_STEP_LAYERS ||
+      layer < 0 || layer >= L || (mode == QW_STEP_LAYERS && layer != L - 1) ||
+      (mode != QW_POOL && (step_q == nullptr || step_s == nullptr ||
+                           kf == nullptr || vf == nullptr)) ||
+      (mode != QW_STEP && (kpool == nullptr || vpool == nullptr ||
+                           (mode == QW_STEP_LAYERS && page == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0) return 0;
+  const QuantWriteArgs a{
+      k, v, static_cast<int8_t*>(kpool), static_cast<float*>(kspool),
+      static_cast<int8_t*>(vpool), static_cast<float*>(vspool),
+      static_cast<const int*>(page), static_cast<const int*>(off),
+      static_cast<int8_t*>(step_q), static_cast<float*>(step_s),
+      static_cast<float*>(kf), static_cast<float*>(vf), kb, kh, vb, vh,
+      off_value, mode, B, H, D, P, ps, L, layer, vec, copy16};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_quantize_write<__nv_bfloat16>(a, st)
+              : launch_quantize_write<float>(a, st);
 }
 
 // K8. Pools as above; pt_rows int32 [G, nv]; rows int8 [L, G, H, nv * ps, D]

@@ -29,6 +29,22 @@ pages point there and are masked). The CUDA kernels are in
 K5 and K7 take INT8 pools only, as in the JAX package, where the INT4 pool
 is written by XLA scatters.
 
+K5 and K7 fused with ``quantize_kv`` (one kernel with three forms): the
+decode step's unquantized K and V go in, and one launch quantizes and
+writes them, where the JAX package (and ``paged_write_int8`` /
+``paged_write_layers_int8`` here, kept with its signatures) takes the
+quantized rows from separate ops:
+
+- ``paged_quantize_write_int8``: K5's write of one layer, into a pool or
+  the contiguous INT8 cache (``page=None``), at per-row or one int offset.
+- ``paged_quantize_step_int8``: the paged engine's deferred write, a
+  layer < L - 1: the step buffers and K6's dequantized ``fresh`` pair.
+- ``paged_quantize_write_layers_int8``: the same for the last layer, and
+  then K7's write of every layer into the pool, in the same launch.
+
+Each returns the result of its plain version bit for bit (the quantization
+divides as IEEE does on both devices, ``ops.quant._div``).
+
 The pools are updated **in place**; the write wrappers return the same four
 tensors (the Pallas calls alias them through ``input_output_aliases``).
 Every plain version and every kernel drops a write whose target is out of
@@ -56,7 +72,8 @@ from block_transformer_tpu_torch.kernels import build, decode_attention
 from block_transformer_tpu_torch.kernels.flash_attention import index_vectors
 from block_transformer_tpu_torch.ops import masks as masks_lib
 from block_transformer_tpu_torch.ops.attention import attention_xla
-from block_transformer_tpu_torch.ops.quant import kv_bits, unpack_kv_int4
+from block_transformer_tpu_torch.ops.quant import (kv_bits, quantize_kv,
+                                                   unpack_kv_int4)
 
 MAX_S = 8
 HEAD_DIMS = (32, 64, 128)
@@ -235,6 +252,237 @@ def paged_write_layers_int8(k_pool: torch.Tensor, ks_pool: torch.Tensor,
 
 
 paged_write_layers_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 / K7 fused with the INT8 KV quantization
+# ---------------------------------------------------------------------------
+
+_QW_POOL, _QW_STEP, _QW_STEP_LAYERS = 0, 1, 2
+_QW_MAX_D = 256
+
+
+def _quantize_rows(k, v):
+    """quantize_kv of two [B, H, D] step rows: (kq, ks, vq, vs)."""
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return kq, ks, vq, vs
+
+
+def _dequantized(q, s):
+    """The fresh term K6 takes: q * scale in float32 [B, H, D]."""
+    return q.float() * s[..., None]
+
+
+def paged_quantize_write_int8_plain(k_pool, ks_pool, v_pool, vs_pool,
+                                    layer: int, page, off, k, v):
+    """``quantize_kv`` of k and v, then ``paged_write_int8_plain``; ``page``
+    None is the identity table, an int ``off`` one offset for every row."""
+    B = k.shape[0]
+    if page is None:
+        page = torch.arange(B, dtype=torch.int32, device=k.device)
+    if isinstance(off, int):
+        off = torch.full((B,), off, dtype=torch.int32, device=k.device)
+    return paged_write_int8_plain(k_pool, ks_pool, v_pool, vs_pool, layer,
+                                  page, off, *_quantize_rows(k, v))
+
+
+def paged_quantize_step_int8_plain(step_q, step_s, layer: int, k, v):
+    """``quantize_kv`` of k and v into ``step_q[:, layer]`` and ``step_s[:,
+    layer]``; returns the dequantized pair (kf, vf)."""
+    kq, ks, vq, vs = _quantize_rows(k, v)
+    step_q[0, layer], step_s[0, layer] = kq, ks
+    step_q[1, layer], step_s[1, layer] = vq, vs
+    return _dequantized(kq, ks), _dequantized(vq, vs)
+
+
+def paged_quantize_write_layers_int8_plain(k_pool, ks_pool, v_pool, vs_pool,
+                                           page, off, step_q, step_s, k, v):
+    """The last layer's ``paged_quantize_step_int8_plain``, then
+    ``paged_write_layers_int8_plain`` of every layer's step rows; returns
+    the last layer's (kf, vf)."""
+    fresh = paged_quantize_step_int8_plain(step_q, step_s,
+                                           step_q.shape[1] - 1, k, v)
+    paged_write_layers_int8_plain(k_pool, ks_pool, v_pool, vs_pool, page, off,
+                                  step_q[0], step_s[0], step_q[1], step_s[1])
+    return fresh
+
+
+def _check_rows(what, k, v, B, H, D):
+    """k and v [B, H, D] of one float type on one device, the last dim
+    contiguous."""
+    if (tuple(k.shape) != (B, H, D) or tuple(v.shape) != (B, H, D)
+            or D > _QW_MAX_D):
+        raise ValueError(f"{what}: k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"expected [{B}, {H}, {D}] with D <= {_QW_MAX_D}")
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise TypeError(f"{what}: float32 or bf16 k and v expected, got "
+                        f"{k.dtype}, {v.dtype}")
+    if k.stride(-1) != 1 or v.stride(-1) != 1 or v.device != k.device:
+        raise ValueError(f"{what}: k and v must be on one device, their "
+                         "last dim contiguous")
+
+
+def _check_steps(what, step_q, step_s, B, H, D):
+    """L of the step buffers step_q int8 [2, L, B, H, D] and step_s f32
+    [2, L, B, H]."""
+    L = step_q.shape[1]
+    if (tuple(step_q.shape) != (2, L, B, H, D)
+            or tuple(step_s.shape) != (2, L, B, H)):
+        raise ValueError(f"{what}: step buffers {tuple(step_q.shape)}, "
+                         f"{tuple(step_s.shape)} for k [{B}, {H}, {D}]")
+    if step_q.dtype != torch.int8 or step_s.dtype != torch.float32:
+        raise TypeError(f"{what}: int8 step values and f32 step scales "
+                        "expected")
+    return L
+
+
+def _launch_quantize_write(what, mode, k, v, *, pools=(None,) * 4,
+                           page=None, off=0, steps=(None, None), fresh=None,
+                           P=0, ps=0, L=1, layer=0):
+    B, H, D = k.shape
+    # the kernel's vector form: D / 32 elements a lane, rows aligned to them
+    epl = D // 32 if D in HEAD_DIMS else 0
+    esize = k.element_size()
+    rows_ok = epl > 0 and all(
+        t.data_ptr() % (epl * esize) == 0 and t.stride(0) % epl == 0
+        and t.stride(1) % epl == 0 for t in (k, v))
+    others_ok = _aligned(*(t for t in (*pools, *steps, *(fresh or ()))
+                           if t is not None))
+    vec = int(rows_ok and others_ok)
+    copy16 = int(D % 16 == 0 and others_ok)
+    tensor_off = torch.is_tensor(off)
+    kf, vf = fresh or (None, None)
+    err = _fn("bt_paged_quantize_write_int8", 12, 16)(
+        k.data_ptr(), v.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in pools),
+        None if page is None else page.data_ptr(),
+        off.data_ptr() if tensor_off else None,
+        *(None if t is None else t.data_ptr() for t in steps),
+        None if kf is None else kf.data_ptr(),
+        None if vf is None else vf.data_ptr(),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        0 if tensor_off else off, mode, B, H, D, P, ps, L, layer,
+        int(k.dtype == torch.bfloat16), vec, copy16,
+        build.raw_stream(k.device.index or 0))
+    build.check(err, what)
+
+
+def paged_quantize_write_int8(k_pool: torch.Tensor, ks_pool: torch.Tensor,
+                              v_pool: torch.Tensor, vs_pool: torch.Tensor,
+                              layer: int, page, off, k: torch.Tensor,
+                              v: torch.Tensor):
+    """K5 fused with ``quantize_kv``: one decode step's k and v [B, H, D]
+    (float32 or bf16, strided, the last dim contiguous) quantized per row
+    and written into layer ``layer`` of the pool at ``(page[b], off[b])``,
+    in place, in one launch. Pools int8 [L, P, H, ps, D] / f32
+    [L, P, H, ps]; ``page`` int32 [B], or None for the contiguous cache
+    [L, B, H, cap, D] (row b on page b); ``off`` int32 [B], or one Python
+    int for every row. Out-of-range targets are dropped, as in K5. Returns
+    the four pools."""
+    build.no_backward("paged_quantize_write_int8", k, v)
+    if not k.is_cuda:
+        return paged_quantize_write_int8_plain(k_pool, ks_pool, v_pool,
+                                               vs_pool, layer, page, off, k, v)
+    what = "paged_quantize_write_int8"
+    L, P, H, ps, D = _check_pools(what, k_pool, ks_pool, v_pool, vs_pool)
+    B = k.shape[0]
+    _check_rows(what, k, v, B, H, D)
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} of {L}")
+    indices = [t for t in (page, off) if torch.is_tensor(t)]
+    for t in indices:
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"{what}: page/off {tuple(t.shape)}, expected "
+                             f"[{B}]")
+    if page is not None and not torch.is_tensor(page):
+        raise TypeError(f"{what}: page must be an int32 tensor or None")
+    if not torch.is_tensor(off) and not isinstance(off, int):
+        raise TypeError(f"{what}: off must be an int32 tensor or an int")
+    _check_int32(what, *indices)
+    _check_operands(what, k.device,
+                    (k_pool, ks_pool, v_pool, vs_pool, *indices))
+    _launch_quantize_write(what, _QW_POOL, k, v,
+                           pools=(k_pool, ks_pool, v_pool, vs_pool),
+                           page=page, off=off, P=P, ps=ps, L=L, layer=layer)
+    paged_quantize_write_int8.launches += 1
+    return k_pool, ks_pool, v_pool, vs_pool
+
+
+paged_quantize_write_int8.launches = 0
+
+
+def paged_quantize_step_int8(step_q: torch.Tensor, step_s: torch.Tensor,
+                             layer: int, k: torch.Tensor, v: torch.Tensor):
+    """K7's feed, fused with ``quantize_kv``: layer ``layer``'s k and v
+    [B, H, D] quantized into the step buffers ``step_q`` int8 [2, L, B, H,
+    D] and ``step_s`` f32 [2, L, B, H] (K at index 0, V at 1), in one
+    launch. Returns the dequantized pair (kf, vf) f32 [B, H, D], K6's
+    ``fresh`` term."""
+    build.no_backward("paged_quantize_step_int8", k, v)
+    if not k.is_cuda:
+        return paged_quantize_step_int8_plain(step_q, step_s, layer, k, v)
+    what = "paged_quantize_step_int8"
+    B, H, D = k.shape
+    _check_rows(what, k, v, B, H, D)
+    L = _check_steps(what, step_q, step_s, B, H, D)
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} of {L}")
+    _check_operands(what, k.device, (step_q, step_s))
+    fresh = (torch.empty((B, H, D), dtype=torch.float32, device=k.device),
+             torch.empty((B, H, D), dtype=torch.float32, device=k.device))
+    _launch_quantize_write(what, _QW_STEP, k, v, steps=(step_q, step_s),
+                           fresh=fresh, L=L, layer=layer)
+    paged_quantize_step_int8.launches += 1
+    return fresh
+
+
+paged_quantize_step_int8.launches = 0
+
+
+def paged_quantize_write_layers_int8(k_pool: torch.Tensor,
+                                     ks_pool: torch.Tensor,
+                                     v_pool: torch.Tensor,
+                                     vs_pool: torch.Tensor,
+                                     page: torch.Tensor, off: torch.Tensor,
+                                     step_q: torch.Tensor,
+                                     step_s: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor):
+    """K7 carried by the last layer: ``paged_quantize_step_int8`` of layer
+    L - 1, then every layer's step rows into the pool at ``(page[b],
+    off[b])``, in place, in one launch (pools as K7's; page/off int32 [B];
+    out-of-range targets dropped). Returns the last layer's (kf, vf).
+
+    Call it after the K6 launches of layers < L - 1 and before layer
+    L - 1's, which masks the frontier slot and reads (kf, vf) instead:
+    that K6 then reads nothing this launch changed."""
+    build.no_backward("paged_quantize_write_layers_int8", k, v)
+    if not k.is_cuda:
+        return paged_quantize_write_layers_int8_plain(
+            k_pool, ks_pool, v_pool, vs_pool, page, off, step_q, step_s, k, v)
+    what = "paged_quantize_write_layers_int8"
+    L, P, H, ps, D = _check_pools(what, k_pool, ks_pool, v_pool, vs_pool)
+    B = k.shape[0]
+    _check_rows(what, k, v, B, H, D)
+    if (_check_steps(what, step_q, step_s, B, H, D) != L
+            or tuple(page.shape) != (B,) or tuple(off.shape) != (B,)):
+        raise ValueError(f"{what}: step buffers {tuple(step_q.shape)}, page "
+                         f"{tuple(page.shape)}, off {tuple(off.shape)}, pool "
+                         f"{tuple(k_pool.shape)}")
+    _check_int32(what, page, off)
+    _check_operands(what, k.device, (k_pool, ks_pool, v_pool, vs_pool, page,
+                                     off, step_q, step_s))
+    fresh = (torch.empty((B, H, D), dtype=torch.float32, device=k.device),
+             torch.empty((B, H, D), dtype=torch.float32, device=k.device))
+    _launch_quantize_write(what, _QW_STEP_LAYERS, k, v,
+                           pools=(k_pool, ks_pool, v_pool, vs_pool),
+                           page=page, off=off, steps=(step_q, step_s),
+                           fresh=fresh, P=P, ps=ps, L=L, layer=L - 1)
+    paged_quantize_write_layers_int8.launches += 1
+    return fresh
+
+
+paged_quantize_write_layers_int8.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -25,15 +25,18 @@ reference clamps it instead, which only ever touches a finished slot.
 
 Cached attention: the bf16 and INT8 caches send decode-shaped queries
 (S <= 8) to K2's bf16 and INT8 forms (``kernels/decode_attention.py``); the
-INT8 cache writes a per-row single position through K5
+INT8 cache quantizes and writes a single position (an int or per-row
+``write_pos``) in one launch of K5 fused with the quantization
 (``kernels/paged_attention.py``, the cache viewed as a pool with one page
-per row). Longer queries, and every query on the INT4 cache (as in the JAX
-package, which has no kernel there), dequantize the layer and go through
-``ops.attention.attention``, which sends Q >= 8 to K3; INT4 writes are
-plain indexed writes of packed rows. The paged pool attends through K6
-(both widths); for single-position decode steps the INT8 pool defers the
-write of every layer to one K7 launch after the layer loop, while the INT4
-pool, like every longer step, writes each layer first.
+per row). The JAX package writes an int position with slice updates: the
+values and slots written are the same. Longer queries, and every query on
+the INT4 cache (as in the JAX package, which has no kernel there),
+dequantize the layer and go through ``ops.attention.attention``, which
+sends Q >= 8 to K3; INT4 writes are plain indexed writes of packed rows.
+The paged pool attends through K6 (both widths); for single-position
+decode steps the INT8 pool defers the write of every layer to K7, which
+the last layer's quantizing launch carries, while the INT4 pool, like
+every longer step, writes each layer first.
 """
 
 from __future__ import annotations
@@ -304,12 +307,20 @@ def _quantize_pair(k, v, bits: int):
     return kq, ks, vq, vs
 
 
-def _write_layer(cache, i: int, write_pos, k, v, rows=None) -> None:
+def _write_layer(cache, i: int, write_pos, k, v) -> None:
     """Write one layer's new K/V [B, H, S, D] in place at ``write_pos``: an
     int (every row) or a [B] int32 tensor (per row; quantized per slot for
-    a QuantKVCache, and packed for an INT4 one). A per-row single-position
-    write into the INT8 cache goes through K5, with ``rows = arange(B)`` as
-    its page ids; INT4 writes are plain indexed writes, as in JAX."""
+    a QuantKVCache, and packed for an INT4 one). A single-position write
+    into the INT8 cache, at an int or per-row position, quantizes and
+    writes K and V in one launch (K5 fused with the quantization, the cache
+    a pool with one page per row); INT4 writes are plain indexed writes, as
+    in JAX."""
+    if (isinstance(cache, QuantKVCache) and cache.bits == 8
+            and k.shape[2] == 1):
+        paged_attention.paged_quantize_write_int8(
+            cache.k, cache.k_scale, cache.v, cache.v_scale, i, None,
+            write_pos, k[:, :, 0], v[:, :, 0])
+        return
     if isinstance(cache, QuantKVCache):
         kq, ks, vq, vs = _quantize_pair(k, v, cache.bits)
         new = ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks),
@@ -320,12 +331,6 @@ def _write_layer(cache, i: int, write_pos, k, v, rows=None) -> None:
         sl = slice(write_pos, write_pos + k.shape[2])
         for buf, val in new:
             buf[i, :, :, sl] = val.to(buf.dtype)
-    elif (isinstance(cache, QuantKVCache) and cache.bits == 8
-          and k.shape[2] == 1):
-        paged_attention.paged_write_int8(
-            cache.k, cache.k_scale, cache.v, cache.v_scale, i, rows,
-            write_pos, kq[:, :, 0].contiguous(), ks[:, :, 0].contiguous(),
-            vq[:, :, 0].contiguous(), vs[:, :, 0].contiguous())
     else:
         for buf, val in new:
             _write_rows(buf, i, val, write_pos)
@@ -417,16 +422,14 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
         return layer_norm(h, params["final_ln"], cfg.layer_norm_eps), None
     if isinstance(write_pos, int):
         _check_room(cache, x.shape[1], write_pos)
-    B, S = x.shape[:2]
-    rows = (torch.arange(B, dtype=torch.int32, device=x.device)
-            if torch.is_tensor(write_pos) else None)
+    S = x.shape[1]
     h = x
     for i in range(cfg.num_layers):
         p = layer_view(layers, i)
         q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
                             positions=positions)
         if isinstance(cache, QuantKVCache):
-            _write_layer(cache, i, write_pos, k, v, rows)
+            _write_layer(cache, i, write_pos, k, v)
             if cache.bits == 8 and S <= decode_attention.MAX_S:
                 attn = decode_attention.decode_attention_int8_stacked(
                     q.contiguous(), cache.k, cache.k_scale, cache.v,
@@ -455,11 +458,12 @@ def _paged_stack(params, x, *, cfg: NeoXConfig, mask, positions,
     goes to page ``page_table[b, pos // ps]`` at ``pos % ps`` (page -1,
     dropped by the writes, past the row's virtual pages).
 
-    A single-position step (the engine's decode) on the INT8 pool writes
-    nothing inside the layer loop: each layer attends through K6 to the
-    pool, whose stale frontier slot ``mask.q_idx - 1`` masks, plus its own
-    just-quantized K/V dequantized as the ``fresh`` term, and one K7 launch
-    after the loop writes every layer's K/V. Longer steps, and every step
+    A single-position step (the engine's decode) on the INT8 pool: each
+    layer attends through K6 to the pool, whose stale frontier slot
+    ``mask.q_idx - 1`` masks, plus its own just-quantized K/V dequantized
+    as the ``fresh`` term; one launch a layer quantizes its K/V into step
+    buffers, and the last layer's launch also writes every layer's K/V
+    into the pool (K7), before that layer's K6. Longer steps, and every step
     on the INT4 pool (the JAX package defers INT8 writes only), write each
     layer first with a plain indexed write of quantized (packed) rows, then
     attend through K6 with the mask as it is."""
@@ -486,25 +490,27 @@ def _paged_stack(params, x, *, cfg: NeoXConfig, mask, positions,
         step_s = torch.empty((2, L, B, H), dtype=torch.float32,
                              device=x.device)
         mask_d = mask._replace(q_idx=mask.q_idx - 1)
+        page0, off0 = page[:, 0].contiguous(), off[:, 0].contiguous()
         for i in range(L):
             p = layer_view(layers, i)
             q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
                                 positions=positions)
-            kq, ks = quantize_kv(k)
-            vq, vs = quantize_kv(v)
-            step_q[0, i], step_s[0, i] = kq[:, :, 0], ks[:, :, 0]
-            step_q[1, i], step_s[1, i] = vq[:, :, 0], vs[:, :, 0]
-            # the fresh pair is dequantized, so it carries the quantization
-            # error a pool read would
-            kf = step_q[0, i].float() * step_s[0, i][..., None]
-            vf = step_q[1, i].float() * step_s[1, i][..., None]
+            # one launch quantizes the layer's K/V into the step buffers and
+            # gives the dequantized fresh pair, so it carries the
+            # quantization error a pool read would; the last layer's launch
+            # also writes every layer's K/V into the pool (K7), before that
+            # layer's K6, which masks the frontier slot it writes
+            if i < L - 1:
+                kf, vf = paged_attention.paged_quantize_step_int8(
+                    step_q, step_s, i, k[:, :, 0], v[:, :, 0])
+            else:
+                kf, vf = paged_attention.paged_quantize_write_layers_int8(
+                    *pools, page0, off0, step_q, step_s, k[:, :, 0],
+                    v[:, :, 0])
             attn = paged_attention.paged_decode_attention_int8(
                 q.contiguous(), cache.k, cache.k_scale, cache.v,
                 cache.v_scale, i, pt, mask_d, fresh=(kf, vf)).to(q.dtype)
             h = layer_finish(p, h, attn, cfg=cfg)
-        paged_attention.paged_write_layers_int8(
-            *pools, page[:, 0].contiguous(), off[:, 0].contiguous(),
-            step_q[0], step_s[0], step_q[1], step_s[1])
     else:
         ok = (page >= 0) & (off < ps)
         pg, of = page[ok].long(), off[ok].long()

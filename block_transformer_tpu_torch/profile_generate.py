@@ -2,7 +2,7 @@
 
     python -m block_transformer_tpu_torch.profile_generate [--runs 5]
         [--quantize int8|int4|mixed48] [--kv int8|int4|bf16]
-        [--w8a8 on|off] [--fresh_prefill 0|1]
+        [--w8a8 on|off] [--fresh_prefill 0|1] [--check_events]
     python -m block_transformer_tpu_torch.profile_generate
         --engine int8|int4|paged|paged-int4
     python -m block_transformer_tpu_torch.profile_generate --vanilla
@@ -43,7 +43,9 @@ cache (``int8``, ``int4``) or the paged INT8 or INT4 pool (``paged``,
 Either way it then traces one more run under ``torch.profiler`` (CPU and
 CUDA activity): device time and launches per kernel name, the device's busy
 time (union of kernel intervals) and its idle share of the median untraced
-run.
+run. ``--check_events`` also builds ``prof.events()`` for that run (slow at
+~10^5 launches) and fails unless it holds the same launches of every kernel,
+copy and fill name as the raw events the breakdown reads.
 """
 
 from __future__ import annotations
@@ -219,9 +221,13 @@ def _busy_us(intervals):
     return total
 
 
-def device_breakdown(fn):
+def device_breakdown(fn, check_events: bool = False):
     """Run ``fn`` under torch.profiler; returns (per-kernel {name: [us,
-    launches]}, busy microseconds)."""
+    launches]}, busy microseconds) over every device event (kernels,
+    copies, fills), read from the profiler's raw events without the tree
+    of ``prof.events()``, which is slow to build at a run's ~10^5
+    launches. ``check_events`` builds that tree as well and fails unless
+    it holds the same launches of every name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -230,14 +236,39 @@ def device_breakdown(fn):
         torch.cuda.synchronize()
     per = defaultdict(lambda: [0.0, 0])
     spans = []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        us = e.time_range.elapsed_us()
-        per[e.name][0] += us
-        per[e.name][1] += 1
-        spans.append((e.time_range.start, e.time_range.end))
+        start, ns = e.start_ns(), e.duration_ns()
+        per[e.name()][0] += ns / 1e3
+        per[e.name()][1] += 1
+        spans.append((start / 1e3, (start + ns) / 1e3))
+    if check_events:
+        _check_events(prof, per)
     return dict(per), _busy_us(spans)
+
+
+def _check_events(prof, per) -> None:
+    """Holds ``device_breakdown``'s launches per name against those of
+    ``prof.events()``, and prints both totals and the copies' and fills'."""
+    from torch.autograd import DeviceType
+    tree = defaultdict(int)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            tree[e.name] += 1
+    raw = {name: n for name, (_, n) in per.items()}
+    moves = [name for name in raw if name.startswith(("Memcpy", "Memset"))]
+    print(json.dumps({
+        "check_events": {"raw": sum(raw.values()),
+                         "tree": sum(tree.values()),
+                         "names": len(raw),
+                         "copies_fills_raw": sum(raw[n] for n in moves),
+                         "copies_fills_tree": sum(tree[n] for n in moves)}}))
+    if raw != dict(tree):
+        diff = {n: (raw.get(n, 0), tree.get(n, 0))
+                for n in set(raw) | set(tree) if raw.get(n) != tree.get(n)}
+        raise AssertionError(f"device events differ by name (raw, tree): "
+                             f"{diff}")
 
 
 # the kernels of csrc/*.cu, as the profiler names them
@@ -249,6 +280,7 @@ OWN_KERNELS = ("tc_matmul_kernel", "tf32_matmul_kernel",
                "flash_attn_kernel",
                "flash_attn_tc_kernel",
                "paged_write_kernel", "page_copy_kernel", "paged_attn_kernel",
+               "paged_quantize_write_kernel",
                "w8a8_quant_kernel", "w8a8_wgmma_kernel")
 
 
@@ -267,13 +299,14 @@ def print_breakdown(per) -> None:
 
 
 def profile_engine(kind: str, cfg, params, runs: int, seed: int,
-                   w8a8: str = "on") -> None:
+                   w8a8: str = "on", check_events: bool = False) -> None:
     eng = make_engine(params, cfg, kind)
     requests = engine_requests(cfg, seed=seed)
     serve(eng, requests)                           # warm-up
     out = [serve(eng, requests) for _ in range(runs)]
     secs = [r["seconds"] for r in out]
-    per, busy_us = device_breakdown(lambda: serve(eng, requests))
+    per, busy_us = device_breakdown(lambda: serve(eng, requests),
+                                    check_events)
     wall = statistics.median(secs)
     print(json.dumps({
         "model": MODEL, "engine": kind, "w8a8": w8a8,
@@ -290,7 +323,7 @@ def profile_engine(kind: str, cfg, params, runs: int, seed: int,
 
 
 def profile_vanilla(quantize: str, runs: int, seed: int,
-                    w8a8: str = "on") -> None:
+                    w8a8: str = "on", check_events: bool = False) -> None:
     cfg, params = vanilla_model(seed, quantize=quantize)
     ids = torch.as_tensor(np.random.default_rng(seed).integers(
         1, cfg.vocab_size, (BATCH, PROMPT_TOKENS)), dtype=torch.int32,
@@ -307,7 +340,7 @@ def profile_vanilla(quantize: str, runs: int, seed: int,
     run()
     total = timed(run, runs)
     pre = timed(prefill, runs)
-    per, busy_us = device_breakdown(run)
+    per, busy_us = device_breakdown(run, check_events)
     wall = statistics.median(total)
     generated = BATCH * NEW_TOKENS               # bench.py's count
     print(json.dumps({
@@ -342,6 +375,9 @@ def main() -> None:
                     help="W8A8 for INT8 linears at prefill-sized M")
     ap.add_argument("--fresh_prefill", type=int, choices=(0, 1), default=1,
                     help="0: the streaming (chunked) prefill")
+    ap.add_argument("--check_events", action="store_true",
+                    help="hold the traced launches of every name against "
+                         "those of prof.events() (slow)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate: no CUDA device")
@@ -353,12 +389,12 @@ def main() -> None:
 def profile(args) -> None:
     if args.vanilla:
         profile_vanilla(args.vanilla_quantize, args.runs, args.seed,
-                        args.w8a8)
+                        args.w8a8, args.check_events)
         return
     cfg, params = main_path_model(args.seed, quantize=args.quantize)
     if args.engine:
         profile_engine(args.engine, cfg, params, args.runs, args.seed,
-                       args.w8a8)
+                       args.w8a8, args.check_events)
         return
     ids, att, bam = ragged_prompts(cfg, seed=args.seed)
     N = ids.shape[1]
@@ -382,7 +418,7 @@ def profile(args) -> None:
     generated = BATCH * (res.n_blocks - N) * cfg.block_length
     total = timed(run, args.runs)
     pre = timed(prefill, args.runs)
-    per, busy_us = device_breakdown(run)
+    per, busy_us = device_breakdown(run, args.check_events)
     wall = statistics.median(total)
     print(json.dumps({
         "model": MODEL, "quantize": args.quantize, "kv_cache": args.kv,

@@ -36,6 +36,12 @@ one process it:
    K5-K8 at the serving engine's shapes (16 slots, 12 layers, 16 heads of
    128, capacity 640 contiguous, 3 pages of 256 paged), K6 and K8 also on
    the packed INT4 pool, each K6 row naming its split of the virtual slots;
+   K5 fused with the INT8 KV quantization (bit for bit) at the decode
+   write of the ``engine int8`` cache (per-row offsets), of generation's
+   global cache and of the baseline's cache (one int offset), and K7's
+   fused forms at the paged engine's step (a layer's step buffers and
+   fresh pair; the last layer's, carrying K7), each beside the device ms
+   and host us of the unfused sequence the parent ran;
    then the ablation families' new shapes (hidden 768, heads of 64):
    W8A8-q/-mm at ``block_uniform_b4_85``'s prefill qkv (M = 2344, bit for
    bit), K3 at its last, partial query tile (Q = 37 of K = 293), K2 bf16
@@ -69,7 +75,8 @@ one process it:
    the INT8 cache, and INT8 weights with the streaming prefill (4 chunks
    of 128 blocks through the INT8 cache): each one warm-up run, then a
    timed run between launch-count resets, asserting every kernel of the
-   path ran in it (and none it must not run), and that W8A8 took the 48
+   path ran in it (and none it must not run; K5 fused on every INT8
+   cache, K5's and K7's own kernels on none), and that W8A8 took the 48
    prefill linears of each fresh prefill with INT8 block-decoder weights
    (M = 4096; none of the streaming chunks, M = 1024 under the INT8 cache)
    and K1 every other INT8 linear;
@@ -81,9 +88,10 @@ one process it:
    served and every kernel of the path ran, and logs how far the
    contiguous and paged caches of one width agree; then runs one
    block-decoder decode step from identical prefilled K/V through the
-   contiguous and the paged stack of each width (K2 + K5 against K6 with
-   the fresh term + K7; the INT4 cache against K6 INT4) and asserts the
-   outputs agree within ``TOL`` of their largest magnitude;
+   contiguous and the paged stack of each width (K2 + K5 fused against K6
+   with the fresh term + the fused K7; the INT4 cache against K6 INT4)
+   and asserts the outputs agree within ``TOL`` of their largest
+   magnitude;
 7. generates greedily with the ``vanilla_410`` baseline (INT8 weights, INT8
    KV cache) at the same B, prompt and new tokens, the same way, and prints
    the block/vanilla throughput ratio as a smoke figure;
@@ -175,7 +183,11 @@ that K1, K3 and K4 launched by the tensor-core route only (in float32 on
 ``tf32x2``) and W8A8-mm by its wgmma
 route only, and every one with a token decoder that K2's bf16
 form took the warp route there (its split route runs only on the bf16
-global cache). The last three lines are
+global cache). The INT8-weight INT8-cache generation, the baseline and
+the INT8 and paged engines each run once more under torch.profiler, and
+one JSON line gives each run's device launches (every kernel, copy and
+fill) and busy seconds (``device_launches_per_run``). The last three lines
+are
 the ``nvidia-smi`` line, a JSON object listing each kernel's launches (from
 the run of step 5, 6, 7, 8 or 11 named by the row's ``path``; a K6 or K8 row
 counts the launches on its pool width, and a K2 bf16 row gives those of its
@@ -314,26 +326,39 @@ KERNELS = [
      "engine paged", "int8"),
     (kp.paged_page_copy_int8, "K8 int4", PAGED_CU, f"{PAGED_PY}:646",
      "engine paged-int4", "int4"),
+    # K5 and K7 fused with the INT8 KV quantization; they replace K5 and K7
+    # on every main path, whose rows above then count no launch (OFF_PATH)
+    (kp.paged_quantize_write_int8, "K5 fused", PAGED_CU, f"{PAGED_PY}:428",
+     "engine int8", None),
+    (kp.paged_quantize_step_int8, "K7 step", PAGED_CU, f"{PAGED_PY}:549",
+     "engine paged", None),
+    (kp.paged_quantize_write_layers_int8, "K7 fused", PAGED_CU,
+     f"{PAGED_PY}:549", "engine paged", None),
     (w8a8.w8a8_quant, "W8A8-q", W8A8_CU, W8A8_JAX, "generation", None),
     (w8a8.w8a8_matmul_stacked, "W8A8-mm", W8A8_CU, W8A8_JAX, "generation",
      None),
 ]
 W8A8 = ("W8A8-q", "W8A8-mm")
+K5_FUSED = ("K5 fused",)   # the INT8 cache's decode write
+K7_FUSED = ("K7 step", "K7 fused")   # the paged INT8 pool's
+# K5's and K7's own kernels keep JAX's signatures and run on no main path
+OFF_PATH = ("K5", "K7")
 # the kernels each main path must launch; every path with a token decoder
 # runs K2's bf16 form on its local cache
 PATH_KERNELS = {
-    "generation": ("K1", "K2", "K2 bf16", "K3", *W8A8),
-    "generation streaming": ("K1", "K2", "K2 bf16", "K3"),
-    "generation int4": ("K2", "K2 bf16", "K3", "K4"),
-    "generation mixed48": ("K1", "K2", "K2 bf16", "K3", "K4", *W8A8),
+    "generation": ("K1", "K2", "K2 bf16", "K3", *K5_FUSED, *W8A8),
+    "generation streaming": ("K1", "K2", "K2 bf16", "K3", *K5_FUSED),
+    "generation int4": ("K2", "K2 bf16", "K3", "K4", *K5_FUSED),
+    "generation mixed48": ("K1", "K2", "K2 bf16", "K3", "K4", *K5_FUSED,
+                           *W8A8),
     "generation kv bf16": ("K1", "K2 bf16", "K3", *W8A8),
     "generation kv int4": ("K1", "K2 bf16", "K3", *W8A8),
-    "engine int8": ("K1", "K2", "K2 bf16", "K3", "K5", *W8A8),
+    "engine int8": ("K1", "K2", "K2 bf16", "K3", *K5_FUSED, *W8A8),
     "engine int4": ("K1", "K2 bf16", "K3", *W8A8),
-    "engine paged": ("K1", "K2 bf16", "K3", "K6", "K7", "K8", *W8A8),
+    "engine paged": ("K1", "K2 bf16", "K3", "K6", *K7_FUSED, "K8", *W8A8),
     "engine paged-int4": ("K1", "K2 bf16", "K3", "K6 int4", "K8 int4",
                           *W8A8),
-    "vanilla": ("K1", "K2", "K3", *W8A8),
+    "vanilla": ("K1", "K2", "K3", *K5_FUSED, *W8A8),
     # evaluation (phase_eval): scoring is a teacher-forced forward; the
     # generation tasks' prompts fill a bf16 global cache
     "eval score": ("K3", *W8A8),
@@ -344,18 +369,19 @@ PATH_KERNELS = {
     "eval longctx ppl": ("K3",),
     "eval longctx needle": ("K2 bf16", "K3"),
 }
-SERVING = ("K5", "K6", "K6 int4", "K7", "K8", "K8 int4")
+SERVING = (*K5_FUSED, "K6", "K6 int4", *K7_FUSED, "K8", "K8 int4")
 # the kernels a main path must not launch: INT4 weights leave K1 no linear;
 # the INT4 and bf16 caches take no INT8 cache kernel; the baseline has no
 # bf16 cache
 PATH_ABSENT = {
     "generation streaming": W8A8,   # chunks of M = 1024 < 2048 (INT8 KV)
     "generation int4": ("K1", *W8A8),
-    "generation kv bf16": ("K2",),
-    "generation kv int4": ("K2", "K5"),
-    "engine int4": ("K2", "K5", "K6", "K6 int4"),
+    "generation kv bf16": ("K2", *K5_FUSED),
+    "generation kv int4": ("K2", *K5_FUSED),
+    "engine int8": K7_FUSED,
+    "engine int4": ("K2", *K5_FUSED, "K6", "K6 int4"),
     "engine paged": ("K6 int4", "K8 int4"),
-    "engine paged-int4": ("K2", "K5", "K6", "K7", "K8"),
+    "engine paged-int4": ("K2", *K5_FUSED, "K6", *K7_FUSED, "K8"),
     "vanilla": ("K2 bf16",),
     "eval score": ("K2", "K2 bf16", "K4", *SERVING),
     "eval entry": ("K2", "K2 bf16", "K4", *SERVING),
@@ -420,25 +446,38 @@ def kernel_label(line: str) -> str:
         ([kind] if kind else []) + re.findall(r"L[ib](\d+)E", args)) + ">"
 
 
+SPIN_CYCLES = 20_000_000   # ~10 ms at the H100's top SM clock
+SM_HZ = 1.98e9
+retimed = []                # the windows queued slower than their spin
+
+
 def time_ms_host(fn, iters: int):
     """(mean device ms, mean host us) of ``fn`` over ``iters`` calls. The
     device first spins for ~10 ms, so the host has queued the calls before
     the device reaches them: the CUDA events time the device's work alone,
     unless ``fn`` itself waits for the device, and the host clock times
-    the calls' host cost."""
+    the calls' host cost. A window whose calls took the host longer than
+    the spin (the device then waited for the host between them) is timed
+    once more behind a spin twice that long."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)              # clock cycles
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_us = (time.perf_counter() - t0) / iters * 1e6
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters, host_us
+    spin = SPIN_CYCLES
+    for _ in range(2):
+        torch.cuda._sleep(spin)                # clock cycles
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        window = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        if window * SM_HZ < spin:
+            break
+        retimed.append(window)
+        spin = int(2 * window * SM_HZ)
+    return start.elapsed_time(end) / iters, window / iters * 1e6
 
 
 def time_ms(fn, iters: int) -> float:
@@ -1097,6 +1136,91 @@ def phase_k5(rows, cfg):
     nbytes = 2 * 2 * n * H * (D + 4) + 2 * B * 4     # read + write, page/off
     record(rows, "K5", "B=16 H=16 D=128 pool [12,16,16,640]",
            err, ms, plain_ms, lib_ms, nbytes, 0, plain_max=pmax)
+    del pools
+    vcfg = config.get_vanilla_config(VANILLA_MODEL)
+    for path, L, B, cfg_, cap, off in (
+            ("engine int8", L, B, cfg.block_decoder, 640, "rows"),
+            ("generation", L, BATCH, cfg.block_decoder, 640, 517),
+            ("vanilla", vcfg.num_layers, BATCH, vcfg,
+             PROMPT_TOKENS + NEW_TOKENS, 2100)):
+        k5_fused_row(rows, g, path, L, B, cfg_.num_heads, cfg_.head_dim, cap,
+                     off)
+
+
+def kv_step_rows(g, B, H, D):
+    """A decode step's K [B, H, D] (RoPE's contiguous output) and V (a
+    strided view of the fused qkv output, as ``layer_qkv`` cuts it), bf16."""
+    k = torch.randn((B, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    qkv = 2 * torch.randn((B, 1, 3 * H * D), generator=g, device="cuda")
+    v = qkv.to(torch.bfloat16).reshape(B, 1, 3, H, D).permute(
+        2, 0, 3, 1, 4)[2][:, :, 0]
+    return k, v
+
+
+# calls of an unfused sequence (21-29 launches) timed in one window: the
+# device's ~10 ms spin outlasts their host time, and their ~600 launches
+# leave room in the launch queue (a full queue would make the host wait)
+UNFUSED_ITERS = 20
+
+
+def unfused_k5(pools, layer, rows_, off, k, v):
+    """The decode write K5 fused replaces, as the parent ran it: quantize_kv
+    of K and V (~10 launches each), then K5 at per-row offsets, or four
+    slice copies at one int offset."""
+    kq, ks = quant.quantize_kv(k)
+    vq, vs = quant.quantize_kv(v)
+    if isinstance(off, int):
+        for buf, val in zip(pools, (kq, ks, vq, vs)):
+            buf[layer, :, :, off] = val
+    else:
+        kp.paged_write_int8(*pools, layer, rows_, off, kq, ks, vq, vs)
+
+
+def quantize_bound(B, H, D, esize, n_written, extra_bytes=0):
+    """(bytes, operations) of quantizing K and V [B, H, D] and writing
+    ``n_written`` rows (D int8 bytes and a float32 scale each, K and V):
+    the float32 work is ~6 operations an element (abs, max, divide, round,
+    clamp twice)."""
+    return (2 * B * H * D * esize + 2 * n_written * H * (D + 4)
+            + extra_bytes, 6 * 2 * B * H * D)
+
+
+def k5_fused_row(rows, g, path, L, B, H, D, cap, off):
+    """K5 fused with ``quantize_kv`` at ``path``'s decode write into its
+    contiguous INT8 cache [L, B, H, cap, D] (no page table): per-row
+    offsets with one finished row at off == cap (``off`` "rows"), or one
+    int offset; bit for bit against the plain version at every layer's
+    first call, timed over rotating layers, beside the unfused sequence
+    the parent ran (device ms and host us)."""
+    pools = random_pools(g, L, B, H, cap, D)
+    if off == "rows":
+        off = torch.randint(0, cap, (B,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        off[3] = cap
+    k, v = kv_step_rows(g, B, H, D)
+    want = kp.paged_quantize_write_int8_plain(*clones(pools), L // 2, None,
+                                              off, k, v)
+    got = kp.paged_quantize_write_int8(*clones(pools), L // 2, None, off, k,
+                                       v)
+    err, pmax = exact("K5 fused", got, want, skip_page0=False)
+    del got, want
+    it = iter(range(10 ** 9))
+    nxt = lambda: next(it) % L                 # noqa: E731
+    ms, host_us = time_ms_host(lambda: kp.paged_quantize_write_int8(
+        *pools, nxt(), None, off, k, v), 200)
+    plain_ms = time_ms(lambda: kp.paged_quantize_write_int8_plain(
+        *pools, nxt(), None, off, k, v), 20)
+    rows_ = torch.arange(B, dtype=torch.int32, device="cuda")
+    u_ms, u_host = time_ms_host(lambda: unfused_k5(pools, nxt(), rows_, off,
+                                                   k, v), UNFUSED_ITERS)
+    per_row = torch.is_tensor(off)
+    n = int((off < cap).sum()) if per_row else B
+    nbytes, ops = quantize_bound(B, H, D, 2, n, 4 * B if per_row else 0)
+    label = (f"B={B} H={H} D={D} cache [{L},{B},{H},{cap}] "
+             + ("per-row off, one at cap" if per_row else f"off {off}"))
+    record(rows, "K5 fused", label, err, ms, plain_ms, None, nbytes, ops,
+           host_us=host_us, path=path, peak=FP32_FLOPS, plain_max=pmax,
+           extra={"unfused_ms": u_ms, "unfused_host_us": u_host})
 
 
 def engine_pool_case(g, cfg, packed=False):
@@ -1223,6 +1347,77 @@ def phase_k7(rows, cfg):
     record(rows, "K7",
            "L=12 B=16 H=16 D=128 pool [12,49,16,256]", err, ms, plain_ms,
            lib_ms, nbytes, 0, plain_max=pmax)
+    k7_fused_rows(rows, g, pools, page, off, (L, B, H, D))
+
+
+def unfused_step(step_q, step_s, i, k, v):
+    """A layer's deferred-write feed as the parent ran it: quantize_kv of K
+    and V, four step-buffer copies, the dequantized fresh pair (28
+    launches)."""
+    kq, ks = quant.quantize_kv(k)
+    vq, vs = quant.quantize_kv(v)
+    step_q[0, i], step_s[0, i] = kq, ks
+    step_q[1, i], step_s[1, i] = vq, vs
+    return (step_q[0, i].float() * step_s[0, i][..., None],
+            step_q[1, i].float() * step_s[1, i][..., None])
+
+
+def k7_fused_rows(rows, g, pools, page, off, shape):
+    """The paged engine's fused deferred write at its step: form (b) at a
+    layer < L - 1 (step buffers and fresh pair) and form (c) at the last
+    (and K7's write of all 12 layers), each bit for bit against its plain
+    version, timed, beside the unfused sequence the parent ran (form (c):
+    the feed, then K7)."""
+    L, B, H, D = shape
+    P = pools[0].shape[1]
+    step_q = torch.randint(-127, 128, (2, L, B, H, D), generator=g,
+                           device="cuda", dtype=torch.int8)
+    step_s = torch.rand((2, L, B, H), generator=g, device="cuda")
+    k, v = kv_step_rows(g, B, H, D)
+    step, step_plain = kp.paged_quantize_step_int8, \
+        kp.paged_quantize_step_int8_plain
+    last, last_plain = kp.paged_quantize_write_layers_int8, \
+        kp.paged_quantize_write_layers_int8_plain
+    forms = {   # (fused, plain) on (step_q, step_s, pools), and the unfused
+        "step": (lambda sq, ss, _: step(sq, ss, L // 2, k, v),
+                 lambda sq, ss, _: step_plain(sq, ss, L // 2, k, v),
+                 lambda: unfused_step(step_q, step_s, L // 2, k, v)),
+        "fused": (lambda sq, ss, ps_: last(*ps_, page, off, sq, ss, k, v),
+                  lambda sq, ss, ps_: last_plain(*ps_, page, off, sq, ss, k,
+                                                 v),
+                  lambda: (unfused_step(step_q, step_s, L - 1, k, v),
+                           kp.paged_write_layers_int8(
+                               *pools, page, off, step_q[0], step_s[0],
+                               step_q[1], step_s[1]))),
+    }
+    for form, (fused, plain, unfused) in forms.items():
+        tag = f"K7 {form}"
+        got, want = [], []
+        for fn, out in ((fused, got), (plain, want)):
+            sq, ss, ps_ = step_q.clone(), step_s.clone(), clones(pools)
+            out.extend([*fn(sq, ss, ps_), sq, ss, *ps_])
+        # the fresh pair and step buffers, then the pools outside page 0
+        err, pmax = exact(tag, got[:4], want[:4], skip_page0=False)
+        exact(tag, got[4:], want[4:], skip_page0=True)
+        del got, want
+        ms, host_us = time_ms_host(lambda: fused(step_q, step_s, pools), 200)
+        plain_ms = time_ms(lambda: plain(step_q, step_s, pools), 20)
+        u_ms, u_host = time_ms_host(unfused, UNFUSED_ITERS)
+        fresh_bytes = 2 * B * H * D * 4
+        if form == "step":
+            nbytes, ops = quantize_bound(B, H, D, 2, B, fresh_bytes)
+            label = f"layer {L // 2} of L={L} B={B} H={H} D={D}"
+        else:
+            n = int(((page >= 0) & (page < P) & (off >= 0)
+                     & (off < pools[0].shape[3])).sum())
+            copy = 2 * (L - 1) * B * H * (D + 4) + 2 * L * n * H * (D + 4)
+            nbytes, ops = quantize_bound(B, H, D, 2, B,
+                                         fresh_bytes + copy + 2 * B * 4)
+            label = (f"layer {L - 1} and K7 of L={L} B={B} H={H} D={D} pool "
+                     f"[{L},{P},{H},{pools[0].shape[3]}]")
+        record(rows, tag, label, err, ms, plain_ms, None, nbytes, ops,
+               host_us=host_us, peak=FP32_FLOPS, plain_max=pmax,
+               extra={"unfused_ms": u_ms, "unfused_host_us": u_host})
 
 
 def phase_k8(rows, cfg, int4=False):
@@ -1776,7 +1971,7 @@ def read_launches(path: str) -> dict:
     for tag in PATH_KERNELS[path]:
         if launches[tag] <= 0:
             raise AssertionError(f"{tag} was not launched on the {path} path")
-    for tag in PATH_ABSENT.get(path, ()):
+    for tag in PATH_ABSENT.get(path, ()) + OFF_PATH:
         if launches[tag]:
             raise AssertionError(f"{tag} was launched on the {path} path")
     for tag, by_route in routes.items():     # full width: one route only
@@ -1797,6 +1992,41 @@ def read_launches(path: str) -> dict:
                              f"{k2_routes}")
     launches.update({f"K2 bf16 {r}": n for r, n in k2_routes.items()})
     return launches
+
+
+# the paths whose device launches a run are counted in a trace, one more
+# run each under torch.profiler (``profile_generate.device_breakdown``):
+# every kernel, copy and fill, and the device's busy seconds
+TRACED_PATHS = ("generation", "vanilla", "engine int8", "engine paged")
+device_launches = {}
+# the traced kernels held against the launch counts of their wrappers
+TRACED_KERNELS = {
+    "paged_quantize_write_kernel": (kp.paged_quantize_write_int8,
+                                    kp.paged_quantize_step_int8,
+                                    kp.paged_quantize_write_layers_int8),
+    "paged_write_kernel": (kp.paged_write_int8, kp.paged_write_layers_int8),
+}
+
+
+def trace_launches(path: str, run) -> None:
+    """Trace one more run of ``path``; fails unless the trace holds as
+    many launches of each of TRACED_KERNELS as its wrappers counted."""
+    if path not in TRACED_PATHS:
+        return
+    reset_launches()
+    per, busy_us = pg.device_breakdown(run)
+    for kernel, fns in TRACED_KERNELS.items():
+        traced = sum(n for name, (_, n) in per.items()
+                     if f"::{kernel}<" in name or f"::{kernel}(" in name)
+        counted = sum(fn.launches for fn in fns)
+        log(f"{kernel} in the traced {path} run: {traced} launches traced, "
+            f"{counted} counted by its wrappers")
+        if traced != counted:
+            raise AssertionError(f"{path}: the trace holds {traced} launches "
+                                 f"of {kernel}, its wrappers counted "
+                                 f"{counted}")
+    device_launches[path] = {"launches": sum(n for _, n in per.values()),
+                             "busy_s": busy_us / 1e6}
 
 
 def generation_path(quantize: str, kv: str, fresh: bool = True) -> str:
@@ -1839,6 +2069,7 @@ def phase_generation(cfg, params, quantize: str, kv: str = "int8",
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     launches = read_launches(path)
+    trace_launches(path, run)
     layers = cfg.block_decoder.num_layers
     decisions.check(path, launches, None if quantize == "int4" else (
         4 * layers, BATCH * N * cfg.n_embedding_tokens) if fresh else (0, 0))
@@ -1885,6 +2116,7 @@ def phase_vanilla(cfg, params):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     launches = read_launches("vanilla")
+    trace_launches("vanilla", run)
     decisions.check("vanilla", launches,
                     (4 * cfg.num_layers, BATCH * PROMPT_TOKENS))
     if tuple(toks.shape) != (BATCH, NEW_TOKENS + 1):
@@ -1914,6 +2146,7 @@ def phase_engine(kind: str, cfg, params):
         res = pg.serve(eng, requests)
     launches = read_launches(f"engine {kind}")
     decisions.check(f"engine {kind}", launches)
+    trace_launches(f"engine {kind}", lambda: pg.serve(eng, requests))
     reqs = res["requests"]
     early = 0
     for r, (_, budget) in zip(reqs, requests):
@@ -1945,9 +2178,10 @@ def phase_engine(kind: str, cfg, params):
 def phase_cache_agreement(cfg, params):
     """One full-width decode step of the block decoder (INT8 weights, the
     engine's 16 slots, 3 pages of 256 slots a row) from identical prefilled
-    K/V, through the contiguous stack and the paged one: INT8 (K5 writes,
-    K2 attends) against the paged INT8 pool (K6 with the fresh term, then
-    K7), and the contiguous INT4 cache against the paged INT4 pool (K6 INT4).
+    K/V, through the contiguous stack and the paged one: INT8 (K5 fused
+    writes, K2 attends) against the paged INT8 pool (K6 with the fresh
+    term, K7 in the last layer's fused launch), and the contiguous INT4
+    cache against the paged INT4 pool (K6 INT4).
     A random 512-position prefill fills the contiguous cache, K8 copies its
     pages into the pool; the step runs at ragged frontiers. Asserts that
     the outputs agree within TOL * max|out|."""
@@ -3380,6 +3614,8 @@ def main() -> None:
     vcfg, vparams = pg.vanilla_model(seed=0, quantize="int8")
     launches["vanilla"], tok_s["vanilla"] = phase_vanilla(vcfg, vparams)
     del vparams
+    log(json.dumps({"device_launches_per_run": device_launches,
+                    "card": smi}))
     launches.update(phase_families(smi))
     phase_train_quantize(config.get_config(MODEL))
     phase_trainer(smi)
@@ -3394,6 +3630,8 @@ def main() -> None:
         if tag == "K2 bf16":   # the launches of the row's own route
             row["route_launches"] = launches[row["path"]][
                 f"K2 bf16 {row['decode_route']}"]
+    log(f"timing windows timed again behind a longer spin: {len(retimed)} "
+        f"({sum(retimed):.1f} s of host time at first)")
     log(f"chip_smoke.py total {time.perf_counter() - started:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

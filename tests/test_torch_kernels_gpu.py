@@ -31,7 +31,10 @@ cases too (K2's ``plan`` over the virtual slots), with splits whose every
 tile is skipped, rows with no allowed key, page ids outside [0, P), and
 the merge counters left at zero after each launch. The
 pool writes and page copies (K5, K7, K8) are compared bit for bit, outside
-page 0 where dead rows may collide.
+page 0 where dead rows may collide; so are K5 and K7 fused with the INT8
+KV quantization (all three forms, at the engine's, generation's and the
+baseline's shapes, bf16 and float32, a strided v, off == cap, page -1,
+and the element-wise form for other head dims and unaligned rows).
 
 The quantization workflow on the card: every wrapper refuses inputs that
 require grad under grad mode and launches under ``torch.no_grad()``; the
@@ -908,6 +911,136 @@ def test_k5_to_k8_launch_counters():
     assert after == tuple(n + 1 for n in before)
 
 
+def _kv_rows(g, B, H, D, dtype, shift=0):
+    """k [B, H, D] contiguous (``shift``: a view one element into its
+    storage, so rows lose their alignment) and v a strided view of a fused
+    qkv output [B, 1, 3 * H * D], as ``layer_qkv`` cuts it."""
+    k = torch.randn((B * H * D + shift,), generator=g, device="cuda").to(
+        dtype)[shift:].view(B, H, D)
+    qkv = 2.0 * torch.randn((B, 1, 3 * H * D), generator=g, device="cuda")
+    v = qkv.to(dtype).reshape(B, 1, 3, H, D).permute(2, 0, 3, 1, 4)[2][:, :,
+                                                                       0]
+    return k, v
+
+
+# (L, B, H, D, cap or (P, ps), page, off): the engine's contiguous cache at
+# per-row offsets (one finished at off == cap), generation's and the
+# baseline's at one int offset, a pool with page -1 and page == P, the
+# small config's D = 32, and D = 40 (the element-wise form)
+K5_FUSED_CASES = {
+    "engine": (2, 16, 16, 128, 640, None, "rows"),
+    "generation": (2, 8, 16, 128, 640, None, 517),
+    "vanilla": (2, 8, 16, 64, 2176, None, 2100),
+    "pages": (3, 5, 4, 128, (9, 16), [1, -1, 3, 9, 5], [0, 15, 16, 7, 3]),
+    "d32": (2, 3, 4, 32, 16, None, [3, 16, 0]),
+    "d40": (1, 3, 2, 40, (5, 12), [1, 2, 4], [11, 5, 2]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(K5_FUSED_CASES))
+@pytest.mark.parametrize("shift", [0, 1])
+def test_k5_fused_matches_plain(case, dtype, shift):
+    """K5 fused with ``quantize_kv`` (form (a)) bit for bit against
+    ``quantize_kv`` then ``paged_write_int8_plain``, at every layer."""
+    g = _card()
+    L, B, H, D, room, page, off = K5_FUSED_CASES[case]
+    P, ps = room if isinstance(room, tuple) else (B, room)
+    pools = _pools(g, L, P, H, ps, D)
+    if page is not None:
+        page = _i32(page)
+    if off == "rows":
+        off = torch.randint(0, ps, (B,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        off[3] = ps
+    elif isinstance(off, list):
+        off = _i32(off)
+    k, v = _kv_rows(g, B, H, D, dtype, shift)
+    for layer in range(L):
+        want = kp.paged_quantize_write_int8_plain(
+            *[t.clone() for t in pools], layer, page, off, k, v)
+        got = kp.paged_quantize_write_int8(*[t.clone() for t in pools], layer,
+                                           page, off, k, v)
+        _same_pools(got, want, skip_page0=False)
+        assert not torch.equal(got[0][layer], pools[0][layer])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,B,H,D,P,ps", [
+    (4, 16, 16, 128, 17, 256),      # the paged engine's step, 4 layers of 12
+    (3, 5, 4, 64, 9, 16),
+    (2, 3, 2, 40, 5, 10),           # D % 16 != 0: byte copies
+])
+def test_k7_fused_matches_plain(L, B, H, D, P, ps, dtype):
+    """Forms (b) for layers < L - 1 and (c) for the last, bit for bit
+    against their plain versions: the step buffers, the fresh pairs, and
+    the pools after (c); one finished row on page 0, one past its pages
+    (page -1), one at off == ps."""
+    g = _card()
+    pools = _pools(g, L, P, H, ps, D)
+    page = (1 + torch.randperm(P - 1, generator=g, device="cuda")[:B]).to(
+        torch.int32)
+    page[0], page[1] = 0, -1
+    off = torch.randint(0, ps, (B,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    off[2] = ps
+    steps = {}
+    for side in ("got", "want"):
+        steps[side] = (torch.zeros((2, L, B, H, D), dtype=torch.int8,
+                                   device="cuda"),
+                       torch.zeros((2, L, B, H), device="cuda"))
+    got_pools = [t.clone() for t in pools]
+    want_pools = [t.clone() for t in pools]
+    for i in range(L):
+        k, v = _kv_rows(g, B, H, D, dtype)
+        if i < L - 1:
+            got = kp.paged_quantize_step_int8(*steps["got"], i, k, v)
+            want = kp.paged_quantize_step_int8_plain(*steps["want"], i, k, v)
+        else:
+            got = kp.paged_quantize_write_layers_int8(
+                *got_pools, page, off, *steps["got"], k, v)
+            want = kp.paged_quantize_write_layers_int8_plain(
+                *want_pools, page, off, *steps["want"], k, v)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(a, b)
+                   for a, b in zip(steps["got"], steps["want"]))
+    _same_pools(got_pools, want_pools, skip_page0=False)
+    assert not torch.equal(got_pools[0], pools[0])
+
+
+def test_fused_writes_count_their_own_launches():
+    """Each fused form counts its own launches and none of K5's or K7's
+    own kernels; the CPU counts nothing."""
+    g = _card()
+    pools = _pools(g, 2, 4, 2, 8, 32)
+    page, off = _i32([1, 2]), _i32([0, 8])
+    step_q = torch.zeros((2, 2, 2, 2, 32), dtype=torch.int8, device="cuda")
+    step_s = torch.zeros((2, 2, 2, 2), device="cuda")
+    k, v = _kv_rows(g, 2, 2, 32, torch.bfloat16)
+    fns = (kp.paged_write_int8, kp.paged_write_layers_int8,
+           kp.paged_quantize_write_int8, kp.paged_quantize_step_int8,
+           kp.paged_quantize_write_layers_int8)
+    before = [fn.launches for fn in fns]
+    kp.paged_quantize_write_int8(*pools, 1, page, off, k, v)
+    kp.paged_quantize_write_int8(*pools, 0, None, 3, k, v)
+    kp.paged_quantize_step_int8(step_q, step_s, 0, k, v)
+    kp.paged_quantize_write_layers_int8(*pools, page, off, step_q, step_s, k,
+                                        v)
+    cpu = [t.cpu() for t in pools]
+    kp.paged_quantize_write_int8(*cpu, 1, page.cpu(), off.cpu(), k.cpu(),
+                                 v.cpu())
+    kp.paged_quantize_step_int8(step_q.cpu(), step_s.cpu(), 0, k.cpu(),
+                                v.cpu())
+    after = [fn.launches for fn in fns]
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 2, 1, 1]
+    with pytest.raises(ValueError, match="layer"):
+        kp.paged_quantize_step_int8(step_q, step_s, 2, k, v)
+    with pytest.raises(TypeError, match="int32"):
+        kp.paged_quantize_write_int8(*pools, 1, page.long(), off, k, v)
+    with pytest.raises(TypeError, match="bf16"):
+        kp.paged_quantize_write_int8(*pools, 1, page, off, k.half(), v.half())
+
+
 # ---------------------------------------------------------------------------
 # W8A8-q and W8A8-mm: bit-exact against their plain versions
 # ---------------------------------------------------------------------------
@@ -1055,7 +1188,7 @@ def test_w8a8_wrappers_raise():
 # ---------------------------------------------------------------------------
 
 GUARDED = ("K1", "K4", "K2", "K2 bf16", "K3", "W8A8-q", "W8A8-mm", "K5",
-           "K6", "K7", "K8")
+           "K6", "K7", "K8", "K5 fused", "K7 step", "K7 fused")
 
 
 def grad_guard_cases(device):
@@ -1131,6 +1264,23 @@ def grad_guard_cases(device):
                 ints(2, 1, 2, 8, 32), scales(2, 1, 2, 8)]
         return kp.paged_page_copy_int8(*pools(), i32([[3]]), *rows)
 
+    def k5_fused(rg):
+        return kp.paged_quantize_write_int8(
+            *pools(), 1, i32([1, 2]), i32([0, 7]), randn(2, 2, 32, rg=rg),
+            randn(2, 2, 32))
+
+    def steps():
+        return ints(2, 2, 2, 2, 32), scales(2, 2, 2, 2)
+
+    def k7_step(rg):
+        return kp.paged_quantize_step_int8(*steps(), 0, randn(2, 2, 32),
+                                           randn(2, 2, 32, rg=rg))
+
+    def k7_fused(rg):
+        return kp.paged_quantize_write_layers_int8(
+            *pools(), i32([1, 2]), i32([0, 7]), *steps(),
+            randn(2, 2, 32, rg=rg), randn(2, 2, 32))
+
     return {
         "K1": (k1.int8_matmul_stacked,
                lambda rg: k1.int8_matmul_stacked(randn(4, 64, rg=rg), w8, s8,
@@ -1148,6 +1298,9 @@ def grad_guard_cases(device):
         "K6": (kp.paged_decode_attention_int8, k6),
         "K7": (kp.paged_write_layers_int8, k7),
         "K8": (kp.paged_page_copy_int8, k8),
+        "K5 fused": (kp.paged_quantize_write_int8, k5_fused),
+        "K7 step": (kp.paged_quantize_step_int8, k7_step),
+        "K7 fused": (kp.paged_quantize_write_layers_int8, k7_fused),
     }
 
 

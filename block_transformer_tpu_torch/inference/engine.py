@@ -36,8 +36,23 @@ in place; ``params`` must already be there (the engine never moves them).
 Sampling draws from a ``torch.Generator`` seeded from ``seed``. Admission
 and decode declare the KV mode of the W8A8 decisions (``ops.linear.kv_mode``:
 the cache kind, and ``int8`` for either paged pool), as the JAX engine does.
-Not ported: serving over a mesh (``mesh``) and ``overlap_streams > 1``; the
-engine raises for both.
+
+Over a ``(data, model)`` mesh (``mesh``, from ``parallel.sharding.
+make_mesh``) every rank runs this engine on the same requests (SPMD) and
+holds its shard of the state: its data shard's slots (rows ``d * n_slots /
+dp`` on) and its heads, or, paged, its own sub-pool of ``pool_pages / dp``
+pages with shard-local page ids and a free list a shard. ``params`` is the
+whole tree, on any device: the engine prepares it (``prepare_tp_params``)
+and keeps the rank's shards on the mesh's device. Admission and the decode
+window are the same code on one device and over a mesh: they run on the
+hooks of ``inference.generate.Decoders``, one device's or, over a mesh,
+``parallel/tp_decode.make_tp_engine_programs``' (one all-reduce a layer,
+each window's tokens gathered once). ``mesh_impl`` "shard_map" is JAX's
+explicit-collective engine; "gspmd", JAX's partitioned one (hand kernels
+off, since XLA cannot partition a ``pallas_call``), is served by the same
+programs with the hand kernels on, as the port has no partitioner, and,
+as in JAX, takes no paged pool. A mesh serves the bf16, INT8 and both
+paged caches. ``overlap_streams`` without a mesh is ignored, as in JAX.
 """
 
 from __future__ import annotations
@@ -56,6 +71,8 @@ from block_transformer_tpu_torch.models import embedder as emb
 from block_transformer_tpu_torch.models import neox
 from block_transformer_tpu_torch.ops import linear as linear_ops
 from block_transformer_tpu_torch.ops import masks
+from block_transformer_tpu_torch.parallel import sharding
+from block_transformer_tpu_torch.parallel import tp_decode
 
 
 @dataclass
@@ -99,6 +116,14 @@ def _leaves(tree):
         yield tree
 
 
+def _scatter_valid(kv_valid, write_pos, valid_new, n):
+    """kv_valid with [b, write_pos[b] + j] = valid_new[b] for j < n."""
+    cols = torch.arange(kv_valid.shape[1], dtype=torch.int32,
+                        device=kv_valid.device)[None]
+    in_range = (cols >= write_pos[:, None]) & (cols < write_pos[:, None] + n)
+    return torch.where(in_range, valid_new[:, None], kv_valid)
+
+
 class ContinuousBatchingEngine:
     def __init__(self, params, cfg: BlockTransformerConfig, *, n_slots: int = 8,
                  max_blocks: int = 512, greedy: bool = True,
@@ -110,24 +135,46 @@ class ContinuousBatchingEngine:
                  latency_mode: bool = False, window_growth: float = 2.0,
                  overlap_streams: int = 1, admit_chunk: int = 64,
                  device="cuda"):
-        del mesh_impl                  # moot: no mesh serving in the port
-        if mesh is not None:
-            raise NotImplementedError("the port serves on one device: mesh "
-                                      "serving is not ported")
-        if overlap_streams > 1:
-            raise NotImplementedError("overlap_streams > 1 is mesh-only and "
-                                      "not ported")
         if kv_cache not in ("bf16", "int8", "int4", "paged", "paged-int4"):
             raise ValueError(f"unknown kv_cache {kv_cache!r} (expected bf16, "
                              "int8, int4, paged or paged-int4)")
         if cfg.block_decoder_cls != "gpt-neo-x":
             raise NotImplementedError(f"block decoder {cfg.block_decoder_cls!r}")
-        self.device = dev = torch.device(device)
-        for t in _leaves(params):
-            if t.device.type != dev.type or (
-                    dev.index is not None and t.device.index != dev.index):
-                raise ValueError(f"params must be on {dev}, found a tensor on "
-                                 f"{t.device}")
+        self.mesh = mesh
+        self.mesh_impl = mesh_impl if mesh is not None else "single"
+        n = cfg.n_embedding_tokens
+        cap = max_blocks * n
+        cap = _round_up(cap, 128) if cap >= 128 else cap
+        if kv_cache.startswith("paged"):
+            self.page_size = ps = min(page_size, cap)
+            cap = _round_up(cap, ps)
+            self.n_virt = cap // ps
+        self.cap = cap
+        if mesh is None:
+            self.device = dev = torch.device(device)
+            for t in _leaves(params):
+                if t.device.type != dev.type or (
+                        dev.index is not None and t.device.index != dev.index):
+                    raise ValueError(f"params must be on {dev}, found a "
+                                     f"tensor on {t.device}")
+            self._dec = gen.single_device(cfg)
+        else:
+            if mesh_impl not in ("gspmd", "shard_map"):
+                raise ValueError(f"mesh_impl {mesh_impl!r} (gspmd or "
+                                 "shard_map)")
+            if mesh_impl == "gspmd" and kv_cache.startswith("paged"):
+                raise ValueError("paged + mesh requires mesh_impl="
+                                 "'shard_map'")
+            self.device = dev = sharding.mesh_device(mesh)
+            if dev.type != torch.device(device).type:
+                raise ValueError(f"the mesh runs on {dev}, not {device}")
+            self._dec = tp_decode.make_tp_engine_programs(
+                mesh, cfg, params, None, n_slots=n_slots, capacity=cap,
+                max_window=max_window, kv_cache=kv_cache, greedy=greedy,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                overlap_streams=overlap_streams)
+            params = self._shard_over(mesh, params, cfg)
+        self._dp = self._dec.data_shards
         self.params = params
         self.cfg = cfg
         self.n_slots = n_slots
@@ -147,7 +194,6 @@ class ContinuousBatchingEngine:
         self.window_growth = max(1.0, window_growth)
         self._window_cap = self.sync_blocks if latency_mode else self.max_window
         self.admit_chunk = max(1, admit_chunk)
-        n = cfg.n_embedding_tokens
         ph = cfg.embedder.projection_hidden_size
         # the activation dtype: a never-quantized embedder table's (the
         # lookup table or an encoder embedder's word embeddings)
@@ -156,27 +202,31 @@ class ContinuousBatchingEngine:
                  or e.get("roberta", {}).get("word_embeddings")
                  or e.get("t5", {}).get("embed"))
         dtype = table["weight"].dtype
-        cap = max_blocks * n
-        self.cap = cap = _round_up(cap, 128) if cap >= 128 else cap
         self.kv_kind = kv_cache
         # the KV mode admission and decode declare for the W8A8 decisions:
         # a paged pool declares int8 at either width, as the JAX engine does
         self._kv_mode = "int8" if kv_cache.startswith("paged") else kv_cache
-        bcfg = cfg.block_decoder
+        # this rank's slots: rows [_slot_offset, _slot_offset + _local_slots)
+        # of the global slots (all of them on one device), and its heads
+        self._local_slots = Bl = n_slots // self._dp
+        self._slot_offset = self._dec.data_index * Bl
+        bcfg = self._dec.block_cfg
 
         if kv_cache.startswith("paged"):
             # an INT8 or INT4 pool; page 0 is the null page, pages 1.. are
-            # handed out at admission
+            # handed out at admission. Over a mesh the pool partitions over
+            # the data shards: each holds pool_pages / dp pages, its own
+            # slots' pages at shard-local ids (its page 0 its null page)
             bits = 4 if kv_cache.endswith("int4") else 8
-            self.page_size = ps = min(page_size, cap)
-            self.cap = cap = _round_up(cap, ps)
-            self.n_virt = cap // ps
-            self.pool_pages = max(self.n_virt + 1, pool_pages or max(
-                self.n_virt + 1, n_slots * self.n_virt // 2 + 1))
+            pool = pool_pages or max(self.n_virt + 1,
+                                     n_slots * self.n_virt // 2 + 1)
+            per_shard = max(self.n_virt + 1, -(-pool // self._dp))
+            self.pool_pages = per_shard * self._dp
             self.cache = neox.PagedKVCache.create(
-                bcfg, n_slots, cap, n_pages=self.pool_pages, page_size=ps,
-                bits=bits, device=dev)
-            self._free_pages = list(range(1, self.pool_pages))
+                bcfg, Bl, cap, n_pages=per_shard, page_size=ps, bits=bits,
+                device=dev)
+            self._free_pages = [list(range(1, per_shard))
+                                for _ in range(self._dp)]
             self._slot_pages: Dict[int, list] = {}
             # admission prefills a contiguous mini-cache of the pool's
             # width, then copies its pages into the pool
@@ -185,17 +235,16 @@ class ContinuousBatchingEngine:
         else:
             self._make_cache = lambda b: neox.make_kv_cache(
                 bcfg, b, cap, kv_cache, dtype=dtype, device=dev)
-            self.cache = self._make_cache(n_slots)
+            self.cache = self._make_cache(Bl)
         i32 = dict(dtype=torch.int32, device=dev)
-        self.slot_len = torch.zeros((n_slots,), **i32)      # blocks used
-        self.kv_valid = torch.zeros((n_slots, cap), **i32)
-        self.next_embeds = torch.zeros((n_slots, n, ph), dtype=dtype,
-                                       device=dev)
+        self.slot_len = torch.zeros((Bl,), **i32)           # blocks used
+        self.kv_valid = torch.zeros((Bl, cap), **i32)
+        self.next_embeds = torch.zeros((Bl, n, ph), dtype=dtype, device=dev)
         # device-side liveness: EOS clears alive and budgets reach zero on
         # the device, so a window stays right when the host consumes its
         # tokens a window late
-        self.alive = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
-        self.blocks_left = torch.zeros((n_slots,), **i32)
+        self.alive = torch.zeros((Bl,), dtype=torch.bool, device=dev)
+        self.blocks_left = torch.zeros((Bl,), **i32)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self._kv_idx = torch.arange(cap, **i32) // n
         self._ar_n = torch.arange(n, **i32)
@@ -208,6 +257,23 @@ class ContinuousBatchingEngine:
         self.completed: List[Request] = []
         self.stats = EngineStats()
         self._uid = 0
+
+    def _slot_shard(self, slot: int) -> int:
+        """The data shard holding ``slot`` (0 on one device)."""
+        return slot // self._local_slots
+
+    def _own(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's state, or None (another shard's)."""
+        row = int(slot) - self._slot_offset
+        return row if 0 <= row < self._local_slots else None
+
+    @staticmethod
+    def _shard_over(mesh, params, cfg):
+        """The rank's shards of the head-major (and, for INT4 weights,
+        row-repacked) tree, on the mesh's device."""
+        tp = sharding.shard_index(mesh, ("model",))[1]
+        return tp_decode.shard_tp_params(
+            mesh, tp_decode.prepare_tp_params(params, cfg, tp=tp))
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int,
@@ -254,56 +320,77 @@ class ContinuousBatchingEngine:
         """Reset G slots and prefill their cache regions in one batched run.
 
         ids/att [G, Nb, L] right-padded to the bucket; bam [G, Nb]; slots,
-        true_len (real prompt blocks) [G]. The G rows run as a mini-cache,
-        then land in the engine's cache: along the slot axis (contiguous)
-        or page by page through K8 (paged, either width; unallocated tail
-        pages go to the null page). Padded tail positions stay kv_valid = 0 and are
-        overwritten as decode advances."""
-        cfg, cap = self.cfg, self.cap
+        true_len (real prompt blocks) [G] host arrays. The G rows run as a
+        mini-cache, then this process's slots land in its cache: along the
+        slot axis (contiguous) or page by page through K8 (paged, either
+        width; unallocated tail pages, and another shard's rows, go to the
+        null page). A slot given twice (a repeated padding row) takes its
+        first row: both carry the same values. Padded tail positions stay
+        kv_valid = 0 and are overwritten as decode advances."""
+        cfg, cap, dec = self.cfg, self.cap, self._dec
         n = cfg.n_embedding_tokens
         G = ids.shape[0]
+        i32 = dict(dtype=torch.int32, device=self.device)
         be = emb.embed_blocks(self.params["embedder"], cfg.embedder,
                               cfg.block_length, ids,
                               attention_mask=att)          # [G, Nb, n, ph]
         x = be.reshape(G, -1, be.shape[-1])
         S = x.shape[1]
-        valid = torch.zeros((G, cap), dtype=torch.int32, device=self.device)
+        valid = torch.zeros((G, cap), **i32)
         valid[:, :S] = bam.to(torch.int32).repeat_interleave(n, dim=1)
         mask = masks.block_decode_mask(0, cap, S, valid, n)
-        positions = torch.arange(S, dtype=torch.int32, device=self.device)
-        hidden, rows = neox.neox_stack(
-            self.params["block_decoder"], x, cfg=cfg.block_decoder,
-            mask=mask, positions=positions, cache=self._make_cache(G))
+        hidden, rows = dec.block_stack(
+            self.params["block_decoder"], x, cfg=dec.block_cfg, mask=mask,
+            positions=torch.arange(S, **i32), cache=self._make_cache(G))
+        local = [self._own(s) for s in slots]
+        own = {}                           # local row -> its first prompt row
+        for j, row in enumerate(local):
+            if row is not None:
+                own.setdefault(row, j)
         c = self.cache
         if isinstance(c, neox.PagedKVCache):
+            # row Bl of the table: zeros, the null page
+            table = torch.cat([c.page_table, c.page_table.new_zeros(
+                (1, self.n_virt))])
+            pick = torch.tensor([self._local_slots if r is None else r
+                                 for r in local], device=self.device)
             paged_attention.paged_page_copy_int8(
-                c.k, c.k_scale, c.v, c.v_scale, c.page_table[slots],
-                rows.k, rows.k_scale, rows.v, rows.v_scale)
-        else:
+                c.k, c.k_scale, c.v, c.v_scale, table[pick], rows.k,
+                rows.k_scale, rows.v, rows.v_scale)
+        if not own:
+            return
+        dst = torch.tensor(list(own), device=self.device)
+        src = torch.tensor(list(own.values()), device=self.device)
+        if not isinstance(c, neox.PagedKVCache):
             for f in c._fields:
                 if f != "length":
-                    getattr(c, f)[:, slots] = getattr(rows, f)
+                    getattr(c, f)[:, dst] = getattr(rows, f)[:, src]
+        tl = torch.as_tensor(true_len, **i32)
         # zero validity beyond each true prompt (padded bucket tail)
-        self.kv_valid[slots] = torch.where(
-            self._cols[None] < true_len[:, None] * n, valid, 0)
+        self.kv_valid[dst] = torch.where(
+            self._cols[None] < tl[:, None] * n, valid, 0)[src]
         # block-decoder output at each last real prompt block
-        idx = (true_len[:, None] - 1) * n + self._ar_n[None]      # [G, n]
+        idx = (tl[:, None] - 1) * n + self._ar_n[None]            # [G, n]
         last = hidden.gather(1, idx[:, :, None].long().expand(
             G, n, hidden.shape[-1]))
-        self.next_embeds[slots] = last.to(self.next_embeds.dtype)
+        self.next_embeds[dst] = last[src].to(self.next_embeds.dtype)
 
-    def _one_block(self):
-        """One block for every slot; rows that are not live emit pad, embed
-        zeros and keep their state. Each slot writes its new K/V at its own
-        frontier (``neox_stack(write_pos=...)``)."""
-        cfg = self.cfg
+    def _one_block(self, generator):
+        """One block for every slot this process holds; rows that are not
+        live emit pad, embed zeros and keep their state. Each slot writes
+        its new K/V at its own frontier (``neox_stack(write_pos=...)``).
+        The token decoder runs as ``dec.streams`` streams of the slots."""
+        cfg, dec = self.cfg, self._dec
         n = cfg.n_embedding_tokens
-        B = self.n_slots
+        B = self._local_slots
         live = self.alive & (self.blocks_left > 0)
-        tokens, inner_alive = gen.decode_block_tokens(
-            self.params, cfg, self.next_embeds, greedy=self.greedy,
-            temperature=self.temperature, generator=self.generator,
+        outs = [dec.decode_tokens(
+            self.params, cfg, self.next_embeds[s], greedy=self.greedy,
+            temperature=self.temperature, generator=generator,
             top_k=self.top_k, top_p=self.top_p)
+            for s in gen.stream_rows(dec, B)]
+        tokens = torch.cat([t for t, _ in outs])
+        inner_alive = torch.cat([a for _, a in outs])
         tokens = torch.where(live[:, None], tokens, cfg.pad_token_id)
         has_eos = live & ~inner_alive
 
@@ -320,9 +407,9 @@ class ContinuousBatchingEngine:
         # and its rotary position clamped (its outputs are never read)
         positions = (write_pos[:, None] + self._ar_n[None]).clamp(
             max=self.cap - 1)
-        hidden, self.cache = neox.neox_stack(
+        hidden, self.cache = dec.block_stack(
             self.params["block_decoder"], new_be.to(self.next_embeds.dtype),
-            cfg=cfg.block_decoder, mask=mask, positions=positions,
+            cfg=dec.block_cfg, mask=mask, positions=positions,
             cache=self.cache, write_pos=write_pos)
         self.next_embeds = torch.where(
             live[:, None, None], hidden[:, -n:, :].to(self.next_embeds.dtype),
@@ -333,19 +420,25 @@ class ContinuousBatchingEngine:
         return tokens, has_eos
 
     def _decode_window(self, window_len: int):
-        """Up to ``window_len`` blocks; stops early once no slot is live.
-        Returns tokens [B, window_len, L] and has_eos [B, window_len]; rows
-        past the executed blocks keep pad / False."""
-        B, L = self.n_slots, self.cfg.block_length
-        tokens = torch.full((B, window_len, L), self.cfg.pad_token_id,
-                            dtype=torch.int32, device=self.device)
-        has_eos = torch.zeros((B, window_len), dtype=torch.bool,
-                              device=self.device)
+        """Up to ``window_len`` blocks; stops early once no slot (of any
+        shard) is live. Returns tokens [n_slots, window_len, L] and has_eos
+        [n_slots, window_len]; rows past the executed blocks keep pad /
+        False."""
+        dec, L = self._dec, self.cfg.block_length
+        generator = dec.rng(self.generator, self.greedy)
+        # the window's tokens, has_eos in the last column
+        out = torch.full((self._local_slots, window_len, L + 1),
+                         self.cfg.pad_token_id, dtype=torch.int32,
+                         device=self.device)
+        out[:, :, L] = 0
         for i in range(window_len):
-            if not bool((self.alive & (self.blocks_left > 0)).any()):
+            if not dec.any_live(self.alive & (self.blocks_left > 0)):
                 break
-            tokens[:, i], has_eos[:, i] = self._one_block()
-        return tokens, has_eos
+            tokens, has_eos = self._one_block(generator)
+            out[:, i, :L] = tokens
+            out[:, i, L] = has_eos.to(torch.int32)
+        out = dec.gather_rows(out)
+        return out[:, :, :L], out[:, :, L].bool()
 
     # ------------------------------------------------------------------
     def _admit(self):
@@ -377,15 +470,17 @@ class ContinuousBatchingEngine:
                 n_emb = self.cfg.n_embedding_tokens
                 need = min(self.n_virt,
                            -(-((N + blocks_budget) * n_emb) // self.page_size))
-                if len(self._free_pages) < need:
+                shard_free = self._free_pages[self._slot_shard(slot)]
+                if len(shard_free) < need:
                     skipped.append(req)
                     free.insert(0, slot)
                     continue
-                pgs = [self._free_pages.pop() for _ in range(need)]
+                pgs = [shard_free.pop() for _ in range(need)]
                 self._slot_pages[slot] = pgs
-                row = torch.zeros((self.n_virt,), dtype=torch.int32)
-                row[:len(pgs)] = torch.tensor(pgs, dtype=torch.int32)
-                self.cache.page_table[slot] = row.to(self.device)
+                if (own := self._own(slot)) is not None:
+                    row = torch.zeros((self.n_virt,), dtype=torch.int32)
+                    row[:len(pgs)] = torch.tensor(pgs, dtype=torch.int32)
+                    self.cache.page_table[own] = row.to(self.device)
             Nb = min(_round_up(N, self.bucket_blocks), self.max_blocks)
             groups.setdefault(Nb, []).append((slot, req, d, N))
         if skipped:
@@ -414,14 +509,18 @@ class ContinuousBatchingEngine:
         slots = np.asarray([s for s, _, _, _ in padded], np.int64)
         lens = np.asarray([N for _, _, _, N in padded], np.int32)
         dev = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
-        with linear_ops.kv_mode(self._kv_mode):
-            self._prefill(dev(slots), dev(lens), dev(ids), dev(att),
-                          dev(bam))
-        sl = dev(slots[:G])
-        self.slot_len[sl] = dev(lens[:G])
-        self.alive[sl] = True
-        self.blocks_left[sl] = dev(np.asarray(
-            [-(-r.max_new_tokens // L) for _, r, _, _ in batch], np.int32))
+        with linear_ops.kv_mode(self._kv_mode), self._dec.program():
+            self._prefill(slots, lens, dev(ids), dev(att), dev(bam))
+        # the admitted slots this rank holds
+        own = [(j, row) for j, (s, _, _, _) in enumerate(batch)
+               if (row := self._own(s)) is not None]
+        if own:
+            js = [j for j, _ in own]
+            sl = dev(np.asarray([row for _, row in own], np.int64))
+            self.slot_len[sl] = dev(lens[js])
+            self.alive[sl] = True
+            self.blocks_left[sl] = dev(np.asarray(
+                [-(-batch[j][1].max_new_tokens // L) for j in js], np.int32))
         now = time.perf_counter()
         for slot, req, _, _ in batch:
             self.active[slot] = req
@@ -456,7 +555,7 @@ class ContinuousBatchingEngine:
         """Decode one window and return its token / eos tensors with the
         slot -> request snapshot they belong to."""
         wl = window_len or self.sync_blocks
-        with linear_ops.kv_mode(self._kv_mode):
+        with linear_ops.kv_mode(self._kv_mode), self._dec.program():
             tokens, has_eos = self._decode_window(wl)
         for s in self.active:
             self._dispatched[s] = self._dispatched.get(s, 0) + wl
@@ -509,11 +608,13 @@ class ContinuousBatchingEngine:
                 del self.active[s]
                 self._dispatched.pop(s, None)
                 if self.kv_kind.startswith("paged"):
-                    self._free_pages.extend(self._slot_pages.pop(s, []))
+                    self._free_pages[self._slot_shard(s)].extend(
+                        self._slot_pages.pop(s, []))
                     # point the dead slot at the null page: every slot
                     # writes each decode step, and its old pages may go to
                     # another request
-                    self.cache.page_table[s] = 0
+                    if (own := self._own(s)) is not None:
+                        self.cache.page_table[own] = 0
             self.stats.prompts_finished += 1
 
     @torch.no_grad()
@@ -546,11 +647,3 @@ class ContinuousBatchingEngine:
         if pending is not None:
             self._consume(pending)
         return self.completed
-
-
-def _scatter_valid(kv_valid, write_pos, valid_new, n):
-    """kv_valid with [b, write_pos[b] + j] = valid_new[b] for j < n."""
-    cols = torch.arange(kv_valid.shape[1], dtype=torch.int32,
-                        device=kv_valid.device)[None]
-    in_range = (cols >= write_pos[:, None]) & (cols < write_pos[:, None] + n)
-    return torch.where(in_range, valid_new[:, None], kv_valid)

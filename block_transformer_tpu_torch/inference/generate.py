@@ -16,10 +16,12 @@
 
 The JAX package compiles both loops into one program; here they are host
 loops, and the outer loop reads one flag back from the device per block to
-stop once every row has finished. EOS semantics are the JAX package's: a
-row finishes when a generated block holds EOS; the EOS and everything after
-it in the block come out as pad; finished rows emit pad blocks and zero
-block embeddings.
+stop once every row has finished. The loops run on a ``Decoders``: one
+device's here, a rank's over a mesh in ``parallel/tp_decode.py``, which runs
+these same loops (and the serving engine's) on its shards. EOS semantics are
+the JAX package's: a row finishes when a generated block holds EOS; the EOS
+and everything after it in the block come out as pad; finished rows emit pad
+blocks and zero block embeddings.
 
 The entry points run under ``torch.no_grad()``: the kernels they launch
 have no backward (their wrappers refuse inputs that require grad), and
@@ -28,12 +30,14 @@ a caller's parameters may require grad.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import contextlib
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from block_transformer_tpu_torch.config import BlockTransformerConfig
+from block_transformer_tpu_torch.config import (BlockTransformerConfig,
+                                                NeoXConfig)
 from block_transformer_tpu_torch.models import block_decoder as bd
 from block_transformer_tpu_torch.models import embedder as emb
 from block_transformer_tpu_torch.models import gpt_neo as gn
@@ -47,6 +51,55 @@ class GenerationResult(NamedTuple):
     tokens: torch.Tensor     # [B, max_blocks, block_length] (prompt + generated)
     n_blocks: int            # valid blocks in ``tokens``
     unfinished: torch.Tensor  # [B] int32
+
+
+class Decoders(NamedTuple):
+    """What the generation loops and the serving engine run on: the block
+    decoder's stacks and the config its cache is made from, the token
+    decoder's inner loop, the stop test and the rows this process holds.
+    ``single_device(cfg)`` gives one device's; ``parallel/tp_decode``
+    builds a rank's over a ``(data, model)`` mesh (its heads, one
+    all-reduce a layer, the pick over the vocab-sharded head)."""
+    block_cfg: NeoXConfig       # the block decoder's, as its cache holds it
+    block_stack: Callable       # neox_stack's signature
+    block_prefill: Callable     # neox_prefill_fresh's signature
+    decode_tokens: Callable     # decode_block_tokens' signature
+    any_live: Callable          # bool tensor -> set in any row of any shard
+    data_shards: int            # the batch splits into this many row blocks
+    data_index: int             # the block of rows this process holds
+    gather_rows: Callable       # its rows [B / data_shards, ..] -> [B, ..]
+    rng: Callable               # (generator, greedy) -> a call's generator
+    program: Callable           # () -> the context a call runs in
+    streams: int                # token-decoder streams a block (1 or 2)
+
+
+def single_device(cfg: BlockTransformerConfig) -> Decoders:
+    """One device's: the stacks as they are, every row, ``any()``."""
+    return Decoders(
+        cfg.block_decoder, neox.neox_stack, neox.neox_prefill_fresh,
+        decode_block_tokens, lambda flag: bool(flag.any()), 1, 0,
+        lambda local: local, lambda generator, greedy: generator,
+        contextlib.nullcontext, 1)
+
+
+def local_rows(dec: Decoders, B: int) -> slice:
+    """The rows of a batch of ``B`` that this process holds."""
+    if B % dec.data_shards:
+        raise ValueError(f"batch {B} does not split over {dec.data_shards} "
+                         "data shards")
+    b = B // dec.data_shards
+    return slice(dec.data_index * b, (dec.data_index + 1) * b)
+
+
+def stream_rows(dec: Decoders, B: int) -> list:
+    """The token decoder's streams over ``B`` local rows: every row, or,
+    with two streams, each half."""
+    if dec.streams == 1:
+        return [slice(None)]
+    if B % 2:
+        raise ValueError(f"overlap_streams=2 needs an even batch on each "
+                         f"data shard, not {B}")
+    return [slice(0, B // 2), slice(B // 2, B)]
 
 
 def filter_logits(logits: torch.Tensor, temperature: float = 1.0,
@@ -134,36 +187,72 @@ def decode_block_tokens(params, cfg: BlockTransformerConfig, block_embeddings,
             params, cfg, block_embeddings, greedy=greedy,
             temperature=temperature, generator=generator, top_k=top_k,
             top_p=top_p)
+    return _prefix_decode(params, cfg, block_embeddings,
+                          token_cfg=tcfg.neox, stack=neox.neox_stack,
+                          pick=_pick, greedy=greedy, temperature=temperature,
+                          generator=generator, n_tokens=n_tokens, top_k=top_k,
+                          top_p=top_p)
+
+
+def _pick(tparams, hidden, greedy, temperature, generator, top_k=0,
+          top_p=1.0):
+    """One device's token pick: ``_sample`` over the LM head's logits."""
+    return _sample(neox.lm_logits(tparams, hidden), greedy, temperature,
+                   generator, top_k, top_p)
+
+
+def _prefix_decode(params, cfg: BlockTransformerConfig, block_embeddings, *,
+                   token_cfg: NeoXConfig, stack, pick, greedy: bool,
+                   temperature: float, generator, n_tokens=None,
+                   top_k: int = 0, top_p: float = 1.0):
+    """The GPT-NeoX prefix decoder's cached loop with its stack (``stack``,
+    neox_stack's signature, run with ``token_cfg``, the config the local
+    cache is made from) and its token pick (``pick``, ``_pick``'s
+    signature) given: one device's in ``decode_block_tokens``, a rank's
+    heads and vocab shard over a mesh."""
     L = cfg.block_length if n_tokens is None else n_tokens
     B = block_embeddings.shape[0]
     eos, pad = cfg.eos_token_id, cfg.pad_token_id
-
-    expanded = td.expand_block_embeddings(params["token_decoder"], tcfg,
+    tparams = params["token_decoder"]
+    expanded = td.expand_block_embeddings(tparams, cfg.token_decoder,
                                           block_embeddings, cfg.expansion_ratio)
-    cache = neox.KVCache.create(tcfg.neox, B, cfg.n_expanded_emb + L,
-                                dtype=expanded.dtype, device=expanded.device)
-    logits, cache = td.token_decoder_prefix_step(params["token_decoder"], tcfg,
-                                                 expanded, cache)
-    first = _sample(logits, greedy, temperature, generator, top_k, top_p)
+    dev = expanded.device
+    cache = neox.KVCache.create(token_cfg, B, cfg.n_expanded_emb + L,
+                                dtype=expanded.dtype, device=dev)
+    capacity = cache.k.shape[3]
+
+    def step(x, cache):
+        """x [B, S, h] through the stack into the local cache; the token
+        picked at its last position."""
+        S = x.shape[1]
+        mask = masks.decode_mask(cache.length, capacity, S, device=dev)
+        positions = cache.length + torch.arange(S, dtype=torch.int32,
+                                                device=dev)
+        hidden, cache = stack(tparams, x, cfg=token_cfg, mask=mask,
+                              positions=positions, cache=cache)
+        return pick(tparams, hidden[:, -1, :], greedy, temperature,
+                    generator, top_k, top_p), cache
+
+    first, cache = step(expanded, cache)
     alive = first != eos
-    tokens = torch.zeros((B, L), dtype=torch.int32, device=expanded.device)
+    tokens = torch.zeros((B, L), dtype=torch.int32, device=dev)
     tokens[:, 0] = torch.where(alive, first, pad)
     for i in range(1, L):
         # dead rows are fed pad; their outputs are ignored
         prev = torch.where(alive, tokens[:, i - 1], pad)
-        logits, cache = td.token_decoder_token_step(
-            params["token_decoder"], tcfg, prev, cache)
-        nxt = _sample(logits, greedy, temperature, generator, top_k, top_p)
+        nxt, cache = step(neox.embed_tokens(tparams, prev[:, None]), cache)
         tokens[:, i] = torch.where(alive & (nxt != eos), nxt, pad)
         alive = alive & (nxt != eos)
     return tokens, alive
 
 
 def _block_decoder_step(params, cfg: BlockTransformerConfig, inputs_embeds,
-                        cache, kv_valid, new_valid):
+                        cache, kv_valid, new_valid,
+                        dec: Optional[Decoders] = None):
     """Append S = inputs_embeds.shape[1] positions to the global cache and run
-    the block decoder. ``kv_valid`` [B, capacity] is updated in place, before
-    the mask is built. Returns (hidden [B, S, ph], cache, kv_valid)."""
+    the block decoder (``dec``'s stack, one device's by default). ``kv_valid``
+    [B, capacity] is updated in place, before the mask is built. Returns
+    (hidden [B, S, ph], cache, kv_valid)."""
     S = inputs_embeds.shape[1]
     start = cache.length
     kv_valid[:, start:start + S] = new_valid.to(kv_valid.dtype)
@@ -181,8 +270,9 @@ def _block_decoder_step(params, cfg: BlockTransformerConfig, inputs_embeds,
             bp, bd._gpt_neo_cfg(cfg.block_decoder, cfg.block_decoder_window),
             x, mask, positions, cache)
         return hidden, cache, kv_valid
-    hidden, cache = neox.neox_stack(params["block_decoder"], inputs_embeds,
-                                    cfg=cfg.block_decoder, mask=mask,
+    dec = dec or single_device(cfg)
+    hidden, cache = dec.block_stack(params["block_decoder"], inputs_embeds,
+                                    cfg=dec.block_cfg, mask=mask,
                                     positions=positions, cache=cache)
     return hidden, cache, kv_valid
 
@@ -205,6 +295,18 @@ def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
     number of chunks (the padded tail is invalid, and the cache's length is
     rewound to the prompt's, so decode overwrites it). The GPT-Neo block
     decoder always streams."""
+    return _prefill_blocks(params, cfg, input_ids, attention_mask,
+                           block_attention_mask, single_device(cfg),
+                           capacity=capacity, kv_cache=kv_cache,
+                           prefill_chunk_blocks=prefill_chunk_blocks,
+                           fresh_prefill=fresh_prefill)
+
+
+def _prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
+                    attention_mask, block_attention_mask, dec: Decoders, *,
+                    capacity: int, kv_cache: str, prefill_chunk_blocks: int,
+                    fresh_prefill: bool):
+    """``prefill_blocks`` on ``dec``'s stacks."""
     B, N, L = input_ids.shape
     n = cfg.n_embedding_tokens
     ph = cfg.embedder.projection_hidden_size
@@ -213,7 +315,7 @@ def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
                                     cfg.block_length, input_ids,
                                     attention_mask=attention_mask)
     inputs_embeds = block_embeds.reshape(B, N * n, ph)
-    cache = neox.make_kv_cache(cfg.block_decoder, B, capacity, kv_cache,
+    cache = neox.make_kv_cache(dec.block_cfg, B, capacity, kv_cache,
                                dtype=inputs_embeds.dtype, device=device)
     kv_valid = torch.zeros((B, capacity), dtype=torch.int32, device=device)
     prompt_valid = block_attention_mask.to(torch.int32).repeat_interleave(
@@ -222,8 +324,8 @@ def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
     if fresh_prefill and cfg.block_decoder_cls != "gpt-neo":
         mask = masks.block_decode_mask(0, S, S, prompt_valid, n)
         positions = torch.arange(S, dtype=torch.int32, device=device)
-        hidden, cache = neox.neox_prefill_fresh(
-            params["block_decoder"], inputs_embeds, cfg=cfg.block_decoder,
+        hidden, cache = dec.block_prefill(
+            params["block_decoder"], inputs_embeds, cfg=dec.block_cfg,
             mask=mask, positions=positions, cache=cache,
             q_tile=max(1, prefill_chunk_blocks) * n)
         kv_valid[:, :S] = prompt_valid
@@ -231,7 +333,7 @@ def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
     chunk = max(1, prefill_chunk_blocks) * n
     if S <= chunk:
         hidden, cache, kv_valid = _block_decoder_step(
-            params, cfg, inputs_embeds, cache, kv_valid, prompt_valid)
+            params, cfg, inputs_embeds, cache, kv_valid, prompt_valid, dec)
         return hidden[:, -n:, :], cache, kv_valid
     n_chunks = -(-S // chunk)
     pad_to = n_chunks * chunk
@@ -245,7 +347,7 @@ def prefill_blocks(params, cfg: BlockTransformerConfig, input_ids,
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
         hidden, cache, kv_valid = _block_decoder_step(
-            params, cfg, x_pad[:, sl], cache, kv_valid, v_pad[:, sl])
+            params, cfg, x_pad[:, sl], cache, kv_valid, v_pad[:, sl], dec)
         if c == last:
             off = S - n - c * chunk
             next_embeds = hidden[:, off:off + n, :]
@@ -274,54 +376,104 @@ def generate_blocks(params, cfg: BlockTransformerConfig, input_ids,
         raise NotImplementedError(
             "a quantized global KV cache with the gpt-neo block decoder is "
             "not wired (as in the JAX package): use kv_cache='bf16'")
-    with linear_ops.kv_mode(kv_cache):
+    return _generate(params, cfg, input_ids, attention_mask,
+                     block_attention_mask, single_device(cfg),
+                     max_blocks=max_blocks, greedy=greedy,
+                     temperature=temperature, top_k=top_k, top_p=top_p,
+                     generator=generator,
+                     prefill_chunk_blocks=prefill_chunk_blocks,
+                     kv_cache=kv_cache, fresh_prefill=fresh_prefill,
+                     device=device)
+
+
+class _Stream(NamedTuple):
+    """One token-decoder stream's rows of the generation state."""
+    tokens: torch.Tensor        # [b, max_blocks, L]
+    next_embeds: torch.Tensor   # [b, n, ph]
+    cache: object
+    kv_valid: torch.Tensor      # [b, capacity]
+    unfinished: torch.Tensor    # [b] int32
+
+
+@torch.no_grad()
+def _generate(params, cfg: BlockTransformerConfig, input_ids, attention_mask,
+              block_attention_mask, dec: Decoders, *, max_blocks: int,
+              greedy: bool = True, temperature: float = 1.0, top_k: int = 0,
+              top_p: float = 1.0, generator=None,
+              prefill_chunk_blocks: int = 128, kv_cache: str = "bf16",
+              fresh_prefill: bool = True, device="cuda") -> GenerationResult:
+    """``generate_blocks`` on ``dec``: this process generates its rows of
+    the batch and every row comes back (``dec.gather_rows``). With two
+    streams a block runs ``TD(A); TD(B); BD(A); BD(B)`` (token decoders,
+    then block decoders, over the two halves of the rows)."""
+    with linear_ops.kv_mode(kv_cache), dec.program():
         input_ids = torch.as_tensor(input_ids, device=device).to(torch.int32)
         attention_mask = torch.as_tensor(attention_mask, device=device)
         block_attention_mask = torch.as_tensor(block_attention_mask,
                                                device=device)
         B, N, L = input_ids.shape
+        rows = local_rows(dec, B)
+        input_ids, attention_mask, block_attention_mask = (
+            input_ids[rows], attention_mask[rows], block_attention_mask[rows])
         n = cfg.n_embedding_tokens
         ph = cfg.embedder.projection_hidden_size
+        generator = dec.rng(generator, greedy)
         # capacity rounded up to a multiple of 128 (extra slots stay invalid)
         capacity = max_blocks * n
         if capacity >= 128:
             capacity = -(-capacity // 128) * 128
 
-        next_embeds, cache, kv_valid = prefill_blocks(
-            params, cfg, input_ids, attention_mask, block_attention_mask,
-            capacity=capacity, kv_cache=kv_cache,
-            prefill_chunk_blocks=prefill_chunk_blocks,
-            fresh_prefill=fresh_prefill)
+        streams = []
+        for s in stream_rows(dec, input_ids.shape[0]):
+            ids = input_ids[s]
+            next_embeds, cache, kv_valid = _prefill_blocks(
+                params, cfg, ids, attention_mask[s], block_attention_mask[s],
+                dec, capacity=capacity, kv_cache=kv_cache,
+                prefill_chunk_blocks=prefill_chunk_blocks,
+                fresh_prefill=fresh_prefill)
+            tokens = torch.zeros((ids.shape[0], max_blocks, L),
+                                 dtype=torch.int32, device=device)
+            tokens[:, :N] = ids
+            streams.append(_Stream(tokens, next_embeds, cache, kv_valid,
+                                   torch.ones(ids.shape[0], dtype=torch.int32,
+                                              device=device)))
 
-        tokens = torch.zeros((B, max_blocks, L), dtype=torch.int32,
-                             device=device)
-        tokens[:, :N] = input_ids
-        unfinished = torch.ones(B, dtype=torch.int32, device=device)
+        def unfinished():
+            return torch.cat([st.unfinished for st in streams])
+
         n_blocks = N
-        while n_blocks < max_blocks and bool(unfinished.any()):
-            alive = unfinished.bool()
-            new_tokens, inner_alive = decode_block_tokens(
-                params, cfg, next_embeds.reshape(B, n, ph), greedy=greedy,
+        while n_blocks < max_blocks and dec.any_live(unfinished() > 0):
+            # every stream's token decoder first, then every block-decoder
+            # step: the chains TD(s) -> BD(s) share no data
+            new = [dec.decode_tokens(
+                params, cfg, st.next_embeds.reshape(-1, n, ph), greedy=greedy,
                 temperature=temperature, generator=generator, top_k=top_k,
-                top_p=top_p)
-            new_tokens = torch.where(alive[:, None], new_tokens,
-                                     cfg.pad_token_id)
-            # finished if an EOS was emitted in this block
-            unfinished = unfinished * inner_alive.to(torch.int32)
-            tokens[:, n_blocks] = new_tokens
-            # re-embed the generated block; zero embeddings for finished rows
-            new_block_emb = emb.embed_blocks(params["embedder"],
-                                             cfg.embedder, cfg.block_length,
-                                             new_tokens)
-            new_block_emb = new_block_emb.masked_fill(
-                ~alive[:, None, None], 0.0)
-            hidden, cache, kv_valid = _block_decoder_step(
-                params, cfg,
-                new_block_emb.reshape(B, n, ph).to(next_embeds.dtype),
-                cache, kv_valid, unfinished[:, None].expand(B, n))
-            next_embeds = hidden[:, -n:, :]
+                top_p=top_p) for st in streams]
+            streams = [_block_done(params, cfg, dec, st, t, a, n_blocks)
+                       for st, (t, a) in zip(streams, new)]
             n_blocks += 1
-        return GenerationResult(tokens, n_blocks, unfinished)
+        tokens = torch.cat([st.tokens for st in streams])
+        return GenerationResult(dec.gather_rows(tokens), n_blocks,
+                                dec.gather_rows(unfinished()))
+
+
+def _block_done(params, cfg: BlockTransformerConfig, dec: Decoders,
+                st: _Stream, new_tokens, inner_alive, n_blocks: int):
+    """A stream's generated block into its tokens, embedded, then through
+    the block decoder. Rows that finished emit pad blocks and embed zeros;
+    a row finishes when its block holds EOS."""
+    b, n = new_tokens.shape[0], cfg.n_embedding_tokens
+    alive = st.unfinished.bool()
+    new_tokens = torch.where(alive[:, None], new_tokens, cfg.pad_token_id)
+    unfinished = st.unfinished * inner_alive.to(torch.int32)
+    st.tokens[:, n_blocks] = new_tokens
+    new_block_emb = emb.embed_blocks(params["embedder"], cfg.embedder,
+                                     cfg.block_length, new_tokens)
+    new_block_emb = new_block_emb.masked_fill(~alive[:, None, None], 0.0)
+    hidden, cache, kv_valid = _block_decoder_step(
+        params, cfg, new_block_emb.reshape(b, n, -1).to(st.next_embeds.dtype),
+        st.cache, st.kv_valid, unfinished[:, None].expand(b, n), dec)
+    return _Stream(st.tokens, hidden[:, -n:, :], cache, kv_valid, unfinished)
 
 
 # ---------------------------------------------------------------------------

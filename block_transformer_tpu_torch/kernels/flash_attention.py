@@ -45,6 +45,15 @@ def supported_head_dim(D: int) -> bool:
     return 1 <= D <= MAX_HEAD_DIM
 
 
+def supported(q, k) -> bool:
+    """The query blocks ``ops.attention.attention`` sends here: Q >= 8 rows
+    (smaller decode steps take K2 or the plain path) and a head dim the
+    kernels take. JAX's gate also asks K >= 128, for its Pallas tiles; these
+    kernels take any K."""
+    del k
+    return q.shape[2] >= 8 and supported_head_dim(q.shape[-1])
+
+
 def route(dtype, D: int, K: int, aligned: bool = True) -> str:
     """With D in TC_HEAD_DIMS, K within the kernels' bitmask and 16-byte
     aligned operands, the tensor cores: "tc" for bf16, "tf32x3" for

@@ -54,8 +54,9 @@ from block_transformer_tpu_torch.kernels import paged_attention
 from block_transformer_tpu_torch.ops import linear as linear_ops
 from block_transformer_tpu_torch.ops import masks as masks_lib
 from block_transformer_tpu_torch.ops.attention import attention
+from block_transformer_tpu_torch.ops import quant as quant_ops
 from block_transformer_tpu_torch.ops.quant import (dequantize_kv, kv_bits,
-                                                   pack_kv_int4, quantize_kv)
+                                                   pack_kv_int4)
 
 
 # ---------------------------------------------------------------------------
@@ -297,11 +298,21 @@ def _write_rows(buf: torch.Tensor, i: int, new: torch.Tensor,
     layer.scatter_(2, spread(tgt), vals)
 
 
+def quantize_kv(x: torch.Tensor, dtype=torch.int8):
+    """[B, H, S, D] -> (values, float32 scales [B, H, S]), one scale per
+    slot: int8 values for ``torch.int8``, INT4 values (int8 in [-7, 7],
+    unpacked) for ``torch.uint8``, the INT4 cache's storage type (JAX's
+    ``jnp.int4``)."""
+    if dtype not in (torch.int8, torch.uint8):
+        raise ValueError(f"quantize_kv: dtype {dtype} (int8 or uint8)")
+    return quant_ops.quantize_kv(x, 8 if dtype == torch.int8 else 4)
+
+
 def _quantize_pair(k, v, bits: int):
     """(kq, ks, vq, vs): k and v quantized per slot, packed when bits is
     4."""
-    kq, ks = quantize_kv(k, bits)
-    vq, vs = quantize_kv(v, bits)
+    kq, ks = quant_ops.quantize_kv(k, bits)
+    vq, vs = quant_ops.quantize_kv(v, bits)
     if bits == 4:
         kq, vq = pack_kv_int4(kq), pack_kv_int4(vq)
     return kq, ks, vq, vs
@@ -394,6 +405,18 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
     the JAX package's ``jax.checkpoint`` of the layer body: the backward
     recomputes the layer instead of keeping its activations. No op draws
     random numbers, so the values are unchanged."""
+    return _stack(params, x, cfg=cfg, mask=mask, positions=positions,
+                  cache=cache, write_pos=write_pos, remat=remat)
+
+
+def _stack(params, x, *, cfg: NeoXConfig, mask, positions, cache=None,
+           write_pos=None, remat: bool = False, qkv=layer_qkv,
+           finish=layer_finish):
+    """``neox_stack`` with its layer's two halves given: ``qkv`` (LN1, the
+    QKV linear, RoPE) and ``finish`` (the output projection, the MLP and
+    the residual). The tensor-parallel stack (``parallel/tp_decode.py``)
+    gives its own: head-major QKV columns, and one all-reduce of the two
+    row-parallel partial sums."""
     max_pos = cfg.max_position_embeddings
     if cache is not None:
         cap = cache.k.shape[3]
@@ -406,14 +429,15 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
     if isinstance(cache, PagedKVCache):
         return _paged_stack(params, x, cfg=cfg, mask=mask, positions=positions,
                             cache=cache, write_pos=write_pos, cos=cos,
-                            sin=sin)
+                            sin=sin, qkv=qkv, finish=finish)
     layers = params["layers"]
     if cache is None:
         def layer(h, i):
             p = layer_view(layers, i)
-            q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
-                                positions=positions)
-            return layer_finish(p, h, attention(q, k, v, mask), cfg=cfg)
+            q, k, v = qkv(p, h, cfg=cfg, cos=cos, sin=sin,
+                          positions=positions)
+            return finish(p, h, attention(q, k, v, mask, cfg.attn_impl),
+                          cfg=cfg)
 
         h = x
         for i in range(cfg.num_layers):
@@ -426,8 +450,7 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
     h = x
     for i in range(cfg.num_layers):
         p = layer_view(layers, i)
-        q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
-                            positions=positions)
+        q, k, v = qkv(p, h, cfg=cfg, cos=cos, sin=sin, positions=positions)
         if isinstance(cache, QuantKVCache):
             _write_layer(cache, i, write_pos, k, v)
             if cache.bits == 8 and S <= decode_attention.MAX_S:
@@ -438,7 +461,7 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
                 attn = attention(q, dequantize_kv(cache.k[i], cache.k_scale[i],
                                                   q.dtype),
                                  dequantize_kv(cache.v[i], cache.v_scale[i],
-                                               q.dtype), mask)
+                                               q.dtype), mask, cfg.attn_impl)
         else:
             _write_layer(cache, i, write_pos, k, v)
             if S <= decode_attention.MAX_S:
@@ -446,14 +469,15 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
                     q.contiguous(), cache.k, cache.v, i, mask)
             else:
                 attn = attention(q, cache.k[i].to(q.dtype),
-                                 cache.v[i].to(q.dtype), mask)
-        h = layer_finish(p, h, attn, cfg=cfg)
+                                 cache.v[i].to(q.dtype), mask, cfg.attn_impl)
+        h = finish(p, h, attn, cfg=cfg)
     cache = cache._replace(length=cache.length + S)
     return layer_norm(h, params["final_ln"], cfg.layer_norm_eps), cache
 
 
 def _paged_stack(params, x, *, cfg: NeoXConfig, mask, positions,
-                 cache: PagedKVCache, write_pos, cos, sin):
+                 cache: PagedKVCache, write_pos, cos, sin, qkv=layer_qkv,
+                 finish=layer_finish):
     """The stack over the paged pool. Position ``write_pos[b] + s`` of row b
     goes to page ``page_table[b, pos // ps]`` at ``pos % ps`` (page -1,
     dropped by the writes, past the row's virtual pages).
@@ -493,8 +517,8 @@ def _paged_stack(params, x, *, cfg: NeoXConfig, mask, positions,
         page0, off0 = page[:, 0].contiguous(), off[:, 0].contiguous()
         for i in range(L):
             p = layer_view(layers, i)
-            q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
-                                positions=positions)
+            q, k, v = qkv(p, h, cfg=cfg, cos=cos, sin=sin,
+                          positions=positions)
             # one launch quantizes the layer's K/V into the step buffers and
             # gives the dequantized fresh pair, so it carries the
             # quantization error a pool read would; the last layer's launch
@@ -510,14 +534,14 @@ def _paged_stack(params, x, *, cfg: NeoXConfig, mask, positions,
             attn = paged_attention.paged_decode_attention_int8(
                 q.contiguous(), cache.k, cache.k_scale, cache.v,
                 cache.v_scale, i, pt, mask_d, fresh=(kf, vf)).to(q.dtype)
-            h = layer_finish(p, h, attn, cfg=cfg)
+            h = finish(p, h, attn, cfg=cfg)
     else:
         ok = (page >= 0) & (off < ps)
         pg, of = page[ok].long(), off[ok].long()
         for i in range(cfg.num_layers):
             p = layer_view(layers, i)
-            q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
-                                positions=positions)
+            q, k, v = qkv(p, h, cfg=cfg, cos=cos, sin=sin,
+                          positions=positions)
             kq, ks, vq, vs = _quantize_pair(k, v, cache.bits)
             # [B, H, S(, D)] -> the (b, s) pairs in range, [n, H(, D)]
             cache.k[i, pg, :, of] = kq.transpose(1, 2)[ok]
@@ -527,28 +551,31 @@ def _paged_stack(params, x, *, cfg: NeoXConfig, mask, positions,
             attn = paged_attention.paged_decode_attention_int8(
                 q.contiguous(), cache.k, cache.k_scale, cache.v,
                 cache.v_scale, i, pt, mask).to(q.dtype)
-            h = layer_finish(p, h, attn, cfg=cfg)
+            h = finish(p, h, attn, cfg=cfg)
     cache = cache._replace(length=cache.length + S)
     return layer_norm(h, params["final_ln"], cfg.layer_norm_eps), cache
 
 
-def fresh_attn_tiles(mask: masks_lib.AttnMask, S: int, q_tile: int):
+def fresh_attn_tiles(mask: masks_lib.AttnMask, S: int, q_tile: int,
+                     attn_impl: str = "xla"):
     """Attention for the fresh prefill: ``q_tile`` query rows at a time
     against the full fresh K/V. The last tile may be shorter (the kernels
-    take any Q), so no padding rows are made."""
+    take any Q), so no padding rows are made. Shared by the single-device
+    fresh prefill and the tensor-parallel one (attention is per head, so
+    the same tiles are exact on a rank's heads)."""
     if mask.q_idx.dim() != 1:
         raise ValueError("fresh prefill expects an unbatched q_idx")
     tq = min(q_tile, S)
 
     def attn_tiles(q, k, v):
         if tq == S:
-            return attention(q, k, v, mask)
+            return attention(q, k, v, mask, attn_impl)
         out = torch.empty_like(q)
         for t0 in range(0, S, tq):
             sl = slice(t0, min(S, t0 + tq))
             m_t = masks_lib.AttnMask(mask.q_idx[sl], mask.kv_idx,
                                      mask.kv_valid)
-            out[:, :, sl] = attention(q[:, :, sl], k, v, m_t)
+            out[:, :, sl] = attention(q[:, :, sl], k, v, m_t, attn_impl)
         return out
 
     return attn_tiles
@@ -561,19 +588,25 @@ def neox_prefill_fresh(params, x: torch.Tensor, *, cfg: NeoXConfig,
     K/V it just computed, unquantized, while the cache (bf16 or INT8) is
     only written. ``mask`` covers the whole [S, S] prompt. Returns (hidden
     [B, S, h] final-normed, the cache with length = S)."""
+    return _prefill_fresh(params, x, cfg=cfg, mask=mask, positions=positions,
+                          cache=cache, q_tile=q_tile)
+
+
+def _prefill_fresh(params, x, *, cfg: NeoXConfig, mask, positions, cache,
+                   q_tile: int, qkv=layer_qkv, finish=layer_finish):
+    """``neox_prefill_fresh`` with its layer's halves given, as ``_stack``."""
     B, S, _ = x.shape
     _check_room(cache, S, 0)
     cos, sin = rope_tables(cfg, max(cfg.max_position_embeddings,
                                     cache.k.shape[3]), x.device)
     layers = params["layers"]
-    attn_tiles = fresh_attn_tiles(mask, S, q_tile)
+    attn_tiles = fresh_attn_tiles(mask, S, q_tile, cfg.attn_impl)
     h = x
     for i in range(cfg.num_layers):
         p = layer_view(layers, i)
-        q, k, v = layer_qkv(p, h, cfg=cfg, cos=cos, sin=sin,
-                            positions=positions)
+        q, k, v = qkv(p, h, cfg=cfg, cos=cos, sin=sin, positions=positions)
         _write_layer(cache, i, 0, k, v)
-        h = layer_finish(p, h, attn_tiles(q, k, v), cfg=cfg)
+        h = finish(p, h, attn_tiles(q, k, v), cfg=cfg)
     h = layer_norm(h, params["final_ln"], cfg.layer_norm_eps)
     return h, cache._replace(length=S)
 

@@ -13,6 +13,13 @@ block stays on the plain path, as the JAX package trains with
 ``attn_impl="xla"``: K3 has no backward, and its wrapper refuses such
 inputs. Inference runs under ``torch.no_grad()`` and keeps K3.
 
+``impl`` is the JAX package's attention switch, "xla" or "pallas". The port
+has no compiler to hand "xla" to, so the hand kernel serves both: each takes
+K3 where it takes the shape (``flash_attention.supported``). Inside
+``ops.linear.pallas_disabled()`` both take the plain path on the CPU, as
+JAX's "pallas" falls back to XLA there, and raise on the card (nothing in
+the port sets that switch).
+
 ``attention_xla_chunked`` is the JAX package's online-softmax form of
 ``attention_xla`` over key tiles. As there, it is opt-in, inside
 ``chunked_prefill_attention(tile)`` (the JAX package's
@@ -29,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from block_transformer_tpu_torch.ops import linear as linear_ops
 from block_transformer_tpu_torch.ops import masks as masks_lib
 
 _CHUNKED_TILE: contextvars.ContextVar[Optional[int]] = contextvars.ContextVar(
@@ -108,11 +116,14 @@ def _use_chunked(Q: int, K: int) -> bool:
     return tile is not None and Q >= 64 and K >= 2 * tile
 
 
-def attention(q, k, v, mask: masks_lib.AttnMask):
+def attention(q, k, v, mask: masks_lib.AttnMask, impl: str = "xla"):
     # imported here: the kernel module imports attention_xla from this one
     from block_transformer_tpu_torch.kernels import build, flash_attention
-    if (q.shape[2] >= 8 and flash_attention.supported_head_dim(q.shape[-1])
-            and not build.needs_grad(q, k, v)):
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if not linear_ops.pallas_allowed():
+        linear_ops.refuse_plain_on_card(q)
+    elif flash_attention.supported(q, k) and not build.needs_grad(q, k, v):
         return flash_attention.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), mask)
     if _use_chunked(q.shape[2], k.shape[2]):

@@ -21,6 +21,18 @@ environment switches are explicit contexts here: ``w8a8_disabled()`` (its
 TPU-tuned switches (``BT_PALLAS_*``) are not carried over: below the W8A8
 floor the port runs K1 for every INT8 linear and K4 for every INT4 linear,
 at every M.
+
+``pallas_disabled()`` and ``apply_linear(use_pallas=False)`` take the plain
+dequantize-and-matmul instead of any hand kernel (K1, K4 or W8A8), as the
+JAX package takes XLA's; ``use_pallas=True`` takes K1 / K4 and never W8A8.
+The JAX package needs the switch because XLA cannot partition a
+``pallas_call``; the port's mesh programs run per rank on local shards, so
+nothing in the port sets it: it is kept for JAX's signatures, and on a CUDA
+tensor it raises rather than run the plain version on the card. Inside those
+programs (``sharded_program()``, entered by ``parallel/tp_decode.py``) W8A8
+is off whatever was forced, as under a JAX ``shard_map``: a row-parallel
+linear sees a K-slice of each row, so its per-row activation scale would
+differ from one device's.
 """
 
 from __future__ import annotations
@@ -43,6 +55,14 @@ _QUANTIZED = {
                   dequant_matmul.int4_matmul_stacked),
 }
 
+# the plain versions of the same (use_pallas=False)
+_PLAIN = {
+    "kernel_q8": (dequant_matmul.int8_matmul_plain,
+                  dequant_matmul.int8_matmul_stacked_plain),
+    "kernel_q4": (dequant_matmul.int4_matmul_plain,
+                  dequant_matmul.int4_matmul_stacked_plain),
+}
+
 # The decode KV-cache mode ("bf16" / "int8" / "int4" / None) declared by the
 # entry points: it keys W8A8's default floor, as in the JAX package.
 _KV_MODE: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
@@ -50,6 +70,8 @@ _KV_MODE: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
 _W8A8_OFF = contextvars.ContextVar("bt_w8a8_off", default=False)
 _W8A8_M_MIN: contextvars.ContextVar[Optional[int]] = contextvars.ContextVar(
     "bt_w8a8_m_min", default=None)
+_NO_PALLAS = contextvars.ContextVar("bt_no_pallas", default=False)
+_SHARDED = contextvars.ContextVar("bt_sharded_program", default=False)
 
 
 @contextlib.contextmanager
@@ -78,6 +100,31 @@ def w8a8_min_m(n: int):
     return _setting(_W8A8_M_MIN, int(n))
 
 
+def pallas_disabled():
+    """No hand kernel for the linears and the attention inside: each takes
+    its plain version (JAX: XLA's dequant + dot)."""
+    return _setting(_NO_PALLAS, True)
+
+
+def pallas_allowed() -> bool:
+    """False inside ``pallas_disabled()``."""
+    return not _NO_PALLAS.get()
+
+
+def refuse_plain_on_card(x: torch.Tensor) -> None:
+    """The plain path the switches above ask for runs on the CPU only: no
+    code of the port sets them, and the card runs the hand kernels."""
+    if _on_card(x):
+        raise RuntimeError("use_pallas=False / pallas_disabled() ask for the "
+                           "plain version, which the port does not run on "
+                           "the card")
+
+
+def sharded_program():
+    """Mark the code inside as a mesh program's per-rank body: no W8A8."""
+    return _setting(_SHARDED, True)
+
+
 def _on_card(x: torch.Tensor) -> bool:
     return x.is_cuda
 
@@ -85,8 +132,9 @@ def _on_card(x: torch.Tensor) -> bool:
 def _use_w8a8(m: int) -> bool:
     """The JAX package's decision for M = m rows (its device gate aside):
     an explicit floor wins; else 2048 under an INT8 KV cache (prefill only)
-    and 384 otherwise."""
-    if _W8A8_OFF.get():
+    and 384 otherwise. Never inside ``sharded_program()``, whatever was
+    forced."""
+    if _W8A8_OFF.get() or _SHARDED.get():
         return False
     floor = _W8A8_M_MIN.get()
     if floor is None:
@@ -108,10 +156,13 @@ class StackedLinear(NamedTuple):
     layer: int
 
 
-def apply_linear(x: torch.Tensor, p) -> torch.Tensor:
+def apply_linear(x: torch.Tensor, p, use_pallas: Optional[bool] = None
+                 ) -> torch.Tensor:
     """x [..., K] @ params -> [..., N] (+ bias if present). ``p`` is a linear
     param dict ({"kernel" | "kernel_q8" | "kernel_q4", "scale"?, "bias"?})
-    or a ``StackedLinear``."""
+    or a ``StackedLinear``. ``use_pallas``: None decides (W8A8, K1 or K4;
+    the plain version inside ``pallas_disabled()``), True takes K1 / K4,
+    False the plain version."""
     if isinstance(p, StackedLinear):
         node, layer = p.node, p.layer
         pick = lambda t: t[layer]                      # noqa: E731
@@ -125,7 +176,12 @@ def apply_linear(x: torch.Tensor, p) -> torch.Tensor:
         one, stacked = _QUANTIZED[key]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         w, s = node[key], node["scale"]
-        if (key == "kernel_q8" and _on_card(x2)
+        if use_pallas is None and not pallas_allowed():
+            use_pallas = False
+        if use_pallas is False:
+            refuse_plain_on_card(x2)
+            one, stacked = _PLAIN[key]
+        if (key == "kernel_q8" and use_pallas is None and _on_card(x2)
                 and _use_w8a8(x2.shape[0])):
             if layer is None:
                 w, s, layer = w[None], s[None], 0

@@ -156,9 +156,10 @@ def engine_requests(cfg, traffic=ENGINE_TRAFFIC, seed: int = 0):
 def make_engine(params, cfg, kv_cache: str, *, n_slots: int = ENGINE_SLOTS,
                 max_blocks: int = ENGINE_MAX_BLOCKS,
                 bucket_blocks: int = ENGINE_BUCKET_BLOCKS,
-                page_size: int = ENGINE_PAGE_SIZE, device="cuda"):
+                page_size: int = ENGINE_PAGE_SIZE, device="cuda", mesh=None):
     """The smoke's engine. A paged pool holds n_slots * n_virt + 1 pages,
-    enough for every slot at full length (as ``bench.py`` sizes it)."""
+    enough for every slot at full length (as ``bench.py`` sizes it).
+    ``mesh``: serve over it with ``mesh_impl="shard_map"``."""
     cap = max_blocks * cfg.n_embedding_tokens
     cap = -(-cap // 128) * 128 if cap >= 128 else cap
     ps = min(page_size, cap)
@@ -167,7 +168,8 @@ def make_engine(params, cfg, kv_cache: str, *, n_slots: int = ENGINE_SLOTS,
         params, cfg, n_slots=n_slots, max_blocks=max_blocks,
         kv_cache=kv_cache, bucket_blocks=bucket_blocks,
         sync_blocks=ENGINE_SYNC_BLOCKS, page_size=page_size,
-        pool_pages=n_slots * n_virt + 1, device=device)
+        pool_pages=n_slots * n_virt + 1, device=device, mesh=mesh,
+        mesh_impl="shard_map")
 
 
 def serve(engine, requests) -> dict:

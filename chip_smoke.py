@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card; exits non-zero, printing no result, without one. In
-one process it:
+one process (and, for step 12, two more on the same card) it:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels K1-K8, W8A8-q and W8A8-mm from
@@ -174,6 +174,24 @@ one process it:
    CUDA-core kernel timed at the same inputs; K4 at the int4 run's LM head
    and mlp_up within K14_F32_TOL, beside its CUDA-core kernel and
    ``torch.matmul`` on the dequantized float32 weight).
+
+12. serves over a (data, model) mesh (``phase_tp``, run after step 7):
+   (a) one rank in this process over NCCL, mesh (data 1, model 1): the
+   tensor-parallel generator (``parallel/tp_decode.py``) with INT8 and
+   with INT4 weights, INT8 global cache, and the engine over ``int8`` and
+   ``paged``: every generated token's logit, from a teacher-forced
+   forward over the row's own tokens (W8A8 off), lies within TOL *
+   max|logit| of the best at its position, EOS too where a row ended, and
+   the rows equal to the port on one device are counted; (b) two
+   processes it spawns on the one card over gloo with CUDA tensors (NCCL
+   takes one rank a device), mesh (data 1, model 2), 8 heads each: first
+   the collectives the programs issue (one JSON line), then the generator
+   (INT8) and ``engine int8``, the two ranks' tokens equal, checked the
+   same way and counted against (a); every
+   run asserts its launches by route (no W8A8 inside the TP programs);
+   then K1 and K2 rows at the tp = 2 shard widths and one JSON line of
+   each rank's all-reduces (count, mean host and device us) from a trace
+   of two more blocks.
 
 Every timed full-width run of steps 5-9 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
@@ -2158,7 +2176,8 @@ def phase_engine(kind: str, cfg, params):
             raise AssertionError(f"engine {kind}: tokens out of [0, vocab)")
         early += len(r.generated) < budget      # ended at an EOS
     if kind.startswith("paged") and (
-            sorted(eng._free_pages) != list(range(1, eng.pool_pages))
+            [sorted(f) for f in eng._free_pages]
+            != [list(range(1, eng.pool_pages))]
             or bool(eng.cache.page_table.any())):
         raise AssertionError(f"engine {kind}: pages were not all freed")
     lat = res["latency"]
@@ -3539,6 +3558,437 @@ def phase_eval(rows, smi) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase_tp: serving over a (data, model) mesh (parallel/tp_decode.py)
+# ---------------------------------------------------------------------------
+
+TP_DIR = os.path.join(ROOT, "build", "chip_smoke_tp")
+TP_BACKEND = {"cuda": "nccl", "cpu": "gloo"}    # (a)'s one rank
+# the mesh paths: no W8A8 inside the TP programs (a row-parallel linear sees
+# a K-slice of each row); K2 bf16 on the token decoder's local cache only
+_NO_SERVING = ("K6", "K6 int4", *K7_FUSED, "K8", "K8 int4")
+PATH_KERNELS.update({
+    "tp generation": ("K1", "K2", "K2 bf16", "K3", *K5_FUSED),
+    "tp generation int4": ("K2", "K2 bf16", "K3", "K4", *K5_FUSED),
+    "tp engine int8": ("K1", "K2", "K2 bf16", "K3", *K5_FUSED),
+    "tp engine paged": ("K1", "K2 bf16", "K3", "K6", *K7_FUSED, "K8"),
+    "tp2 generation": ("K1", "K2", "K2 bf16", "K3", *K5_FUSED),
+    "tp2 engine int8": ("K1", "K2", "K2 bf16", "K3", *K5_FUSED),
+})
+PATH_ABSENT.update({
+    "tp generation": ("K4", *W8A8, *_NO_SERVING),
+    "tp generation int4": ("K1", *W8A8, *_NO_SERVING),
+    "tp engine int8": ("K4", *W8A8, *_NO_SERVING),
+    "tp engine paged": ("K2", "K4", *K5_FUSED, *W8A8, "K6 int4", "K8 int4"),
+    "tp2 generation": ("K4", *W8A8, *_NO_SERVING),
+    "tp2 engine int8": ("K4", *W8A8, *_NO_SERVING),
+})
+# the collectives the TP programs issue: all_reduce SUM (layers, gathers),
+# MAX and MIN (the top-1 pick), on these types
+TP_COLLECTIVES = [(dt, op) for dt in ("float32", "bfloat16", "int32",
+                                      "int64")
+                  for op in ("SUM", "MAX", "MIN")]
+
+
+def tp_generate(mesh, cfg, params, ids, att, bam, max_blocks):
+    """The TP generator over ``mesh`` (INT8 global cache, greedy) from the
+    whole tree; returns (tokens [B, max_blocks, L], n_blocks, seconds of
+    the run, ``again(blocks)``, which runs it again to ``blocks``)."""
+    from block_transformer_tpu_torch.parallel import tp_decode
+    tp = tp_decode._axes(mesh).tp
+    shards = tp_decode.shard_tp_params(
+        mesh, tp_decode.prepare_tp_params(params, cfg, tp=tp))
+
+    def fn(blocks):
+        return tp_decode.make_tp_generate_blocks(
+            mesh, cfg, shards, max_blocks=blocks, kv_cache="int8")(
+                shards, ids, att, bam)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, nb = fn(max_blocks)
+    torch.cuda.synchronize()
+    return toks, nb, time.perf_counter() - t0, fn
+
+
+def host_ops(prof, top: int = 12) -> dict:
+    """The ``top`` host ops of a torch.profiler run by self time: {name:
+    (count, self ms in all)}."""
+    evs = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {e.key[:60]: (e.count, round(e.self_cpu_time_total / 1e3, 3))
+            for e in evs[:top]}
+
+
+def allreduce_profile(run, ops: dict = None) -> dict:
+    """Run ``run`` under torch.profiler; the all-reduces it issued: the
+    host op (c10d's all-reduce, count and mean host us) and, on NCCL, its
+    device kernel (count and mean device us). ``ops``, if given, takes the
+    run's wall seconds and its top host ops (``host_ops``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    if ops is not None:
+        ops.update(seconds=time.perf_counter() - t0, top=host_ops(prof))
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        low = name.lower()
+        if "allreduce" not in low and "all_reduce" not in low:
+            continue
+        key = ("device " if e.device_type() == DeviceType.CUDA
+               else "host ") + name[:60]
+        n, us = out.get(key, (0, 0.0))
+        out[key] = (n + 1, us + e.duration_ns() / 1e3)
+    return {k: {"count": n, "mean_us": us / n} for k, (n, us) in out.items()}
+
+
+def forced_logits(params, cfg, prompt, generated):
+    """float32 logits [len(generated) + 1, V] at each generated position of
+    one row and the one after, from one teacher-forced forward of the
+    prompt blocks (``prompt``: ids and attention mask [N, L]) followed by
+    ``generated``. The forward is the training path's (no cache; W8A8 off,
+    as in the TP programs), a third way to the same logits."""
+    ids, att = prompt
+    N, L = ids.shape
+    k = len(generated)
+    nb = k // L + 1                     # the blocks holding positions 0..k
+    gen_ids = np.zeros((nb * L,), np.int32)
+    gen_ids[:k] = generated
+    ids = np.concatenate([ids, gen_ids.reshape(nb, L)])[None]
+    att = np.concatenate([att, np.ones((nb, L), att.dtype)])[None]
+    dev = lambda a: torch.as_tensor(a, device=CARD)      # noqa: E731
+    with torch.no_grad(), linear_ops.w8a8_disabled():
+        logits = bt.block_transformer_forward(
+            params, cfg, dev(ids), dev(att), dev(att.any(-1).astype(np.int32)),
+            compute_logits=True).logits[0]
+    # generated position i is block N + i // L's token i % L, predicted
+    # from block N + i // L - 1
+    return logits[N - 1:N - 1 + nb].reshape(nb * L, -1)[:k + 1].float()
+
+
+def check_tokens(what, params, cfg, prompts, got, want, budgets) -> dict:
+    """Every greedy token of a path (``got``: a list of tokens per row, EOS
+    and what follows it already cut) against a teacher-forced forward of
+    the row's own tokens (``forced_logits``): each token's logit must lie
+    within TOL * max|logit| of the best one at its position, and a row
+    shorter than its budget (it ended at EOS) must have EOS there at the
+    position after its last token. Where a row parts from ``want`` (one
+    device, or (a)), the other token must lie as near the best at that
+    position (the prefix is the same there). Logs the rows equal to
+    ``want``, where the others part, the positions checked, the largest
+    gap against its limit, and the band (vocab entries within the limit)
+    at each checked position, which says how much the check constrains."""
+    eos = cfg.eos_token_id
+    equal, n_pos, bands, worst, parted = 0, 0, [], 0.0, []
+    for r, (x, y) in enumerate(zip(got, want)):
+        x = list(map(int, x))
+        picks = x + ([eos] if len(x) < budgets[r] else [])
+        logits = forced_logits(params, cfg, prompts[r], x)[:len(picks)]
+        best = logits.max(-1).values
+        limit = TOL * logits.abs().max(-1).values
+        gap = best - logits.gather(
+            -1, torch.tensor(picks, device=logits.device)[:, None])[:, 0]
+        # at the first difference from ``want`` the prefix is the same: its
+        # token must be as near the best there
+        y = list(map(int, y))
+        other = y + ([eos] if len(y) < budgets[r] else [])
+        k = next((i for i, (p, q) in enumerate(zip(picks, other)) if p != q),
+                 None)
+        if k is None:
+            equal += len(picks) == len(other)
+        else:
+            gap_y = best[k] - logits[k, other[k]]
+            parted.append((r, k))
+            if gap_y > limit[k]:
+                raise AssertionError(
+                    f"{what}: row {r} parts at generated token {k} outside "
+                    f"a near-tie: {picks[k]} / {other[k]}, gap of the other "
+                    f"{gap_y.item():.5f} > {limit[k].item():.5f}")
+        bad = (gap > limit).nonzero()
+        if len(bad):
+            i = int(bad[0, 0])
+            raise AssertionError(
+                f"{what}: row {r} generated token {i} ({picks[i]}) is "
+                f"{gap[i].item():.5f} below the best logit "
+                f"{best[i].item():.5f}, past the limit TOL * max|logit| = "
+                f"{limit[i].item():.5f}")
+        n_pos += len(picks)
+        worst = max(worst, (gap / limit).max().item())
+        bands += (logits >= (best - limit)[:, None]).sum(-1).tolist()
+    bands = np.asarray(bands)
+    out = {"rows": len(got), "rows_equal": equal,
+           "parted_at (row, token)": parted, "positions": n_pos,
+           "max_gap_over_limit": round(worst, 5),
+           "band_1": int((bands == 1).sum()),
+           "band_mean": round(float(bands.mean()), 3),
+           "band_max": int(bands.max())}
+    log(f"{what}: every generated token within TOL * max|logit| of the best "
+        f"logit of a teacher-forced forward over the row's own tokens: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def generation_rows(cfg, tokens, ids, att, N):
+    """(prompts, generated rows, EOS and what follows cut) of a
+    generation's tokens [B, blocks, L] (EOS comes out as pad there)."""
+    toks = tokens.cpu().numpy()
+    rows = []
+    for b in range(len(toks)):
+        row = toks[b, N:].reshape(-1)
+        end = np.flatnonzero(row == cfg.pad_token_id)
+        rows.append(row[:end[0]] if len(end) else row)
+    return [(ids[b], att[b]) for b in range(len(toks))], rows
+
+
+def engine_prompts(cfg, requests):
+    """Each engine request's prompt in block format (left pad)."""
+    out = []
+    for prompt, _ in requests:
+        d = gen.preprocess_inputs(cfg, prompt[None])
+        out.append((d["input_ids"][0], d["attention_mask"][0]))
+    return out
+
+
+def tp_engine_run(mesh, cfg, params, kind, path):
+    """Serve the engine traffic over ``mesh`` (or, ``path`` None, on one
+    device), W8A8 off; returns (each request's tokens, the requests, the
+    path's launches, asserted; None on one device)."""
+    eng = pg.make_engine(params, cfg, kind, mesh=mesh)
+    requests = pg.engine_requests(cfg, seed=0)
+    reset_launches()
+    with linear_ops.w8a8_disabled():
+        res = pg.serve(eng, requests)
+    launches = None if path is None else read_launches(path)
+    for r, (_, budget) in zip(res["requests"], requests):
+        if r.error or not r.done or not 1 <= len(r.generated) <= budget:
+            raise AssertionError(f"{path or kind}: request {r.uid} served "
+                                 f"{len(r.generated)} of {budget} tokens")
+    if kind.startswith("paged") and (
+            [sorted(f) for f in eng._free_pages]
+            != [list(range(1, eng.pool_pages // eng._dp))]
+            or bool(eng.cache.page_table.any())):
+        raise AssertionError(f"{path}: pages were not all freed")
+    log(f"{MODEL} engine {kind} {'over the mesh' if mesh else 'one device'}"
+        f": {len(res['requests'])} requests, {res['tokens']} tokens in "
+        f"{res['seconds']:.3f} s ({res['dispatches']} dispatches)")
+    return [r.generated for r in res["requests"]], requests, launches
+
+
+def tp2_rank(rank: int, store: str, out: str) -> None:
+    """Rank ``rank`` of (b): two processes on the one card, gloo with CUDA
+    tensors, mesh (data 1, model 2), each rank 8 of the 16 heads. Checks
+    the collectives the programs issue, then the TP generator (INT8,
+    greedy) and ``engine int8``; saves tokens, launches and all-reduce
+    times to ``out``."""
+    import torch.distributed as dist
+    from block_transformer_tpu_torch.parallel import sharding
+    if CARD == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=2)
+    try:
+        coll = {}
+        for dt, op in TP_COLLECTIVES + [("float32", "all_gather")]:
+            t = torch.arange(4, device=CARD).to(getattr(torch, dt)) + rank
+            if op == "all_gather":
+                parts = [torch.empty_like(t) for _ in range(2)]
+                dist.all_gather(parts, t)
+                ok = torch.equal(parts[1] - parts[0], torch.ones_like(t))
+            else:
+                dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
+                want = torch.arange(4, device=CARD).to(t.dtype)
+                want = {"SUM": 2 * want + 1, "MAX": want + 1,
+                        "MIN": want}[op]
+                ok = torch.equal(t, want)
+            coll[f"{op} {dt}"] = bool(ok)
+        if rank == 0:
+            log(json.dumps({"gloo_cuda_collectives": coll,
+                            "torch": torch.__version__}))
+        if not all(coll.values()):
+            raise AssertionError(f"gloo on CUDA tensors: {coll}")
+        mesh = sharding.make_mesh(1, 2, device=CARD)
+        cfg, params = pg.main_path_model(seed=0, quantize="int8")
+        ids, att, bam = pg.ragged_prompts(cfg, BATCH, PROMPT_TOKENS, seed=0)
+        max_blocks = ids.shape[1] + NEW_TOKENS // cfg.block_length
+        reset_launches()
+        toks, nb, secs, again = tp_generate(mesh, cfg, params, ids, att, bam,
+                                            max_blocks)
+        launches = {"tp2 generation": read_launches("tp2 generation")}
+        ar = allreduce_profile(lambda: again(ids.shape[1] + 2))
+        del again
+        tokens, _, launches["tp2 engine int8"] = tp_engine_run(
+            mesh, cfg, params, "int8", "tp2 engine int8")
+        torch.save({"tokens": toks.cpu(), "n_blocks": nb, "seconds": secs,
+                    "engine": tokens, "launches": launches,
+                    "allreduce": ar}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(rows, smi: str) -> dict:
+    """Serving over a (data, model) mesh at full width (``MODEL``, random
+    bf16 weights from a seed, B=8 ragged prompts of 2048, 128 new tokens;
+    the engine traffic at the smoke's shapes). (a) One rank in this
+    process, NCCL, mesh (data 1, model 1): the TP generator with INT8 and
+    with INT4 weights (INT8 cache) and the engine over ``int8`` and
+    ``paged``, every generated token checked against a teacher-forced
+    forward (``check_tokens``; W8A8 off, as the TP programs take none) and
+    the rows equal to this port on one device counted, launches asserted
+    by route. (b) Two ranks on the one card (NCCL refuses two ranks on one
+    device: gloo with CUDA tensors), mesh (data 1, model 2): the generator
+    (INT8) and ``engine int8``, the ranks' tokens equal, checked the same
+    way and counted against (a). Then K1
+    and K2 rows at the tp = 2 shard widths, and each rank's all-reduce a
+    layer from a trace. Returns the launches of each path."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from block_transformer_tpu_torch.parallel import sharding
+    t_phase = time.perf_counter()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    launches = {}
+    dist.init_process_group(TP_BACKEND[CARD], store=dist.FileStore(
+        os.path.join(TP_DIR, "store_a"), 1), rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(1, 1, device=CARD)
+        ar = {}
+        for quantize in ("int8", "int4"):
+            cfg, params = pg.main_path_model(seed=0, quantize=quantize)
+            ids, att, bam = pg.ragged_prompts(cfg, BATCH, PROMPT_TOKENS,
+                                              seed=0)
+            N = ids.shape[1]
+            max_blocks = N + NEW_TOKENS // cfg.block_length
+            with linear_ops.w8a8_disabled():
+                ref = gen.generate_blocks(params, cfg, ids, att, bam,
+                                          max_blocks=max_blocks,
+                                          kv_cache="int8", device=CARD)
+            path = ("tp generation" if quantize == "int8"
+                    else "tp generation int4")
+            reset_launches()
+            toks, nb, secs, again = tp_generate(mesh, cfg, params, ids, att,
+                                                bam, max_blocks)
+            launches[path] = read_launches(path)
+            if nb != ref.n_blocks or tuple(toks.shape) != tuple(
+                    ref.tokens.shape):
+                raise AssertionError(f"{path}: {nb} blocks, one device "
+                                     f"{ref.n_blocks}")
+            if not torch.equal(toks[:, :N].cpu(), torch.from_numpy(ids)):
+                raise AssertionError(f"{path}: prompt blocks not kept")
+            prompts, got = generation_rows(cfg, toks, ids, att, N)
+            budgets = [(max_blocks - N) * cfg.block_length] * len(got)
+            check_tokens(f"{path} (tp=1), rows equal to one device's",
+                         params, cfg, prompts, got,
+                         generation_rows(cfg, ref.tokens, ids, att, N)[1],
+                         budgets)
+            log(f"{path} mesh (data 1, model 1), NCCL: {nb - N} blocks "
+                f"generated in {secs:.3f} s")
+            if quantize == "int8":
+                # where the time of tp=1 goes against one device: the
+                # prefill and two blocks of each, traced on the host
+                ops = {"tp=1": {}, "one device": {}}
+                ar["tp=1 NCCL generation"] = allreduce_profile(
+                    lambda: again(N + 2), ops["tp=1"])
+                with linear_ops.w8a8_disabled():
+                    allreduce_profile(lambda: gen.generate_blocks(
+                        params, cfg, ids, att, bam, max_blocks=N + 2,
+                        kv_cache="int8", device=CARD), ops["one device"])
+                log(json.dumps({"host_ops_prefill_and_2_blocks": ops,
+                                "card": smi}))
+                a_rows = got
+                for kind in ("int8", "paged"):
+                    want, requests, _ = tp_engine_run(None, cfg, params,
+                                                      kind, None)
+                    path = f"tp engine {kind}"
+                    tokens, _, launches[path] = tp_engine_run(
+                        mesh, cfg, params, kind, path)
+                    check_tokens(f"{path} (tp=1), rows equal to one "
+                                 "device's", params, cfg,
+                                 engine_prompts(cfg, requests), tokens, want,
+                                 [m for _, m in requests])
+                    if kind == "int8":
+                        a_engine = tokens
+                int8_params, int8_cfg = params, cfg
+            else:
+                del params
+            del again
+    finally:
+        dist.destroy_process_group()
+    log(f"phase_tp (a) {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    outs = [os.path.join(TP_DIR, f"b_{r}.pt") for r in range(2)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp2_rank, args=(r, os.path.join(
+        TP_DIR, "store_b"), outs[r])) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+            p.join()
+        if p.exitcode != 0:
+            raise AssertionError(f"(b) rank {r} exited {p.exitcode}")
+    b = [torch.load(o, weights_only=False) for o in outs]
+    cfg, params = int8_cfg, int8_params
+    ids, att, _ = pg.ragged_prompts(cfg, BATCH, PROMPT_TOKENS, seed=0)
+    N = ids.shape[1]
+    # every rank returns every row: the ranks' tokens are one result
+    if not (torch.equal(b[0]["tokens"], b[1]["tokens"])
+            and b[0]["engine"] == b[1]["engine"]):
+        raise AssertionError("(b): the two ranks returned different tokens")
+    prompts, got = generation_rows(cfg, b[0]["tokens"], ids, att, N)
+    check_tokens("tp2 generation, rows equal to (a)'s", params, cfg, prompts,
+                 got, a_rows, [(b[0]["tokens"].shape[1] - N)
+                               * cfg.block_length] * len(got))
+    requests = pg.engine_requests(cfg, seed=0)
+    check_tokens("tp2 engine int8, rows equal to (a)'s", params, cfg,
+                 engine_prompts(cfg, requests), b[0]["engine"], a_engine,
+                 [m for _, m in requests])
+    for r, res in enumerate(b):
+        launches[f"tp2 generation rank {r}"] = res["launches"][
+            "tp2 generation"]
+        ar[f"tp=2 gloo rank {r} generation"] = res["allreduce"]
+        log(f"tp2 generation rank {r}, mesh (data 1, model 2), gloo on CUDA "
+            f"tensors: {res['n_blocks'] - N} blocks in {res['seconds']:.3f} "
+            f"s; launches {json.dumps(res['launches'])}")
+    launches["tp2 generation"] = b[0]["launches"]["tp2 generation"]
+    log(f"phase_tp (b) {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"tp_allreduce_per_layer": ar, "card": smi}))
+
+    # kernel rows at the tp = 2 shard widths (each rank's shapes)
+    g = torch.Generator(device=CARD).manual_seed(18)
+    bcfg = cfg.block_decoder
+    h, m, V = bcfg.hidden_size, bcfg.intermediate_size, cfg.vocab_size
+    for label, M, K, N_, layers in (
+            ("tp=2 qkv M=8", 8, h, 3 * h // 2, 12),
+            ("tp=2 attn_out M=8", 8, h // 2, h, 12),
+            ("tp=2 mlp_down M=8", 8, m // 2, h, 12),
+            ("tp=2 lm_head M=8", 8, h, V // 2, 1)):
+        k1_row(rows, g, label, M, K, N_, layers, path="tp2 generation")
+    H, D, cap, filled = bcfg.num_heads // 2, bcfg.head_dim, 640, 530
+    cache = int8_layers(g, 12, BATCH, H, cap, D)
+    q = torch.randn((BATCH, H, 1, D), generator=g, device=CARD,
+                    dtype=torch.bfloat16)
+    valid = torch.zeros((BATCH, cap), dtype=torch.int32, device=CARD)
+    for bb in range(BATCH):
+        valid[bb, 16 * bb:filled] = 1
+    valid[0] = 0
+    k2_row(rows, f"tp=2 B=8 H={H} S=1 D={D} cap={cap}", cache, q,
+           masks.block_decode_mask(filled - 1, cap, 1, valid), 100,
+           path="tp2 generation")
+    del cache, int8_params, params
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    log(f"phase_tp total {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3616,6 +4066,7 @@ def main() -> None:
     del vparams
     log(json.dumps({"device_launches_per_run": device_launches,
                     "card": smi}))
+    launches.update(phase_tp(rows, smi))
     launches.update(phase_families(smi))
     phase_train_quantize(config.get_config(MODEL))
     phase_trainer(smi)

@@ -98,18 +98,26 @@ def test_engine_paged_pages_freed(served):
     again."""
     _, _, (eng, _) = served
     assert (eng.cache.page_table == 0).all()
-    assert sorted(eng._free_pages) == list(range(1, eng.pool_pages))
+    assert [sorted(f) for f in eng._free_pages] == [
+        list(range(1, eng.pool_pages))]
     assert eng.pool_pages == 5 and eng.n_virt == 3
 
 
 def test_engine_refuses_what_it_does_not_serve(models):
-    """Mesh serving and overlapped streams are refused; the INT4 caches are
-    served (their own tests compare them with JAX)."""
-    _, tcfg, _, pt = models
+    """overlap_streams=2 without a mesh is ignored, as in JAX: the engine
+    serves JAX's tokens; a paged pool with mesh_impl="gspmd" raises, as in
+    JAX; the INT4 caches are served (their own tests compare them with
+    JAX)."""
+    cfg, tcfg, pj, pt = models
     make = torch_engine.ContinuousBatchingEngine
-    for kw in (dict(mesh=object()), dict(overlap_streams=2)):
-        with pytest.raises(NotImplementedError):
-            make(pt, tcfg, device="cpu", **kw)
+    kw = dict(n_slots=3, max_blocks=MAX_BLOCKS, kv_cache="int8",
+              sync_blocks=3, bucket_blocks=2, overlap_streams=2)
+    want = [r.generated for r in _serve(JaxEngine(pj, cfg, **kw))]
+    assert [r.generated for r in _serve(make(pt, tcfg, device="cpu",
+                                             **kw))] == want
+    with pytest.raises(ValueError, match="shard_map"):
+        make(pt, tcfg, device="cpu", kv_cache="paged", mesh=object(),
+             mesh_impl="gspmd")
     for kind in ("int4", "paged-int4"):
         eng = make(pt, tcfg, device="cpu", kv_cache=kind, page_size=4)
         assert eng.cache.k.dtype == torch.uint8

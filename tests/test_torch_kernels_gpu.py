@@ -185,6 +185,57 @@ def test_k4_matches_plain(M, Kh, N, G, L, layer, legacy, x_scale, dtype):
         assert p.splits > 1
 
 
+# each rank's linears of block_main_b4_1.2b at tp = 2
+# (parallel/tp_decode.py): qkv and MLP-up column slices, attention-out and
+# MLP-down row slices (INT4 groups of 128 rows: G = 8 and 32), the LM
+# head's vocab slice
+TP2_SHAPES = [(2048, 3072), (1024, 2048), (2048, 4096), (4096, 2048),
+              (2048, 25152)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [8, 4096])
+@pytest.mark.parametrize("K,N", TP2_SHAPES)
+def test_k14_at_tp2_shard_widths(K, N, M, bits, dtype):
+    g = _card()
+    x = ((32 / K) ** 0.5 * torch.randn((M, K), generator=g,
+                                       device="cuda")).to(dtype)
+    if bits == 8:
+        w, scale = quant.quantize_int8(
+            torch.randn((2, K, N), generator=g, device="cuda"))
+        fn, plain, route = (k1.int8_matmul_stacked,
+                            k1.int8_matmul_stacked_plain, _route(dtype, K, N))
+    else:
+        w = torch.randint(-128, 128, (2, K // 2, N), generator=g,
+                          device="cuda", dtype=torch.int8)
+        scale = 0.01 + 0.1 * torch.rand((2, K // 128, N), generator=g,
+                                        device="cuda")
+        fn, plain, route = (k1.int4_matmul_stacked,
+                            k1.int4_matmul_stacked_plain,
+                            _route(dtype, K // 2, N, 128))
+    assert route == ("tc" if dtype == torch.bfloat16 else "tf32x2")
+    got = _routed(fn, route, lambda: fn(x, w, scale, 1))
+    _close(got, plain(x, w, scale, 1), dtype, route)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_int8_at_tp2_heads(dtype):
+    """K2 INT8 on a rank's 8 of the 16 heads of the block decoder's cache
+    (capacity 640), at the decode step."""
+    g = _card()
+    B, H, D, cap, length = 8, 8, 128, 640, 530
+    kq, ks, vq, vs = _int8_cache(g, 2, B, H, cap, D)
+    q = torch.randn((B, H, 1, D), generator=g, device="cuda").to(dtype)
+    valid = torch.ones((B, cap), dtype=torch.int32, device="cuda")
+    valid[:, length + 1:] = 0
+    valid[1, :16] = 0
+    mask = masks.decode_mask(length, cap, 1, valid, device="cuda")
+    got = k2.decode_attention_int8_stacked(q, kq, ks, vq, vs, 1, mask)
+    _close(got, k2.decode_attention_int8_stacked_plain(q, kq, ks, vq, vs, 1,
+                                                       mask), dtype)
+
+
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("M", [8, 16])
 def test_k14_tf32x2_splits_k_at_8192(bits, M):

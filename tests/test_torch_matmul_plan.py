@@ -45,6 +45,45 @@ MAIN = [(M, K if bits == 8 else K // 2, N, bits)
         for M in MAIN_M for K, N in LINEARS for bits in (8, 4)]
 
 
+def _tp2_linears():
+    """(K, N) of each rank's linears at tp = 2 (parallel/tp_decode.py):
+    QKV and MLP-up column slices, attention-out and MLP-down row slices,
+    the LM head's vocab slice."""
+    cfg = config.get_config("block_main_b4_1.2b")
+    shapes = set()
+    for ncfg in (cfg.block_decoder, cfg.token_decoder.neox):
+        h, m = ncfg.hidden_size, ncfg.intermediate_size
+        shapes |= {(h, 3 * h // 2), (h // 2, h), (h, m // 2), (m // 2, h),
+                   (h, cfg.vocab_size // 2)}
+    return sorted(shapes)
+
+
+TP2_LINEARS = _tp2_linears()
+# decode M = 8, the prefix step's 32 and the fresh prefill's 4096 (no W8A8
+# inside the TP programs: K1 takes the prefill's linears too)
+TP2 = [(M, K if bits == 8 else K // 2, N, bits)
+       for M in (8, 32, 4096) for K, N in TP2_LINEARS for bits in (8, 4)]
+
+
+def test_tp2_shard_widths():
+    """8 of 16 heads: qkv N = 3072, attention-out K = 1024, MLP-down K =
+    4096, LM head N = 25,152; INT4 groups of 128 rows: G = 8 and 32 on the
+    row-parallel slices."""
+    for shape in ((2048, 3072), (1024, 2048), (4096, 2048), (2048, 25152)):
+        assert shape in TP2_LINEARS
+    assert (1024 // 128, 4096 // 128) == (8, 32)
+
+
+@pytest.mark.parametrize("M,K,N,bits", TP2)
+def test_tp2_shard_widths_take_the_tensor_cores(M, K, N, bits):
+    """Every shard width is in the tensor cores' envelope: bf16 x by "tc",
+    float32 x by "tf32x2" (K4 with its groups of 128 rows)."""
+    group = 128 if bits == 4 else 0
+    assert k1.plan(M, K, N, torch.bfloat16, SMS, group=group).route == "tc"
+    assert k1.plan(M, K, N, torch.float32, SMS,
+                   group=group).route == "tf32x2"
+
+
 def test_main_path_shapes_are_the_published_widths():
     assert (2048, 6144) in LINEARS and (8192, 2048) in LINEARS
     assert (2048, 50304) in LINEARS and (2048, 4096) in LINEARS

@@ -24,15 +24,13 @@ MOVED = {f"ops/{n}.py": f"kernels/{n}.py" for n in (
     "dequant_matmul", "decode_attention", "flash_attention",
     "paged_attention")}
 
-# ROADMAP Queue 1 item 5 (parallelism), not ported yet: the mesh modules,
-# and what only the JAX mesh code calls or plugs into
-UNPORTED_MODULES = {"parallel/__init__.py", "parallel/pipeline.py",
-                    "parallel/sharding.py", "parallel/tp_decode.py"}
+# ROADMAP Queue 1 item 5 (parallelism): its serving half is ported
+# (parallel/sharding.py, parallel/tp_decode.py, the engine's mesh); its
+# training half is not yet: the pipeline module, and what only the JAX
+# training mesh code calls or plugs into
+UNPORTED_MODULES = {"parallel/pipeline.py"}
 QUEUE1_ITEM5_NAMES = {
-    "models/neox.py": {"init_layer_params", "neox_layer",
-                       "quantize_kv"},          # tp_decode's cache write
-    "ops/linear.py": {"pallas_disabled", "pallas_allowed"},
-    "ops/flash_attention.py": {"supported"},    # the pallas_allowed gate
+    "models/neox.py": {"init_layer_params", "neox_layer"},
     "train/train_step.py": {"make_sharded_train_step",
                             "make_sharded_grad_and_apply", "shard_state"},
 }
@@ -40,9 +38,6 @@ QUEUE1_ITEM5_PARAMS = {
     "block_transformer_forward": {"block_decoder_fn",
                                   "token_decoder_stack_fn"},
     "token_decoder_train_forward": {"stack_fn"},
-    "apply_linear": {"use_pallas"},
-    "attention": {"impl"},
-    "fresh_attn_tiles": {"attn_impl"},
 }
 # orbax's abstract state tree: the port restores into a tree of tensors
 # (``restore_checkpoint(..., like)``) and needs no abstract form

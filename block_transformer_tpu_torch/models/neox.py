@@ -63,6 +63,32 @@ from block_transformer_tpu_torch.ops.quant import (dequantize_kv, kv_bits,
 # Parameter init
 # ---------------------------------------------------------------------------
 
+def init_layer_params(gen: torch.Generator, cfg: NeoXConfig,
+                      dtype=torch.float32, device="cuda"):
+    """One transformer layer's parameters (unstacked): dense weights
+    N(0, initializer_range) drawn from ``gen`` (QKV, out, MLP up, down),
+    layer norms one and zero, biases zero."""
+    h, m = cfg.hidden_size, cfg.intermediate_size
+
+    def dense(*shape):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (cfg.initializer_range * w).to(dtype)
+
+    def ln():
+        return {"scale": torch.ones(h, dtype=dtype, device=device),
+                "bias": torch.zeros(h, dtype=dtype, device=device)}
+
+    def linear(k, n):
+        return {"kernel": dense(k, n),
+                "bias": torch.zeros(n, dtype=dtype, device=device)}
+
+    qkv, out = linear(h, 3 * h), linear(h, h)
+    up, down = linear(h, m), linear(m, h)
+    return {"ln1": ln(), "ln2": ln(), "attn": {"qkv": qkv, "out": out},
+            "mlp": {"up": up, "down": down}}
+
+
 def init_neox_params(gen: torch.Generator, cfg: NeoXConfig, *,
                      with_embed_in: bool = True, with_lm_head: bool = True,
                      dtype=torch.float32, device="cuda"):
@@ -378,6 +404,29 @@ def layer_finish(p, x, attn_heads, *, cfg: NeoXConfig):
         return x + attn_out + mlp(x)
     x = x + attn_out
     return x + mlp(x)
+
+
+def neox_layer(p, x, *, cfg: NeoXConfig, mask, cos, sin, positions,
+               cache_kv=None, cache_length=None):
+    """One transformer layer on x [B, S, h]: uncached, or with explicit
+    per-layer cache buffers ``cache_kv = (k, v)`` [B, H, cap, D] into which
+    the new K/V go at ``cache_length`` (new buffers are returned; the given
+    ones are left as they are, as JAX's functional update). The pipeline's
+    stage body (``parallel/pipeline.py``). Returns (x out, (k, v) or
+    None)."""
+    q, k, v = layer_qkv(p, x, cfg=cfg, cos=cos, sin=sin, positions=positions)
+    new_kv = None
+    if cache_kv is not None:
+        sl = slice(cache_length, cache_length + k.shape[2])
+        new_kv = []
+        for buf, val in zip(cache_kv, (k, v)):
+            buf = buf.clone()
+            buf[:, :, sl] = val.to(buf.dtype)
+            new_kv.append(buf)
+        new_kv = tuple(new_kv)
+        k, v = new_kv[0].to(q.dtype), new_kv[1].to(q.dtype)
+    return layer_finish(p, x, attention(q, k, v, mask, cfg.attn_impl),
+                        cfg=cfg), new_kv
 
 
 def layer_view(layers, i: int):

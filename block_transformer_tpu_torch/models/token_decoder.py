@@ -89,11 +89,14 @@ def expand_block_embeddings(params, cfg: TokenDecoderConfig, block_embeddings,
 def token_decoder_train_forward(params, cfg: TokenDecoderConfig, input_ids,
                                 attention_mask, block_embeddings,
                                 expansion_ratio: int, block_length: int,
-                                remat: bool = False):
+                                remat: bool = False, stack_fn=None):
     """Teacher-forced forward over one block per row. input_ids [Bb, L+1] =
     [BOS, x1..xL]; attention_mask [Bb, L+1]; block_embeddings [Bb, n_emb,
     projection_hidden]. Returns float32 logits [Bb, L, vocab] for x1..xL;
-    ``remat`` checkpoints each layer of a GPT-NeoX stack."""
+    ``remat`` checkpoints each layer of a GPT-NeoX stack. ``stack_fn(params,
+    x, mask, positions)`` replaces the GPT-NeoX stack (final-normed hidden
+    states out): the mesh training programs and the pipeline
+    (``parallel/pipeline.py``) plug theirs in there."""
     L = input_ids.shape[1] - 1
     if L != block_length:
         raise ValueError(f"{L} tokens per block, expected {block_length}")
@@ -116,11 +119,16 @@ def token_decoder_train_forward(params, cfg: TokenDecoderConfig, input_ids,
         return neox.embed_tokens(params, ids)
 
     def stack(x, mask):
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        if stack_fn is not None:
+            if gpt_neo:
+                raise NotImplementedError("a substituted token-decoder "
+                                          "stack runs the GPT-NeoX family")
+            return stack_fn(params, x, mask, positions)
         if gpt_neo:
             return gn.gpt_neo_token_decoder_forward(
                 params["gpt_neo"], _gpt_neo_cfg(cfg), x, mask)
-        positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                 device=x.device)
         hidden, _ = neox.neox_stack(params, x, cfg=cfg.neox, mask=mask,
                                     positions=positions, remat=remat)
         return hidden

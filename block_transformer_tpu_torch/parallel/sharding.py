@@ -10,6 +10,11 @@ its own shard of each leaf (``shard_params``): a contiguous copy of the
 rank's slice, as the hand kernels take only contiguous, 16-byte-aligned
 operands.
 
+The ambient mesh (``set_mesh``, JAX's ``jax.sharding.set_mesh``) tells the
+model code it runs as one rank's program of a training mesh: the loss
+sums, the vocab-sharded LM head and the sequence axis read it
+(``parallel/collectives.py``).
+
 The TP layout is the Megatron split as partition specs: column-parallel
 QKV / MLP-up (output dim on ``model``), row-parallel out / down (input dim
 on ``model``), vocab-sharded LM head; embedding tables replicated; the
@@ -21,6 +26,8 @@ dimension split over their product, the first axis outermost) or None
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import numpy as np
@@ -43,6 +50,9 @@ class P(tuple):
     def __repr__(self):
         return f"P{tuple.__repr__(self)}"
 
+    def __getnewargs__(self):          # pickled as P(*parts)
+        return tuple(self)
+
 
 def make_mesh(n_data: Optional[int] = None, n_model: Optional[int] = None,
               devices=None, n_dcn: Optional[int] = None,
@@ -52,14 +62,19 @@ def make_mesh(n_data: Optional[int] = None, n_model: Optional[int] = None,
     (``mesh_shape``). ``device`` is the device type each rank runs on
     ("cuda" or "cpu"). Without a process group, one is made from the
     environment (``env://``): NCCL on "cuda", gloo on "cpu"."""
-    device = torch.device(device).type
-    if not dist.is_initialized():
-        dist.init_process_group("nccl" if device == "cuda" else "gloo")
-    devices = (list(range(dist.get_world_size())) if devices is None
-               else list(devices))
+    devices = _ranks(devices, device)
     shape, names = mesh_shape(len(devices), n_data, n_model, n_dcn, n_seq)
-    ranks = torch.tensor(devices, dtype=torch.int64).reshape(shape)
-    return DeviceMesh(device, ranks, mesh_dim_names=names)
+    return named_mesh(shape, names, devices, device=device)
+
+
+def _ranks(devices, device) -> list:
+    """``devices`` as a list of ranks (all of the default group's by
+    default), the group made from the environment if there is none."""
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if torch.device(device).type == "cuda" else "gloo")
+    return (list(range(dist.get_world_size())) if devices is None
+            else list(devices))
 
 
 def mesh_shape(n: int, n_data: Optional[int] = None,
@@ -107,11 +122,77 @@ def data_axes(mesh: DeviceMesh) -> tuple:
 
 
 def seq_constraint(x: torch.Tensor, seq_dim: int = 1) -> torch.Tensor:
-    """JAX's constraint of ``x``'s sequence dimension onto the ``seq`` axis
-    belongs to sequence-parallel training, which the port does not have
-    yet: here it returns ``x``."""
+    """JAX constrains ``x``'s sequence dimension onto the ambient mesh's
+    ``seq`` axis (and dim 0 onto the data axes), so that GSPMD keeps the
+    block decoder's activations sharded between attention layers. A rank's
+    program here holds every activation as its own block already: the
+    batch arrives split over the data axes and, on a mesh with a ``seq``
+    axis, its block axis split into one contiguous chunk a ``seq`` rank
+    (``batch_pspec``). So the constraint holds by construction and ``x``
+    comes back as it is; what keeps the chunks apart is the block
+    decoder's attention, which all-gathers K/V over ``seq`` (its backward a
+    reduce-scatter), and the one-block halo of the shift to the token
+    decoder (``train/train_step.py``, ``models/block_transformer.py``).
+    Off an ambient mesh with such an axis it is JAX's no-op."""
     del seq_dim
     return x
+
+
+_MESH: contextvars.ContextVar = contextvars.ContextVar("bt_mesh",
+                                                      default=None)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: DeviceMesh):
+    """Run the code inside as this rank's program of a training mesh (JAX's
+    ``jax.sharding.set_mesh``): ``current_mesh()`` returns ``mesh``."""
+    tok = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(tok)
+
+
+def current_mesh() -> Optional[DeviceMesh]:
+    """The mesh of the innermost ``set_mesh``, or None."""
+    return _MESH.get()
+
+
+def named_mesh(shape: tuple, names: tuple, devices=None, *,
+               device="cuda") -> DeviceMesh:
+    """A mesh of any axis names over ``devices`` (ranks of the default
+    process group; all of them by default), as JAX's ``Mesh(devices.
+    reshape(shape), names)``: e.g. ``(data, pipe)`` for the pipeline."""
+    devices = _ranks(devices, device)
+    if int(np.prod(shape)) != len(devices) or len(shape) != len(names):
+        raise ValueError(f"mesh {dict(zip(names, shape))} does not hold "
+                         f"{len(devices)} devices")
+    ranks = torch.tensor(devices, dtype=torch.int64).reshape(tuple(shape))
+    return DeviceMesh(torch.device(device).type, ranks,
+                      mesh_dim_names=tuple(names))
+
+
+def axes_group(mesh: DeviceMesh, axes: tuple):
+    """The process group of the ranks that share this rank's coordinates on
+    every axis but ``axes``, ordered by their index over ``axes`` flattened
+    (first axis outermost, as ``shard_index``); None when ``axes`` hold
+    one rank. More than one axis makes a group for every such set of ranks
+    (kept on the mesh), a collective call: every rank makes the same calls
+    in the same order."""
+    axes = tuple(axes)
+    if shard_index(mesh, axes)[1] == 1:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    groups = mesh.__dict__.setdefault("_flattened_groups", {})
+    if axes not in groups:
+        dims = [mesh.mesh_dim_names.index(a) for a in axes]
+        rest = [d for d in range(mesh.ndim) if d not in dims]
+        t = mesh.mesh.permute(*rest, *dims).reshape(
+            -1, int(np.prod([mesh.shape[d] for d in dims])))
+        groups[axes], _ = dist.new_subgroups_by_enumeration(
+            [[int(r) for r in row] for row in t])
+    return groups[axes]
 
 
 # ---------------------------------------------------------------------------

@@ -66,6 +66,7 @@ from block_transformer_tpu_torch.models import neox
 from block_transformer_tpu_torch.ops import linear as linear_ops
 from block_transformer_tpu_torch.ops import quant
 from block_transformer_tpu_torch.ops.linear import StackedLinear
+from block_transformer_tpu_torch.parallel import collectives
 from block_transformer_tpu_torch.parallel import sharding
 from block_transformer_tpu_torch.parallel.sharding import P
 
@@ -286,16 +287,21 @@ def _nobias(lin: StackedLinear) -> StackedLinear:
 def _tp_finish(p, h, attn, *, cfg: NeoXConfig, group):
     """The layer's row-parallel half: attention-out and MLP-down partial
     sums, ONE all-reduce of their sum, then the replicated biases and the
-    residual."""
+    residual. Differentiable (the training stacks of ``train/
+    train_step.py``): the MLP's input enters its column-parallel half
+    through ``collectives.copy_to`` and the sum leaves through
+    ``reduce_from``; under ``torch.no_grad()`` these are the identity and
+    one in-place all-reduce."""
     B, S = h.shape[:2]
     out, down = p["attn"]["out"], p["mlp"]["down"]
     a_part = linear_ops.apply_linear(attn.transpose(1, 2).reshape(B, S, -1),
                                      _nobias(out))
-    mlp_in = neox.layer_norm(h, p["ln2"], cfg.layer_norm_eps)
+    mlp_in = collectives.copy_to(
+        neox.layer_norm(h, p["ln2"], cfg.layer_norm_eps), group)
     u = linear_ops.apply_linear(mlp_in, p["mlp"]["up"])     # bias is sharded
     m_part = linear_ops.apply_linear(F.gelu(u, approximate="none"),
                                      _nobias(down))
-    tot = _all_reduce(a_part + m_part, (group,))
+    tot = collectives.reduce_from(a_part + m_part, (group,))
     for lin in (out, down):
         if "bias" in lin.node:
             tot = tot + lin.node["bias"][lin.layer].to(tot.dtype)

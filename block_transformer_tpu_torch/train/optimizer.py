@@ -139,35 +139,49 @@ class AdamW(NamedTuple):
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params):
         items = list(tree_items(grads))
-        g_leaves = [g for _, g in items]
         mask = _decay_mask(grads)
-        norm = global_norm(g_leaves)
-        keep = norm < self.grad_clip
-        count = state.count + 1
-        dev = norm.device
-        # the step's float32 scalars, made on the host in one copy: the
-        # bias corrections (1 - b^t) and -lr at the count before the step
-        b = _f32([self.b1, self.b2])
-        bc = 1 - b ** count
-        scalars = torch.cat([bc, _f32([-self.schedule(state.count)])]).to(dev)
-        bc1, bc2, neg_lr = scalars[0], scalars[1], scalars[2]
+        norm = global_norm([g for _, g in items])
+        step = self.step_scalars(state.count, norm)
         mu = dict(tree_items(state.mu))
         nu = dict(tree_items(state.nu))
         ps = dict(tree_items(params))
         updates = {}
         for path, g in items:
-            g = torch.where(keep, g, g / norm * self.grad_clip)
-            # b m in m's dtype, the sum in g's: optax's order
-            # (popped, so each old moment is freed as its leaf is done)
-            m = (g * (1 - self.b1)) + (mu.pop(path) * self.b1)
-            v = (g * g * (1 - self.b2)) + (nu.pop(path) * self.b2)
+            # popped, so each old moment is freed as its leaf is done
+            m, v, u = self.leaf_update(step, g, mu.pop(path), nu.pop(path),
+                                       ps[path], mask[path])
             _set_leaf(state.mu, path, m)
             _set_leaf(state.nu, path, v)
-            u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            if mask[path]:
-                u = u + ps[path] * self.weight_decay
-            updates[path] = u * neg_lr
-        return tree_unflatten(updates), AdamWState(count, state.mu, state.nu)
+            updates[path] = u
+        return tree_unflatten(updates), AdamWState(state.count + 1, state.mu,
+                                                   state.nu)
+
+    def step_scalars(self, count: int, norm: torch.Tensor) -> tuple:
+        """The step's scalars at ``count`` (the count before the step) and
+        the gradients' global ``norm``: (norm, keep = norm < grad_clip, the
+        bias corrections (1 - b1^t), (1 - b2^t), -lr), the last three made
+        on the host in float32 and copied to the norm's device at once."""
+        b = _f32([self.b1, self.b2])
+        bc = 1 - b ** (count + 1)
+        scalars = torch.cat([bc, _f32([-self.schedule(count)])]).to(
+            norm.device)
+        return (norm, norm < self.grad_clip, scalars[0], scalars[1],
+                scalars[2])
+
+    def leaf_update(self, step: tuple, g, mu, nu, p, decay: bool):
+        """One leaf's (new mu, new nu, update) at ``step_scalars``: the
+        clipped gradient, then optax's moments (b m in m's dtype, the sum
+        in g's), the bias-corrected ratio, the weight decay where
+        ``decay``, times -lr. Elementwise, so a slice of a leaf updates as
+        it would inside the whole."""
+        norm, keep, bc1, bc2, neg_lr = step
+        g = torch.where(keep, g, g / norm * self.grad_clip)
+        m = (g * (1 - self.b1)) + (mu * self.b1)
+        v = (g * g * (1 - self.b2)) + (nu * self.b2)
+        u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+        if decay:
+            u = u + p * self.weight_decay
+        return m, v, u * neg_lr
 
 
 def _set_leaf(tree: dict, path: tuple, leaf) -> None:

@@ -1,8 +1,10 @@
 """The training loop (port of ``block_transformer_tpu/train/trainer.py``,
 the analogue of the reference's HF Trainer + DeepSpeed stack,
-pretrain_block_transformer.py + util/callback.py), on one device.
+pretrain_block_transformer.py + util/callback.py), on one device or over a
+(data, model) mesh.
 
-One host loop drives the train step (``train_step.make_grad_and_apply``).
+One host loop drives the train step (``train_step.make_grad_and_apply``,
+or ``make_sharded_grad_and_apply`` over a mesh).
 What it carries over from the reference, as the JAX package does:
 
 - gradient accumulation derived from ``total_batch_size``
@@ -27,10 +29,19 @@ with the JAX package's keys: ``step``, ``lr`` (the schedule at ``step +
 ``loss_by_position`` (the mean since the last record) and the mean over
 the step's micro-batches of each loss.
 
-The JAX trainer runs its step under a (data, model) mesh; this one runs on
-one device and takes ``n_data`` and ``n_model`` of None or 1 only. Under
-autograd the model's attention and float linears stay on their plain
-PyTorch paths, as the JAX trainer's do under its mesh, where Pallas is off
+Inside a ``torch.distributed`` process group, the trainer runs as one rank
+of ``sharding.make_mesh(n_data, n_model)`` over the group's ranks (JAX's
+defaults when they are None), as the JAX trainer does over its devices:
+every rank builds the same initial state from ``tcfg.seed`` and keeps its
+shards (``train_step.shard_state``: ZeRO-placed moments), every rank
+draws the same micro-batches and gives each to the sharded step, which
+takes the rank's rows. Rank 0 alone writes ``metrics.jsonl`` and the
+checkpoints; a checkpoint holds the full (gathered) state in JAX's layout,
+the same file a one-device run writes, and a mesh run restores it (so
+does a one-device run). Outside a process group it runs on one device,
+and ``n_data`` / ``n_model`` other than None or 1 raise. Under autograd the
+model's attention and float linears stay on their plain PyTorch paths, as
+the JAX trainer's do under its mesh, where Pallas is off
 (``ops/linear.py:pallas_allowed``): training launches no hand kernel.
 """
 
@@ -44,9 +55,11 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from block_transformer_tpu_torch.config import BlockTransformerConfig
 from block_transformer_tpu_torch.data import packing
+from block_transformer_tpu_torch.parallel import sharding
 from block_transformer_tpu_torch.train import optimizer as opt_mod
 from block_transformer_tpu_torch.train import train_step as ts
 from block_transformer_tpu_torch.utils import checkpoint as ckpt
@@ -80,12 +93,85 @@ class TrainerConfig:
     block_split_kwargs: Optional[dict] = None
 
 
-def check_single_device(tcfg: TrainerConfig) -> None:
+def trainer_mesh(tcfg: TrainerConfig, device):
+    """The trainer's mesh: ``make_mesh(n_data, n_model)`` over the ranks of
+    the process group, or None outside one (one device), where a mesh of
+    more than one rank cannot be had."""
+    if dist.is_initialized():
+        return sharding.make_mesh(tcfg.n_data, tcfg.n_model, device=device)
     if tcfg.n_data not in (None, 1) or tcfg.n_model not in (None, 1):
-        raise NotImplementedError(
-            f"n_data={tcfg.n_data}, n_model={tcfg.n_model}: data and tensor "
-            "parallelism are not ported (ROADMAP.md, Queue 1 item 5); the "
-            "trainer runs on one device")
+        raise RuntimeError(
+            f"n_data={tcfg.n_data}, n_model={tcfg.n_model} ask for a mesh: "
+            "start one process a rank and join them in a process group "
+            "(torch.distributed.init_process_group) before the trainer")
+    return None
+
+
+class MeshState:
+    """A trainer's state over a mesh: the rank's shards under ``spec``
+    (``train_step._state_spec``); ``full(state)`` gathers it whole and
+    ``shard(full)`` cuts a full state into this rank's shards, both
+    collectives. On one device (``mesh`` None) both are the identity."""
+
+    def __init__(self, mesh, spec):
+        self.mesh, self.spec = mesh, spec
+
+    def full(self, state: ts.TrainState) -> ts.TrainState:
+        if self.mesh is None:
+            return state
+        return ts.gather_state(self.mesh, state, self.spec)
+
+    def shard(self, state: ts.TrainState) -> ts.TrainState:
+        if self.mesh is None:
+            return state
+        return ts.shard_with(self.mesh, state, self.spec)
+
+    @property
+    def rank0(self) -> bool:
+        return self.mesh is None or dist.get_rank() == 0
+
+    def save(self, out_dir: str, step: int, state: ts.TrainState) -> None:
+        """The full state saved by rank 0, gathered leaf by leaf into its
+        host memory (``gather_state(to_host=True)``: no device holds the
+        whole state); the ranks wait for it."""
+        if self.mesh is None:
+            ckpt.save_checkpoint(out_dir, step, state)
+            return
+        full = ts.gather_state(self.mesh, state, self.spec, to_host=True)
+        if full is not None:
+            ckpt.save_checkpoint(out_dir, step, full)
+        del full
+        dist.barrier()
+
+    def restore(self, out_dir: str, step: int,
+                state: ts.TrainState) -> ts.TrainState:
+        """The full state saved at ``step``, as this rank's shards: the file
+        mapped into host memory (shapes checked against the full state's),
+        each rank's blocks cut from it and copied to its device."""
+        if self.mesh is None:
+            return ckpt.restore_checkpoint(out_dir, step, state)
+        like = ts.empty_full_state(self.mesh, state, self.spec)
+        return self.shard(ckpt.restore_checkpoint(out_dir, step, like))
+
+
+def make_train_fns(mesh, model_cfg, tcfg: TrainerConfig, tx, state,
+                   loss_fn=None, keys=ts.BATCH_KEYS):
+    """(grad_fn, apply_fn, zeros_fn, MeshState, the rank's state) of a
+    trainer from the full initial ``state``: ``make_grad_and_apply`` on
+    one device, ``make_sharded_grad_and_apply`` over ``mesh``
+    (``train_step.grad_and_apply_on`` with ``loss_fn``, the rank's own
+    loss over the batch fields ``keys``, when given)."""
+    if mesh is None:
+        fns = ts.make_grad_and_apply(
+            loss_fn or ts.make_loss_fn(model_cfg, tcfg.remat), tx)
+        return (*fns, MeshState(None, None), state)
+    spec = ts._state_spec(mesh, state.params)
+    if loss_fn is None:
+        fns = ts.make_sharded_grad_and_apply(mesh, model_cfg, tx,
+                                             state.params, remat=tcfg.remat)
+    else:
+        fns = ts.grad_and_apply_on(mesh, tx, spec, loss_fn, keys=keys)
+    return (*fns, MeshState(mesh, spec), ts.shard_with(mesh, state, spec))
 
 
 def param_dtype(tcfg: TrainerConfig) -> torch.dtype:
@@ -113,16 +199,20 @@ def append_record(path: str, record: dict) -> None:
 class Trainer:
     """``Trainer(model_cfg, tcfg, dataset).train(resume=False)``: random
     parameters from ``tcfg.seed`` on ``device`` (the card unless the caller
-    asks for the CPU); ``trainer.state`` may be replaced before ``train``
-    (uptraining, or a state taken from elsewhere). ``checkpoint_log``
-    lists each checkpoint written or read, ``{"op": "save" | "restore",
-    "step", "s"}``, with its host seconds."""
+    asks for the CPU; over a mesh, the rank's current card); ``trainer.
+    state`` may be replaced before ``train`` (uptraining, or a state taken
+    from elsewhere; over a mesh, the rank's shards: ``mesh_state.shard``
+    of a full state). ``checkpoint_log`` lists each checkpoint written or
+    read, ``{"op": "save" | "restore", "step", "s"}``, with its host
+    seconds."""
 
     def __init__(self, model_cfg: BlockTransformerConfig, tcfg: TrainerConfig,
                  dataset: packing.PackedDataset,
                  eval_hook: Optional[Callable[[int, dict], dict]] = None,
                  device="cuda"):
-        check_single_device(tcfg)
+        self.mesh = trainer_mesh(tcfg, device)
+        if self.mesh is not None:
+            device = sharding.mesh_device(self.mesh)
         self.model_cfg = model_cfg
         self.tcfg = tcfg
         self.dataset = dataset
@@ -133,11 +223,11 @@ class Trainer:
         self.checkpoint_log = []
 
         self.tx, self.schedule = make_optimizer(tcfg)
-        self.state = ts.create_train_state(tcfg.seed, model_cfg, self.tx,
-                                           dtype=param_dtype(tcfg),
-                                           device=device)
-        self.grad_fn, self.apply_fn, self.zeros_fn = ts.make_grad_and_apply(
-            ts.make_loss_fn(model_cfg, tcfg.remat), self.tx)
+        (self.grad_fn, self.apply_fn, self.zeros_fn, self.mesh_state,
+         self.state) = make_train_fns(
+            self.mesh, model_cfg, tcfg, self.tx, ts.create_train_state(
+                tcfg.seed, model_cfg, self.tx, dtype=param_dtype(tcfg),
+                device=device))
 
         self.micro_batch = tcfg.micro_batch_size or tcfg.total_batch_size
         if tcfg.total_batch_size % self.micro_batch:
@@ -187,7 +277,7 @@ class Trainer:
             latest = ckpt.find_latest_checkpoint(tcfg.output_dir)
             if latest is not None:
                 t0 = time.perf_counter()
-                self.state = ckpt.restore_checkpoint(tcfg.output_dir, latest,
+                self.state = self.mesh_state.restore(tcfg.output_dir, latest,
                                                      self.state)
                 synchronize(self.device)
                 self.checkpoint_log.append({"op": "restore", "step": latest,
@@ -205,9 +295,11 @@ class Trainer:
                 idxs = (np.arange(cursor, cursor + self.micro_batch)
                         % len(self.dataset))
                 cursor += self.micro_batch
-                batch = packing.to_device(packing.make_train_batch(
+                batch = packing.make_train_batch(
                     self.dataset, idxs, self.model_cfg.block_length,
-                    distribution=self._distribution), self.device)
+                    distribution=self._distribution)
+                if self.mesh is None:     # over a mesh, the step cuts it
+                    batch = packing.to_device(batch, self.device)
                 grads, metrics = self.grad_fn(self.state.params, batch, grads)
                 step_metrics.append(metrics)
             self.state, grad_norm = self.apply_fn(self.state, grads,
@@ -222,25 +314,29 @@ class Trainer:
             self._lbp_count += 1
 
             if (step + 1) % tcfg.logging_steps == 0 or step == stop - 1:
-                mean = {k: float(np.mean([float(m[k]) for m in step_metrics]))
-                        for k in step_metrics[0] if k != "loss_by_position"}
-                append_record(self._metrics_path, {
-                    "step": step + 1,
-                    "lr": float(self.schedule(step + 1)),
-                    "grad_norm": float(grad_norm),
-                    "wall_time_s": dt,
-                    "tokens_seen": cursor * tcfg.max_length,
-                    "loss_by_position":
-                        (self._lbp_sum / self._lbp_count).tolist(),
-                    **mean})
+                if self.mesh_state.rank0:
+                    mean = {k: float(np.mean([float(m[k])
+                                              for m in step_metrics]))
+                            for k in step_metrics[0]
+                            if k != "loss_by_position"}
+                    append_record(self._metrics_path, {
+                        "step": step + 1,
+                        "lr": float(self.schedule(step + 1)),
+                        "grad_norm": float(grad_norm),
+                        "wall_time_s": dt,
+                        "tokens_seen": cursor * tcfg.max_length,
+                        "loss_by_position":
+                            (self._lbp_sum / self._lbp_count).tolist(),
+                        **mean})
                 self._lbp_sum, self._lbp_count = None, 0
 
             if (step + 1) % tcfg.save_steps == 0 or step == stop - 1:
                 t0 = time.perf_counter()
-                ckpt.save_checkpoint(tcfg.output_dir, step + 1, self.state)
+                self.mesh_state.save(tcfg.output_dir, step + 1, self.state)
                 self.checkpoint_log.append({"op": "save", "step": step + 1,
                                             "s": time.perf_counter() - t0})
 
             if self.eval_hook is not None:
-                self.eval_hook(step + 1, {"params": self.state.params})
+                self.eval_hook(step + 1, {
+                    "params": self.mesh_state.full(self.state).params})
         return self.state

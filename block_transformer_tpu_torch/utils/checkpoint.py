@@ -47,8 +47,12 @@ def save_checkpoint(base_dir: str, step: int, state: ts.TrainState) -> str:
 
 
 def _load(base_dir: str, step: int, device) -> dict:
+    """The saved blob on ``device``; on the CPU the file is mapped, not
+    read (private pages: writes to the tensors stay in memory), so a rank
+    that cuts its shards from it reads only their pages."""
     return torch.load(os.path.join(_ckpt_dir(base_dir, step), _FILE),
-                      map_location=device, weights_only=True)
+                      map_location=device, weights_only=True,
+                      mmap=torch.device(device).type == "cpu")
 
 
 def _device(tree):

@@ -193,6 +193,25 @@ one process (and, for step 12, two more on the same card) it:
    each rank's all-reduces (count, mean host and device us) from a trace
    of two more blocks.
 
+13. trains over a mesh (``phase_tp_train``, after step 12) at full width,
+   bf16 parameters from seed 0, two steps on one batch of 4 x 2048
+   tokens, remat: (a) one rank in this process over NCCL, mesh (data 1,
+   model 1), ``make_sharded_grad_and_apply`` against
+   ``make_grad_and_apply`` on the same state and batches (loss, grad norm
+   and the state equal bit for bit after each step); (b) two processes it
+   spawns on the one card over gloo with CUDA tensors: gloo's all-gather
+   (bf16, float32) and its all-reduce rate on 1 and 2 GiB, then (data 2)
+   with ZeRO moments, (data 1, model 2) and the pipeline over (pipe 2)
+   with 4 micro-batches, each two steps, each step's loss and grad norm
+   within TP_TRAIN_RTOL of (a)'s (step 2 reads the sharded update), the
+   second step's collectives from a host trace, the data ranks'
+   parameters equal bit for bit after each step and each rank holding
+   half of every ZeRO-split moment; (c) the ``Trainer`` over (data 2) on
+   the two ranks at one layer a stack, whose step-2 checkpoint restores
+   into the one-device ``Trainer`` bit for bit (against the state the
+   other rank gathered) and trains a third step there. No hand kernel
+   launches.
+
 Every timed full-width run of steps 5-9 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
 other one (the baseline: its 96 prefill linears at M = 16384 by W8A8),
@@ -2557,7 +2576,9 @@ SYNTHETIC_TOKENS = 200000   # the synthetic corpus: ~1000 random documents
 RESUME_RTOL = 1e-3      # the resumed run's step-3 loss against the
                         # uninterrupted run's (bf16, the same parameters)
 TRAINER_CPU_RTOL = 1e-4  # tiny trainer records, card against CPU, float32
-TRAINER_DISK_BYTES = 30e9  # (b)'s checkpoints 2 and 3 of block_main_b4_1.2b
+TRAINER_DISK_BYTES = 30e9  # (a)'s 14.5 GB checkpoint, (b)'s two
+RESUME_LAYERS = 4       # (b)'s depth a stack (full width), cut to fit the
+                        # script's time
 
 
 def launch_counts() -> dict:
@@ -2591,6 +2612,15 @@ def checkpoint_bytes(out_dir: str, step: int) -> int:
     path = os.path.join(out_dir, f"checkpoint-{step}")
     return sum(os.path.getsize(os.path.join(path, n))
                for n in os.listdir(path))
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg`` at full width, ``layers`` a stack."""
+    cut = lambda n: dataclasses.replace(n, num_layers=layers)  # noqa: E731
+    return dataclasses.replace(
+        cfg, block_decoder=cut(cfg.block_decoder),
+        token_decoder=dataclasses.replace(
+            cfg.token_decoder, neox=cut(cfg.token_decoder.neox)))
 
 
 def phase_packer(smi: str) -> None:
@@ -2678,12 +2708,14 @@ def resumed_state_differences(got, want) -> list:
 
 
 def phase_trainer_resume(work: str, smi: str) -> None:
-    """(b) The same model through ``Trainer``: total batch 4 of micro 2
+    """(b) The same model, cut to RESUME_LAYERS a stack at full width,
+    through ``Trainer``: total batch 4 of micro 2
     (accumulation 2), ramp-up 1, 3 steps, saving at step 2; a second
     ``Trainer`` resumes from it to step 3, and its state equals the
     uninterrupted run's bit for bit (the moments too: the step-3 loss
     alone is computed before step 3's update)."""
-    cfg = config_yaml.load_block_config_yaml(config_path(BLOCK_YAML))
+    cfg = cut_depth(config_yaml.load_block_config_yaml(
+        config_path(BLOCK_YAML)), RESUME_LAYERS)
     tkw = config_yaml.load_trainer_kwargs_yaml(config_path(BLOCK_YAML))
     out = os.path.join(work, "resume")
     tkw.update(output_dir=out, total_batch_size=4, micro_batch_size=2,
@@ -2705,7 +2737,8 @@ def phase_trainer_resume(work: str, smi: str) -> None:
     finite_records(recs, "uninterrupted run")
     for r in recs:
         tokens = first._effective_accum(r["step"] - 1) * 2 * T
-        log(f"(b) {BLOCK_YAML} Trainer step {r['step']} (bf16, "
+        log(f"(b) {BLOCK_YAML} at {RESUME_LAYERS} + {RESUME_LAYERS} layers "
+            f"Trainer step {r['step']} (bf16, "
             f"{tokens // T} x {T} tokens, accumulation "
             f"{first._effective_accum(r['step'] - 1)}): {r['wall_time_s']:.3f}"
             f" s = {tokens / r['wall_time_s']:.1f} tokens/s; loss "
@@ -2719,7 +2752,7 @@ def phase_trainer_resume(work: str, smi: str) -> None:
         + ", ".join(f"step {e['step']} {e['s']:.2f} s "
                     f"({nbytes / e['s'] / 1e9:.2f} GB/s)" for e in saves)
         + f" [{smi}]")
-    # the uninterrupted step-3 state stays on the card (~14.5 GB) for the
+    # the uninterrupted step-3 state stays on the card (~6.4 GB) for the
     # exact comparison below
     want_state = first.state
     del first
@@ -2894,7 +2927,7 @@ def phase_trainer(smi: str) -> None:
         log(f"trainer phase: {free / 1e9:.1f} GB free under {work}")
         if free < TRAINER_DISK_BYTES:
             raise RuntimeError(
-                f"the trainer phase holds two 14.5 GB checkpoints at once "
+                f"the trainer phase holds up to 20 GB of checkpoints at once "
                 f"and needs {TRAINER_DISK_BYTES / 1e9:.0f} GB free under "
                 f"{work}; {free / 1e9:.1f} GB are")
         phase_packer(smi)
@@ -3989,6 +4022,473 @@ def phase_tp(rows, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase_tp_train: training over a mesh (train/train_step.py's sharded steps,
+# parallel/pipeline.py, the Trainer's mesh)
+# ---------------------------------------------------------------------------
+
+TP_TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_tp_train")
+TP_TRAIN_SEQS = 4       # rows of TRAIN_TOKENS tokens in a global batch
+# (b) against (a), relative, each step: the loss, and the grad norm (which
+# bf16 rounding moves more); a wrong update reads as a loss gap of ~6e-3
+TP_TRAIN_RTOL = {"loss": 1e-3, "grad_norm": 5e-3}
+TP_TRAIN_MICRO = 4      # the pipeline's micro-batches
+# no warmup: step 1 moves every parameter (by ~1e-3, Adam's first step),
+# so step 2's loss and grad norm read the sharded update
+TP_TRAIN_LR = dict(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+# (b)'s mesh shapes over two ranks: make_mesh's keywords or (shape, names)
+TP_TRAIN_SHAPES = {"data 2": dict(n_data=2, n_model=1),
+                   "model 2": dict(n_data=1, n_model=2),
+                   "pipe 2": ((1, 2), ("data", "pipe"))}
+TP_TRAINER_LAYERS = 1   # (c)'s depth a stack (full width)
+GLOO_RATE_GIB = (1, 2)  # float32 CUDA tensors all-reduced over gloo
+
+
+def _sync(card: str) -> None:
+    if card == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gib(card: str) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30 if card == "cuda" \
+        else 0.0
+
+
+def _reset_peak(card: str) -> None:
+    if card == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def tp_train_batches(cfg):
+    """The two steps' global batch: TP_TRAIN_SEQS rows of random tokens
+    (row 1 left-padded), seed 0, the same at both steps, so that step 2's
+    loss and grad norm read step 1's update on the batch it was made from
+    (a wrong update shows there as a loss gap of ~1e-2)."""
+    batch = train_batch(cfg, seed=0, tokens=TRAIN_TOKENS, rows=TP_TRAIN_SEQS)
+    return [batch, batch]
+
+
+def leaf_checksums(tree) -> dict:
+    """{path: (dtype, shape, sum, weighted sum)} of every leaf's bits (an
+    integer view), on its device: equal trees give equal checksums."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for path, t in opt.tree_items(tree):
+        v = t.contiguous().view(ints[t.element_size()]).reshape(-1).long()
+        w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+        out[path] = (str(t.dtype), tuple(t.shape), int(v.sum()),
+                     int((v * w).sum()))
+    return out
+
+
+def state_checksums(state) -> dict:
+    """``leaf_checksums`` of the parameters and both moments."""
+    o = state.opt_state
+    return {"params": leaf_checksums(state.params),
+            "mu": leaf_checksums(o.mu), "nu": leaf_checksums(o.nu)}
+
+
+def collective_trace(run) -> dict:
+    """Run ``run`` under torch.profiler (host only); the collectives it
+    issued by name: count and host ms in all."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+    out = {}
+    for e in prof.key_averages():
+        low = e.key.lower()
+        if any(k in low for k in ("all_reduce", "allreduce", "all_gather",
+                                  "allgather", "barrier", "broadcast")):
+            out[e.key[:48]] = {"count": e.count, "host_ms": round(
+                e.cpu_time_total / 1e3, 3)}
+    return out
+
+
+def tp_train_run(card, state, step, batches, what, trace=False,
+                 checks=None) -> list:
+    """``step(state, batch) -> (state, loss, grad_norm)`` over ``batches``
+    (the second traced when ``trace``): each step's loss, grad norm, host
+    seconds (the device synchronized; the trace's own processing after the
+    step left out), peak memory and, after it, ``checks(state)``."""
+    out = []
+    for i, batch in enumerate(batches):
+        _sync(card)
+        _reset_peak(card)
+        rec = {}
+
+        def one():
+            nonlocal state
+            t0 = time.perf_counter()
+            state, loss, norm = step(state, batch)
+            rec.update(loss=float(loss), grad_norm=float(norm))
+            _sync(card)
+            rec["s"] = time.perf_counter() - t0
+
+        if trace and i == 1:
+            rec["collectives"] = collective_trace(one)
+        else:
+            one()
+        rec["peak_gib"] = _peak_gib(card)
+        if not (math.isfinite(rec["loss"]) and math.isfinite(
+                rec["grad_norm"])):
+            raise AssertionError(f"{what} step {i + 1}: {rec}")
+        if checks is not None:
+            rec["checks"] = checks(state)
+        out.append(rec)
+    return out
+
+
+def grad_apply_step(fns, place=None):
+    """``tp_train_run``'s step from (grad_fn, apply_fn, zeros_fn): one
+    micro-batch a step; ``place`` moves the batch first (one device)."""
+    grad_fn, apply_fn, zeros_fn = fns
+
+    def step(state, batch):
+        b = batch if place is None else place(batch)
+        acc, metrics = grad_fn(state.params, b, zeros_fn(state.params))
+        state, norm = apply_fn(state, acc, 1.0)
+        del acc
+        return state, metrics["loss"], norm
+
+    return step
+
+
+def clone_state(state):
+    c = lambda t: t.clone()                              # noqa: E731
+    o = state.opt_state
+    return ts.TrainState(opt.tree_map(c, state.params), opt.AdamWState(
+        o.count, opt.tree_map(c, o.mu), opt.tree_map(c, o.nu)), state.step)
+
+
+def tp_train_mesh(shape):
+    from block_transformer_tpu_torch.parallel import sharding
+    if isinstance(shape, tuple):
+        return sharding.named_mesh(*shape, device=CARD)
+    return sharding.make_mesh(**shape, device=CARD)
+
+
+def zero_moment_bytes(state, spec, full_numel: dict) -> dict:
+    """{leaf: (this rank's moment bytes, the full moment's)} of the moments
+    (mu) whose spec splits a replicated parameter (ZeRO); ``full_numel``
+    the full leaves' sizes."""
+    pspecs = dict(opt.tree_items(spec.params))
+    mspecs = dict(opt.tree_items(spec.opt_state.mu))
+    return {"/".join(path): (m.numel() * m.element_size(),
+                             full_numel[path] * m.element_size())
+            for path, m in opt.tree_items(state.opt_state.mu)
+            if ts._spec_axes(mspecs[path])
+            and not ts._spec_axes(pspecs[path])}
+
+
+def tp_trainer_kwargs(out: str, **kw) -> dict:
+    return dict(output_dir=out, learning_rate=1e-4, num_train_steps=10,
+                stop_steps=2, num_warmup_steps=1, total_batch_size=4,
+                micro_batch_size=2, max_length=TRAIN_TOKENS, save_steps=2,
+                logging_steps=1, param_dtype="bfloat16", remat=True, **kw)
+
+
+def tp_trainer_dataset(cfg):
+    from block_transformer_tpu_torch.pretrain_block_transformer import (
+        synthetic_corpus)
+    return packing.PackedDataset(
+        synthetic_corpus(SYNTHETIC_TOKENS, cfg.vocab_size, 512),
+        TRAIN_TOKENS, eos_token=0, pad_token=0, block_length=cfg.block_length)
+
+
+def tp_train_rank(rank: int, store: str, out: str, card: str, cfg) -> None:
+    """Rank ``rank`` of (b) and (c): two processes on the one card, gloo
+    with CUDA tensors. Probes gloo's all-gather (bf16, float32) and its
+    all-reduce rate on multi-GB tensors; then each of TP_TRAIN_SHAPES from
+    the same bf16 initial state as (a) (seed 0): two steps on
+    ``tp_train_batches`` (the second traced), with the checks (a) cannot
+    make alone; then (c): the Trainer over (data 2) at TP_TRAINER_LAYERS a
+    stack, two steps, its checkpoint at step 2, and the checksums of the
+    full state this rank gathers at the end. Saves what it found to
+    ``out``."""
+    import torch.distributed as dist
+    from block_transformer_tpu_torch.parallel import pipeline
+    if card == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=2)
+    res = {"shapes": {}}
+    try:
+        coll = {}
+        for dt in ("bfloat16", "float32"):
+            t = torch.arange(4, device=card).to(getattr(torch, dt)) + rank
+            parts = [torch.empty_like(t) for _ in range(2)]
+            dist.all_gather(parts, t)
+            coll[f"all_gather {dt}"] = bool(torch.equal(
+                parts[1] - parts[0], torch.ones_like(t)))
+        res["collectives"] = coll
+        if not all(coll.values()):
+            raise AssertionError(f"gloo on {card} tensors: {coll}")
+        rate = {}
+        for gib in GLOO_RATE_GIB:
+            t = torch.ones(gib * 2**28, dtype=torch.float32, device=card)
+            _sync(card)
+            t0 = time.perf_counter()
+            dist.all_reduce(t)
+            _sync(card)
+            secs = time.perf_counter() - t0
+            ok = bool((t == 2).all())
+            rate[f"{gib} GiB"] = {"s": secs, "GB/s": t.numel() * 4 / secs
+                                  / 1e9, "ok": ok}
+            del t
+            if not ok:
+                raise AssertionError("gloo all-reduce of a float32 tensor")
+        res["gloo_all_reduce"] = rate
+
+        tx, _ = opt.make_optimizer(**TP_TRAIN_LR)
+        batches = tp_train_batches(cfg)
+        before = launch_counts()
+        for name, shape in TP_TRAIN_SHAPES.items():
+            t0 = time.perf_counter()
+            mesh = tp_train_mesh(shape)
+            full = ts.create_train_state(0, cfg, tx, dtype=torch.bfloat16,
+                                         device=card)
+            if name.startswith("pipe"):
+                pp_step, spec = pipeline.make_pp_train_step(
+                    mesh, cfg, tx, full.params, n_micro=TP_TRAIN_MICRO,
+                    remat=True)
+
+                def step(state, batch):
+                    state, m = pp_step(state, batch)
+                    return state, m["loss"], m["grad_norm"]
+            else:
+                spec = ts._state_spec(mesh, full.params)
+                step = grad_apply_step(ts.make_sharded_grad_and_apply(
+                    mesh, cfg, tx, full.params, remat=True))
+            numel = {p: t.numel() for p, t in opt.tree_items(full.params)}
+            state = ts.shard_with(mesh, full, spec)
+            del full
+            if card == "cuda":
+                torch.cuda.empty_cache()
+            setup = time.perf_counter() - t0
+            steps = tp_train_run(
+                card, state, step, batches, name, trace=True,
+                checks=(lambda st: leaf_checksums(st.params))
+                if name.startswith("data") else None)
+            res["shapes"][name] = {
+                "setup_s": setup, "steps": steps,
+                "zero_moment_bytes": zero_moment_bytes(state, spec, numel),
+                "param_bytes": sum(p.numel() * p.element_size()
+                                   for p in opt.tree_leaves(state.params))}
+            del state, step
+            if card == "cuda":
+                torch.cuda.empty_cache()
+        res["launches"] = {t: n - before[t] for t, n in
+                           launch_counts().items() if n != before[t]}
+
+        # (c) the Trainer over (data 2), two steps, its checkpoint
+        t0 = time.perf_counter()
+        small = cut_depth(cfg, TP_TRAINER_LAYERS)
+        tr = trainer_lib.Trainer(
+            small, trainer_lib.TrainerConfig(**tp_trainer_kwargs(
+                os.path.join(TP_TRAIN_DIR, "trainer"), n_data=2)),
+            tp_trainer_dataset(small), device=card)
+        tr.train()
+        full = tr.mesh_state.full(tr.state)
+        res["trainer"] = {"s": time.perf_counter() - t0,
+                          "checkpoint_log": tr.checkpoint_log,
+                          "state": leaf_checksums(full.params),
+                          "mu": leaf_checksums(full.opt_state.mu),
+                          "nu": leaf_checksums(full.opt_state.nu),
+                          "count": full.opt_state.count,
+                          "step": full.step}
+        del tr, full
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp_train(smi: str, cfg=None) -> None:
+    """Training over a mesh at full width (``MODEL``, bf16 parameters from
+    seed 0, TP_TRAIN_SEQS x TRAIN_TOKENS tokens a step, remat). (a) One
+    rank in this process, NCCL, mesh (data 1, model 1): two steps of
+    ``make_sharded_grad_and_apply`` against ``make_grad_and_apply`` on the
+    same parameters and batches: the loss, the grad norm and the checksums
+    of the parameters and moments equal bit for bit after each step. (b)
+    Two ranks on the one card (NCCL refuses two ranks on one device: gloo
+    on CUDA tensors), each shape of TP_TRAIN_SHAPES for two steps: each
+    step's loss and grad norm within TP_TRAIN_RTOL of (a)'s (one batch at
+    both steps: step 2 reads step 1's update), the data ranks' parameters
+    equal bit for bit after each step, each rank holding half of a
+    ZeRO-split moment. (c)
+    The Trainer on the two ranks, ``n_data=2``, TP_TRAINER_LAYERS a stack:
+    its step-2 checkpoint restores into the one-device Trainer bit for bit
+    (against the full state the other rank gathered) and trains on. No
+    hand kernel launches (training runs the plain paths)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from block_transformer_tpu_torch.parallel import sharding
+    cfg = config.get_config(MODEL) if cfg is None else cfg
+    t_phase = time.perf_counter()
+    shutil.rmtree(TP_TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TP_TRAIN_DIR)
+    tx, _ = opt.make_optimizer(**TP_TRAIN_LR)
+    batches = tp_train_batches(cfg)
+    tokens = TP_TRAIN_SEQS * TRAIN_TOKENS
+    before = launch_counts()
+    # (a) the one-device step, then the sharded one on the same state
+    full = ts.create_train_state(0, cfg, tx, dtype=torch.bfloat16,
+                                 device=CARD)
+    one = tp_train_run(CARD, clone_state(full), grad_apply_step(
+        ts.make_grad_and_apply(ts.make_loss_fn(cfg, remat=True), tx),
+        place=lambda b: packing.to_device(b, CARD)), batches, "one device",
+        checks=state_checksums)
+    if CARD == "cuda":
+        torch.cuda.empty_cache()
+    dist.init_process_group(TP_BACKEND[CARD], store=dist.FileStore(
+        os.path.join(TP_TRAIN_DIR, "store_a"), 1), rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh(1, 1, device=CARD)
+        a = tp_train_run(CARD, ts.shard_state(mesh, tx, full), grad_apply_step(
+            ts.make_sharded_grad_and_apply(mesh, cfg, tx, full.params,
+                                           remat=True)), batches,
+                         "(a) mesh (data 1, model 1)", checks=state_checksums)
+    finally:
+        dist.destroy_process_group()
+    del full
+    if CARD == "cuda":
+        torch.cuda.empty_cache()
+    assert_no_launch(before, "the mesh train steps (a)")
+    differ = []
+    for i, (x, y) in enumerate(zip(a, one)):
+        differ += [f"step {i + 1} {k}" for k in ("loss", "grad_norm", "checks")
+                   if x[k] != y[k]]
+        log(f"(a) {MODEL} step {i + 1}, mesh (data 1, model 1) over NCCL / "
+            f"one device (bf16, {TP_TRAIN_SEQS} x {TRAIN_TOKENS} tokens, "
+            f"remat): {x['s']:.3f} / {y['s']:.3f} s = "
+            f"{tokens / x['s']:.1f} / {tokens / y['s']:.1f} tokens/s; peak "
+            f"{x['peak_gib']:.2f} / {y['peak_gib']:.2f} GiB; loss "
+            f"{x['loss']:.6f} / {y['loss']:.6f}; grad_norm "
+            f"{x['grad_norm']:.6f} / {y['grad_norm']:.6f} [{smi}]")
+    log(f"(a) against one device, loss, grad norm and the checksums of the "
+        f"parameters and moments after each step, bit for bit: "
+        f"{differ or 'equal'}")
+    if differ:
+        raise AssertionError(f"(a): the sharded step differs from one "
+                             f"device: {differ}")
+    log(f"phase_tp_train (a) {time.perf_counter() - t_phase:.1f} s")
+
+    # (b), (c) on two ranks
+    t0 = time.perf_counter()
+    outs = [os.path.join(TP_TRAIN_DIR, f"b_{r}.pt") for r in range(2)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp_train_rank, args=(
+        r, os.path.join(TP_TRAIN_DIR, "store_b"), outs[r], CARD, cfg))
+        for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=900)
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+            p.join()
+        if p.exitcode != 0:
+            raise AssertionError(f"(b) rank {r} exited {p.exitcode}")
+    b = [torch.load(o, weights_only=False) for o in outs]
+    log(f"phase_tp_train (b), (c) ranks {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"gloo_cuda_all_gather": b[0]["collectives"],
+                    "gloo_cuda_all_reduce_float32": [
+                        r["gloo_all_reduce"] for r in b], "card": smi}))
+    for r in b:
+        if r["launches"]:
+            raise AssertionError(f"kernels launched in (b): "
+                                 f"{r['launches']}")
+    for name in TP_TRAIN_SHAPES:
+        worst = dict.fromkeys(TP_TRAIN_RTOL, 0.0)
+        for r, res in enumerate(b):
+            got = res["shapes"][name]
+            for i, st in enumerate(got["steps"]):
+                log(f"(b) {name} rank {r} step {i + 1} (gloo, CUDA "
+                    f"tensors): {st['s']:.3f} s{' traced' if i else ''}, "
+                    f"peak {st['peak_gib']:.2f} GiB, loss {st['loss']:.6f}, "
+                    f"grad_norm {st['grad_norm']:.6f}; setup "
+                    f"{got['setup_s']:.1f} s, parameters "
+                    f"{got['param_bytes']} bytes [{smi}]")
+            log(json.dumps({f"(b) {name} rank {r} collectives in step 2":
+                            got["steps"][1]["collectives"]}))
+            gaps = {(i + 1, k): abs(st[k] - a[i][k]) / abs(a[i][k])
+                    for i, st in enumerate(got["steps"]) for k in worst}
+            for (_, k), v in gaps.items():
+                worst[k] = max(worst[k], v)
+            log(f"(b) {name} rank {r} against (a), relative differences: "
+                + ", ".join(f"step {i} {k} {v:.3e}"
+                            for (i, k), v in gaps.items()))
+        log(f"(b) {name}: steps 1 and 2 against (a), largest relative "
+            f"differences: " + ", ".join(
+                f"{k} {v:.3e} (limit {TP_TRAIN_RTOL[k]})"
+                for k, v in worst.items()))
+        if any(v > TP_TRAIN_RTOL[k] for k, v in worst.items()):
+            raise AssertionError(f"(b) {name} differs from (a)")
+        if name.startswith("data"):
+            for i in range(2):
+                if b[0]["shapes"][name]["steps"][i]["checks"] != \
+                        b[1]["shapes"][name]["steps"][i]["checks"]:
+                    raise AssertionError(f"(b) {name}: the data ranks' "
+                                         f"parameters differ after step "
+                                         f"{i + 1}")
+            zero = [res["shapes"][name]["zero_moment_bytes"] for res in b]
+            log(f"(b) {name}: ZeRO-split moments (mu), a rank's bytes "
+                f"against the full moment's: {json.dumps(zero[0])}")
+            if not zero[0] or zero[0] != zero[1] or any(
+                    2 * here != whole for here, whole in zero[0].values()):
+                raise AssertionError(f"(b) {name}: ZeRO moment shards are "
+                                     "not half a moment each")
+            log(f"(b) {name}: the data ranks' parameters equal bit for bit "
+                "after steps 1 and 2")
+
+    # (c) the mesh Trainer's checkpoint into the one-device Trainer
+    small = cut_depth(cfg, TP_TRAINER_LAYERS)
+    out = os.path.join(TP_TRAIN_DIR, "trainer")
+    ds = tp_trainer_dataset(small)
+    recs = metrics_records(out)
+    finite_records(recs, "(c) mesh trainer")
+    tr = trainer_lib.Trainer(small, trainer_lib.TrainerConfig(
+        **tp_trainer_kwargs(out)), ds, device=CARD)
+    t0 = time.perf_counter()
+    restored = tr.mesh_state.restore(out, 2, tr.state)
+    secs = time.perf_counter() - t0
+    want = b[1]["trainer"]
+    got = {"state": leaf_checksums(restored.params),
+           "mu": leaf_checksums(restored.opt_state.mu),
+           "nu": leaf_checksums(restored.opt_state.nu),
+           "count": restored.opt_state.count, "step": restored.step}
+    differ = [k for k in got if got[k] != want[k]]
+    nbytes = checkpoint_bytes(out, 2)
+    depth = (small.block_decoder.num_layers,
+             small.token_decoder.neox.num_layers)
+    log(f"(c) Trainer over (data 2) on two gloo ranks, {depth[0]} + "
+        f"{depth[1]} layers at full width, bf16: steps " + ", ".join(
+            f"{r['step']} {r['wall_time_s']:.3f} s loss {r['loss']:.6f}"
+            for r in recs) + f"; ranks {want['s']:.1f} s with init and the "
+        f"step-2 checkpoint ({nbytes} bytes, save "
+        f"{b[0]['trainer']['checkpoint_log'][-1]['s']:.2f} s); restored on "
+        f"one device in {secs:.2f} s, against rank 1's gathered state bit "
+        f"for bit: {differ or 'equal'} [{smi}]")
+    if differ or len(recs) != 2:
+        raise AssertionError(f"(c) the mesh checkpoint does not restore on "
+                             f"one device: {differ}")
+    tr.tcfg.stop_steps = 3
+    tr.state = restored
+    del restored
+    tr.train(resume=True)
+    last = metrics_records(out)[-1]
+    log(f"(c) one device resumed from the mesh checkpoint: step "
+        f"{last['step']} loss {last['loss']:.6f}")
+    if last["step"] != 3 or not math.isfinite(last["loss"]):
+        raise AssertionError("(c) the one-device resume did not train")
+    del tr
+    assert_no_launch(before, "phase_tp_train")
+    shutil.rmtree(TP_TRAIN_DIR, ignore_errors=True)
+    if CARD == "cuda":
+        torch.cuda.empty_cache()
+    log(f"phase_tp_train total {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -4067,6 +4567,7 @@ def main() -> None:
     log(json.dumps({"device_launches_per_run": device_launches,
                     "card": smi}))
     launches.update(phase_tp(rows, smi))
+    phase_tp_train(smi)
     launches.update(phase_families(smi))
     phase_train_quantize(config.get_config(MODEL))
     phase_trainer(smi)

@@ -24,21 +24,11 @@ MOVED = {f"ops/{n}.py": f"kernels/{n}.py" for n in (
     "dequant_matmul", "decode_attention", "flash_attention",
     "paged_attention")}
 
-# ROADMAP Queue 1 item 5 (parallelism): its serving half is ported
-# (parallel/sharding.py, parallel/tp_decode.py, the engine's mesh); its
-# training half is not yet: the pipeline module, and what only the JAX
-# training mesh code calls or plugs into
-UNPORTED_MODULES = {"parallel/pipeline.py"}
-QUEUE1_ITEM5_NAMES = {
-    "models/neox.py": {"init_layer_params", "neox_layer"},
-    "train/train_step.py": {"make_sharded_train_step",
-                            "make_sharded_grad_and_apply", "shard_state"},
-}
-QUEUE1_ITEM5_PARAMS = {
-    "block_transformer_forward": {"block_decoder_fn",
-                                  "token_decoder_stack_fn"},
-    "token_decoder_train_forward": {"stack_fn"},
-}
+# ROADMAP Queue 1 item 5 (parallelism) is ported, both halves: no module
+# and no name of the JAX package is left out as a gap
+UNPORTED_MODULES = set()
+QUEUE1_ITEM5_NAMES = {}
+QUEUE1_ITEM5_PARAMS = {}
 # orbax's abstract state tree: the port restores into a tree of tensors
 # (``restore_checkpoint(..., like)``) and needs no abstract form
 JAX_ONLY_NAMES = {"utils/checkpoint.py": {"abstract_like"}}
@@ -49,11 +39,16 @@ PALLAS_PARAMS = {"bm", "bn", "bk", "bq", "interpret"}
 # becomes the tree of tensors to restore into
 RENAMED = {"key": {"gen", "generator"}, "abstract_state": {"like"}}
 # parameters only the port has: the device each entry point allocates on
-# (JAX places arrays on its default device), and two options more
+# (JAX places arrays on its default device), and a few options more
 PORT_ONLY_PARAMS = {"device"}
 PORT_ONLY_BY_NAME = {
     "generate": {"fresh_prefill"},      # generate_blocks' switch, passed on
     "gptq_quantize_block_transformer": {"stats"},   # seconds by trunk
+    # the vanilla trainer's tensor-parallel stack comes in here, as the
+    # block model's does through token_decoder_train_forward(stack_fn=):
+    # JAX leaves the split to GSPMD
+    "vanilla_forward": {"stack_fn"},
+    "vanilla_loss": {"stack_fn"},
 }
 
 

@@ -261,8 +261,11 @@ def test_fresh_bf16_moments_take_the_params_dtype():
 
 @pytest.mark.parametrize("n_data,n_model", [(2, None), (None, 4), (2, 2)])
 def test_parallel_meshes_raise(n_data, n_model, tmp_path):
+    """A mesh of more than one rank needs its ranks in a process group
+    (``tests/test_torch_sharded_train.py`` trains over one): outside one,
+    the trainer refuses it instead of training on one device."""
     _, tds = datasets()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(RuntimeError, match="process group"):
         trainer.Trainer(make_block_config("tiny", **CFG_KW),
                         trainer.TrainerConfig(output_dir=str(tmp_path),
                                               n_data=n_data, n_model=n_model),

@@ -1,5 +1,6 @@
 """Rank processes for the port's mesh tests (``tests/test_torch_sharding.py``,
-``test_torch_tp_decode.py``, ``test_torch_tp_engine.py``).
+``test_torch_tp_decode.py``, ``test_torch_tp_engine.py``,
+``test_torch_sharded_train.py``, ``test_torch_pipeline.py``).
 
 ``spawn(job, ...)`` starts ``world`` processes with ``torch.multiprocessing``
 on the CPU, joined by gloo through a file store under the test's temporary
@@ -23,16 +24,33 @@ WORLD = 4
 # the mesh shapes of the tests, over 4 ranks
 MESHES = {"2x2": dict(n_data=2, n_model=2),
           "dcn2x1x2": dict(n_dcn=2, n_data=1, n_model=2)}
+# the training meshes: make_mesh's, and (data, pipe) meshes by axis names
+TRAIN_MESHES = {**MESHES, "1x2x2seq": dict(n_data=1, n_seq=2, n_model=2),
+                "2x2pipe": ((2, 2), ("data", "pipe")),
+                "1x4pipe": ((1, 4), ("data", "pipe"))}
 
 
 def spawn(job: str, tmp_path, world: int = WORLD, **kw) -> list:
     """Run ``JOBS[job](**kw)`` on ``world`` gloo ranks; returns each rank's
     result, in rank order."""
+    return spawn_async(job, tmp_path, world, **kw)()
+
+
+def spawn_async(job: str, tmp_path, world: int = WORLD, **kw):
+    """Start ``spawn``'s ranks and return at once a function that waits for
+    them and returns their results (the test process computes JAX's side
+    meanwhile)."""
     store = os.path.join(str(tmp_path), f"{job}_store")
-    mp.spawn(_rank, args=(world, store, job, str(tmp_path), kw),
-             nprocs=world, join=True)
-    return [torch.load(os.path.join(str(tmp_path), f"{job}_{r}.pt"),
-                       weights_only=False) for r in range(world)]
+    ctx = mp.spawn(_rank, args=(world, store, job, str(tmp_path), kw),
+                   nprocs=world, join=False)
+
+    def wait() -> list:
+        while not ctx.join():
+            pass
+        return [torch.load(os.path.join(str(tmp_path), f"{job}_{r}.pt"),
+                           weights_only=False) for r in range(world)]
+
+    return wait
 
 
 def _rank(rank: int, world: int, store: str, job: str, out_dir: str, kw):
@@ -171,4 +189,171 @@ def engine_job(rank, params_file, cfg, cases, prompts, budgets, kw):
     return out
 
 
-JOBS = {"mesh": mesh_job, "generate": generate_job, "engine": engine_job}
+def _train_mesh(name):
+    from block_transformer_tpu_torch.parallel import sharding
+    kw = TRAIN_MESHES[name]
+    if isinstance(kw, tuple):
+        return sharding.named_mesh(*kw, device="cpu")
+    return sharding.make_mesh(**kw, device="cpu")
+
+
+def _full(ts, mesh, tree, specs, layout):
+    from block_transformer_tpu_torch.train import optimizer as opt
+    return {p: ts._unplace(layout, p, t, dict(opt.tree_items(specs))[p]
+                           ).numpy().copy()
+            for p, t in opt.tree_items(tree)}
+
+
+def train_job(rank, state_file, cfg, cases, batches, tkw):
+    """For each case (mesh name, n_micro or None): two steps from the
+    bridged full state on the batches (the global ones, every rank the
+    same), by ``make_sharded_grad_and_apply`` (``make_pp_train_step`` when
+    n_micro is given). Per step: the metrics, the global gradient (reduced
+    and gathered, JAX's layout; for the pipeline, whose step applies at
+    once, that of the first batch at the initial state), the gathered
+    parameters and moments, the grad norm; the first
+    two steps again by ``make_sharded_train_step`` (step 1's loss and
+    norm, the parameters after step 2); the bytes
+    of each moment leaf on this rank against the full leaf's."""
+    from block_transformer_tpu_torch.parallel import collectives
+    from block_transformer_tpu_torch.parallel import pipeline
+    from block_transformer_tpu_torch.parallel import sharding
+    from block_transformer_tpu_torch.train import optimizer as opt
+    from block_transformer_tpu_torch.train import train_step as ts
+    state = torch.load(state_file, weights_only=False)
+    tx, _ = opt.make_optimizer(**tkw)
+    out = {}
+    for name, n_micro in cases:
+        mesh = _train_mesh(name)
+        if n_micro:
+            step, spec = pipeline.make_pp_train_step(
+                mesh, cfg, tx, state.params, n_micro=n_micro, remat=True)
+            res = {"pspecs": spec.params, "mspecs": spec.opt_state.mu}
+        else:
+            spec = ts._state_spec(mesh, state.params)
+            grad_fn, apply_fn, zeros_fn = ts.make_sharded_grad_and_apply(
+                mesh, cfg, tx, state.params, remat=True)
+            res = {"mspecs": spec.opt_state.mu}
+        layout = ts._layout(mesh, spec)
+        local = ts.shard_with(mesh, _clone(state), spec)
+        if n_micro:
+            # the pipelined loss's gradient at the initial state, reduced
+            # and gathered, as the step computes it
+            loss_fn = ts._mesh_loss_fn(
+                mesh, cfg, True,
+                pipeline.make_pp_block_decoder_forward(mesh, n_micro),
+                pipeline.make_pp_token_decoder_stack(mesh, cfg.token_decoder,
+                                                     n_micro, remat=True))
+            g, _ = ts._grads(loss_fn, local.params, ts._local_batch(
+                mesh, batches[0], sharding.batch_pspec(mesh)),
+                1.0 / collectives.axis(mesh, "pipe").size)
+            ts._reduce_grads(layout, g)
+            res["grads"] = _full(ts, mesh, opt.tree_unflatten(g),
+                                 spec.params, layout)
+        res["moment_bytes"] = {
+            p: (t.numel() * t.element_size(),
+                full.numel() * full.element_size())
+            for (p, t), full in zip(opt.tree_items(local.opt_state.mu),
+                                    opt.tree_leaves(state.opt_state.mu))}
+        res["steps"] = []
+        for batch in batches:
+            rec = {}
+            if n_micro:
+                local, metrics = step(local, batch)
+                rec["grad_norm"] = float(metrics["grad_norm"])
+            else:
+                acc, metrics = grad_fn(local.params, batch,
+                                       zeros_fn(local.params))
+                g = {p: t.clone() for p, t in opt.tree_items(acc)}
+                ts._reduce_grads(layout, g)
+                rec["grads"] = _full(ts, mesh, opt.tree_unflatten(g),
+                                     spec.params, layout)
+                local, norm = apply_fn(local, acc, 1.0)
+                rec["grad_norm"] = float(norm)
+            rec["metrics"] = {k: v.numpy() for k, v in metrics.items()
+                              if k != "grad_norm"}
+            full = ts.gather_state(mesh, local, spec)
+            rec["params"] = {p: t.numpy().copy()
+                             for p, t in opt.tree_items(full.params)}
+            rec["mu"] = {p: t.numpy().copy()
+                         for p, t in opt.tree_items(full.opt_state.mu)}
+            rec["nu"] = {p: t.numpy().copy()
+                         for p, t in opt.tree_items(full.opt_state.nu)}
+            res["steps"].append(rec)
+        if not n_micro:
+            one = ts.make_sharded_train_step(mesh, cfg, tx, state.params,
+                                             remat=False)
+            s1, m1 = one(ts.shard_state(mesh, tx, _clone(state)), batches[0])
+            s1, _ = one(s1, batches[1])
+            full = ts.gather_state(mesh, s1, spec)
+            res["train_step"] = {"loss": float(m1["loss"]),
+                                 "grad_norm": float(m1["grad_norm"]),
+                                 "params": {p: t.numpy() for p, t in
+                                            opt.tree_items(full.params)}}
+        out[name] = res
+    return out
+
+
+def _clone(state):
+    from block_transformer_tpu_torch.train import optimizer as opt
+    c = lambda t: t.clone()                              # noqa: E731
+    o = state.opt_state
+    return type(state)(opt.tree_map(c, state.params), type(o)(
+        o.count, opt.tree_map(c, o.mu), opt.tree_map(c, o.nu)), state.step)
+
+
+def trainer_job(rank, cfg, vcfg, tkw, out_dir, data):
+    """The port's ``Trainer`` and ``VanillaTrainer`` over (data 2, model 2)
+    from the bridged JAX initial states; returns rank 0's metrics records
+    of each, every rank's final step, whether its last checkpoint restores
+    into the rank's shards bit for bit, and the devices of the host
+    gather's leaves (None on the ranks that drop them)."""
+    import json
+    from block_transformer_tpu_torch.data import packing
+    from block_transformer_tpu_torch.train import optimizer as opt
+    from block_transformer_tpu_torch.train import trainer
+    from block_transformer_tpu_torch.train import train_step as ts
+    from block_transformer_tpu_torch.train import vanilla_trainer
+    corpus, ds_kw, state_file, vstate_file = data
+    out = {}
+    for name, make, model_cfg, kw, sfile in (
+            ("block", trainer.Trainer, cfg, ds_kw, state_file),
+            ("vanilla", vanilla_trainer.VanillaTrainer, vcfg,
+             dict(eos_token=0, block_length=None), vstate_file)):
+        ds = packing.PackedDataset(corpus, tkw["max_length"], **kw)
+        d = os.path.join(out_dir, name)
+        tt = make(model_cfg, trainer.TrainerConfig(output_dir=d, **tkw), ds,
+                  device="cpu")
+        tt.state = ts.shard_state(tt.mesh, tt.tx, torch.load(
+            sfile, weights_only=False))
+        tt.train()
+        recs = []
+        if rank == 0:
+            with open(os.path.join(d, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+        # the last checkpoint cut back into this rank's shards, against
+        # the shards it trained; the host gather keeps the state on rank 0
+        back = tt.mesh_state.restore(d, tt.state.step, tt.state)
+        host = ts.gather_state(tt.mesh, tt.state, tt.mesh_state.spec,
+                               to_host=True)
+        out[name] = {"records": recs, "step": tt.state.step,
+                     "restored_equal": _equal_states(back, tt.state),
+                     "host_gather": None if host is None else sorted(
+                         {str(t.device) for t in
+                          opt.tree_leaves(host.params)})}
+    return out
+
+
+def _equal_states(a, b) -> bool:
+    from block_transformer_tpu_torch.train import optimizer as opt
+    pairs = [(a.params, b.params), (a.opt_state.mu, b.opt_state.mu),
+             (a.opt_state.nu, b.opt_state.nu)]
+    return (a.step == b.step and a.opt_state.count == b.opt_state.count
+            and all(x[0] == y[0] and x[1].dtype == y[1].dtype
+                    and torch.equal(x[1], y[1])
+                    for ta, tb in pairs for x, y in zip(
+                        opt.tree_items(ta), opt.tree_items(tb))))
+
+
+JOBS = {"mesh": mesh_job, "generate": generate_job, "engine": engine_job,
+        "train": train_job, "trainer": trainer_job}

@@ -212,6 +212,27 @@ one process (and, for step 12, two more on the same card) it:
    other rank gathered) and trains a third step there. No hand kernel
    launches.
 
+14. runs the quantization-quality scripts (``phase_quality``, after step
+   11) through their ``main(argv)`` at full width (``block_main_b4_5``,
+   byte vocab, max length 1024, float32) under a temporary directory of
+   ``build/``: ``build_byte_corpus`` over this Python's stdlib (20 MB),
+   ``quality_run --gptq`` (300 steps of the block model and of
+   ``vanilla_31``, then held-out ppl at fp32, INT8 with W8A8, INT4, mixed48
+   and the INT4 gate recipe, the byte harness tasks and the decode
+   agreement), ``decode_gate --w8a8 --gptq`` at batch 384, prompt 256 and
+   64 new tokens, ``qat_finetune --recipe mixed48 --distill`` (50 steps)
+   and ``qat_ppl_gate``, ``gptq_gate`` (two configurations),
+   ``kv_quality_cpu``, ``longctx_quality_cpu`` and ``real_task_eval
+   --limit 8``, each cut logged. The launch counts, set to 0 just before
+   the first script and read just after the last, must show K1, K4 (TF32
+   route), W8A8-q/-mm, K2 (INT8 and bf16), K3 (CUDA-core route) and fused
+   K5 (``quality launches``). Then, outside that window, it asserts the
+   trained fp32 ppl at most a tenth of the untrained parameters', the
+   card's held-out ppl within 1e-4 relative of the CPU's (fp32, INT8 under
+   ``w8a8_disabled``: K1, INT4 g128: K4), INT8 with W8A8 within 1% of
+   fp32 and the decode gate's reference decode rescored on the CPU within
+   1e-4; then kernel rows at its shapes.
+
 Every timed full-width run of steps 5-9 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
 other one (the baseline: its 96 prefill linears at M = 16384 by W8A8),
@@ -226,7 +247,7 @@ one JSON line gives each run's device launches (every kernel, copy and
 fill) and busy seconds (``device_launches_per_run``). The last three lines
 are
 the ``nvidia-smi`` line, a JSON object listing each kernel's launches (from
-the run of step 5, 6, 7, 8 or 11 named by the row's ``path``; a K6 or K8 row
+the run of step 5, 6, 7, 8, 11 or 14 named by the row's ``path``; a K6 or K8 row
 counts the launches on its pool width, and a K2 bf16 row gives those of its
 own route as ``route_launches``), error and times, and
 ``{"ok": true, "device": {...}}``.
@@ -267,6 +288,15 @@ from block_transformer_tpu_torch.data import native as native_packer  # noqa: E4
 from block_transformer_tpu_torch.data import mmap_dataset  # noqa: E402
 from block_transformer_tpu_torch.data import packing  # noqa: E402
 from block_transformer_tpu_torch import profile_generate as pg  # noqa: E402
+from block_transformer_tpu_torch.scripts import build_byte_corpus  # noqa: E402
+from block_transformer_tpu_torch.scripts import decode_gate  # noqa: E402
+from block_transformer_tpu_torch.scripts import gptq_gate  # noqa: E402
+from block_transformer_tpu_torch.scripts import kv_quality_cpu  # noqa: E402
+from block_transformer_tpu_torch.scripts import longctx_quality_cpu  # noqa: E402
+from block_transformer_tpu_torch.scripts import qat_finetune  # noqa: E402
+from block_transformer_tpu_torch.scripts import qat_ppl_gate  # noqa: E402
+from block_transformer_tpu_torch.scripts import quality_run  # noqa: E402
+from block_transformer_tpu_torch.scripts import real_task_eval  # noqa: E402
 from block_transformer_tpu_torch.config import NeoXConfig  # noqa: E402
 from block_transformer_tpu_torch.inference import generate as gen  # noqa: E402
 from block_transformer_tpu_torch.kernels import build  # noqa: E402
@@ -303,6 +333,9 @@ FP32_FLOPS = 67e12      # float32 outside the tensor cores
 # tf32x2 route: x split, the integer weights exact): half of it
 TF32X3_FLOPS = 495e12 / 3
 TF32X2_FLOPS = 495e12 / 2
+# float32 attention is bounded at TF32X3_FLOPS whatever route runs: the
+# card computes it float32-accurate at that rate (K3's CUDA-core "fma"
+# route and K2's float32 cache included), not at FP32_FLOPS
 # the fastest exact rate for float32 x times INT8 / INT4 weights, K1/K4's
 # float32 bound: the weights are exact in bf16 and x in three bf16 parts
 # (3 x 8 significant bits), so three bf16 passes, a third of 989 TFLOP/s
@@ -857,11 +890,12 @@ def int8_layers(g, L, B, H, cap, D):
             vq.reshape(L, B, H, cap, D), vs.reshape(L, B, H, cap))
 
 
-def k2_row(rows, label, cache, q, mask, iters, path=None):
-    """K2 against its plain version and SDPA on the cache's bf16 layers
-    (dequantized for the INT8 form), cycling through the layers so they
-    come from device memory. ``cache``: (k_q, k_s, v_q, v_s) for the INT8
-    form, (k, v) in bf16 for the bf16 form."""
+def k2_row(rows, label, cache, q, mask, iters, path=None, tol=TOL):
+    """K2 against its plain version (within ``tol`` of max|plain|) and SDPA
+    on the cache's layers in q's dtype (dequantized for the INT8 form),
+    cycling through the layers so they come from device memory. ``cache``:
+    (k_q, k_s, v_q, v_s) for the INT8 form, (k, v) in bf16 or float32 for
+    the bf16 form."""
     int8 = len(cache) == 4
     tag = "K2" if int8 else "K2 bf16"
     fn, plain = ((k2.decode_attention_int8_stacked,
@@ -877,7 +911,7 @@ def k2_row(rows, label, cache, q, mask, iters, path=None):
                      != before[route] + 1):
         raise AssertionError(f"{tag} {label}: not the {route} route")
     err, pmax = compare(f"{tag} {label}", got,
-                        plain(q, *cache, L // 2, mask))
+                        plain(q, *cache, L // 2, mask), tol)
     it = iter(range(10 ** 9))
     nxt = lambda: next(it) % L                 # noqa: E731
     ms = time_ms(lambda: fn(q, *cache, nxt(), mask), iters)
@@ -898,9 +932,11 @@ def k2_row(rows, label, cache, q, mask, iters, path=None):
 
     lib_ms = time_ms(library, iters)
     k_rows, v_rows, ops = attention_need(mask, H, D, B)
-    row_bytes = D + 4 if int8 else 2 * D       # values (+ scale) of a slot
+    # values (+ scale) of a slot
+    row_bytes = D + 4 if int8 else D * cache[0].element_size()
     mask_ints = sum(t.numel() for t in mask if t is not None)
-    nbytes = (2 * B * H * S * D * 2 + (k_rows + v_rows) * row_bytes
+    nbytes = (2 * B * H * S * D * q.element_size()
+              + (k_rows + v_rows) * row_bytes
               + mask_ints * 4)
     if route == "warp":
         how = "one warp a (b, h), 4 a block"
@@ -909,7 +945,8 @@ def k2_row(rows, label, cache, q, mask, iters, path=None):
         how = f"splits {p.splits} x {p.slots_per_split} slots"
     record(rows, tag, label, err, ms, plain_ms, lib_ms, nbytes, ops,
            path=path, extra={"decode_route": route, "decode_plan": how},
-           plain_max=pmax)
+           plain_max=pmax,
+           peak=TF32X3_FLOPS if q.dtype == torch.float32 else BF16_FLOPS)
     del layers
 
 
@@ -1184,12 +1221,13 @@ def phase_k5(rows, cfg):
                      off)
 
 
-def kv_step_rows(g, B, H, D):
+def kv_step_rows(g, B, H, D, dtype=torch.bfloat16):
     """A decode step's K [B, H, D] (RoPE's contiguous output) and V (a
-    strided view of the fused qkv output, as ``layer_qkv`` cuts it), bf16."""
-    k = torch.randn((B, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    strided view of the fused qkv output, as ``layer_qkv`` cuts it), in
+    ``dtype``."""
+    k = torch.randn((B, H, D), generator=g, device="cuda").to(dtype)
     qkv = 2 * torch.randn((B, 1, 3 * H * D), generator=g, device="cuda")
-    v = qkv.to(torch.bfloat16).reshape(B, 1, 3, H, D).permute(
+    v = qkv.to(dtype).reshape(B, 1, 3, H, D).permute(
         2, 0, 3, 1, 4)[2][:, :, 0]
     return k, v
 
@@ -1222,19 +1260,19 @@ def quantize_bound(B, H, D, esize, n_written, extra_bytes=0):
             + extra_bytes, 6 * 2 * B * H * D)
 
 
-def k5_fused_row(rows, g, path, L, B, H, D, cap, off):
+def k5_fused_row(rows, g, path, L, B, H, D, cap, off, dtype=torch.bfloat16):
     """K5 fused with ``quantize_kv`` at ``path``'s decode write into its
     contiguous INT8 cache [L, B, H, cap, D] (no page table): per-row
     offsets with one finished row at off == cap (``off`` "rows"), or one
-    int offset; bit for bit against the plain version at every layer's
-    first call, timed over rotating layers, beside the unfused sequence
-    the parent ran (device ms and host us)."""
+    int offset; K and V in ``dtype``; bit for bit against the plain version
+    at every layer's first call, timed over rotating layers, beside the
+    unfused sequence the parent ran (device ms and host us)."""
     pools = random_pools(g, L, B, H, cap, D)
     if off == "rows":
         off = torch.randint(0, cap, (B,), generator=g, device="cuda",
                             dtype=torch.int32)
         off[3] = cap
-    k, v = kv_step_rows(g, B, H, D)
+    k, v = kv_step_rows(g, B, H, D, dtype)
     want = kp.paged_quantize_write_int8_plain(*clones(pools), L // 2, None,
                                               off, k, v)
     got = kp.paged_quantize_write_int8(*clones(pools), L // 2, None, off, k,
@@ -1252,8 +1290,10 @@ def k5_fused_row(rows, g, path, L, B, H, D, cap, off):
                                                    k, v), UNFUSED_ITERS)
     per_row = torch.is_tensor(off)
     n = int((off < cap).sum()) if per_row else B
-    nbytes, ops = quantize_bound(B, H, D, 2, n, 4 * B if per_row else 0)
-    label = (f"B={B} H={H} D={D} cache [{L},{B},{H},{cap}] "
+    nbytes, ops = quantize_bound(B, H, D, k.element_size(), n,
+                                 4 * B if per_row else 0)
+    label = (("float32 " if dtype == torch.float32 else "")
+             + f"B={B} H={H} D={D} cache [{L},{B},{H},{cap}] "
              + ("per-row off, one at cap" if per_row else f"off {off}"))
     record(rows, "K5 fused", label, err, ms, plain_ms, None, nbytes, ops,
            host_us=host_us, path=path, peak=FP32_FLOPS, plain_max=pmax,
@@ -3098,9 +3138,10 @@ def scoring_linear_rows(cfg, batches):
     return Bb * L, Bb * (cfg.n_expanded_emb + L - 1)
 
 
-def k4_f32_row(rows, g, label, M, K, N, layers, path, iters, slow_iters):
+def k4_f32_row(rows, g, label, M, K, N, layers, path, iters, slow_iters,
+               group=GROUP_SIZE):
     """K4 with float32 x [M, K] @ an INT4 [layers, K/2, N] stack (groups of
-    GROUP_SIZE rows) by its TF32 route, within K14_F32_TOL of its plain
+    ``group`` rows) by its TF32 route, within K14_F32_TOL of its plain
     version, beside its CUDA-core kernel at the same inputs (``fma_ms``)
     and ``torch.matmul`` on the dequantized float32 layer, cycling through
     the layers; the plain version and the CUDA-core kernel ``slow_iters``
@@ -3108,7 +3149,7 @@ def k4_f32_row(rows, g, label, M, K, N, layers, path, iters, slow_iters):
     beside it (``tf32x2_bound_ms``)."""
     dev = CARD
     w_p, scale = quant.quantize_int4(torch.randn(
-        (layers, K, N), generator=g, device=dev) * 0.02, GROUP_SIZE)
+        (layers, K, N), generator=g, device=dev) * 0.02, group)
     G = scale.shape[1]
     gs = K // G
     x = torch.randn((M, K), generator=g, device=dev)
@@ -3290,7 +3331,7 @@ def eval_small_rows(rows, cfg):
                  for _ in range(3)) for _ in range(3)]
     k3_row(rows, f"small float32 scoring forward B={B} H={H} Q=K={N} "
            f"D={D}", qkv, mask, 50, 20, path="eval small", route="fma",
-           peak=FP32_FLOPS, tol=K3_F32_TOL)
+           peak=TF32X3_FLOPS, tol=K3_F32_TOL)
     big = config.get_config(MODEL).block_decoder
     k1_row(rows, g, "float32 qkv M=8", 8, big.hidden_size,
            3 * big.hidden_size, 12, path="eval small", dtype=torch.float32)
@@ -3589,6 +3630,311 @@ def phase_eval(rows, smi) -> dict:
     out.update(phase_eval_small(rows, smi))
     out.update(phase_eval_entry(rows, cfg, smi))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase_quality: the quantization-quality scripts on trained weights
+# ---------------------------------------------------------------------------
+
+# the quality phase's cuts of the scripts' defaults, for time
+QUALITY_CORPUS_MB = 20        # build_byte_corpus --max_mb (default 200)
+QUALITY_STEPS = 300           # quality_run --steps (default 3000)
+QUALITY_EVAL_SAMPLES = 64     # --eval_samples (default 256)
+QUALITY_CALIB = 32            # quality_run / gptq_gate --calib_samples
+QUALITY_QAT_STEPS = 50        # qat_finetune --steps (default 1000)
+QUALITY_LIMIT = 8             # real_task_eval --limit (default: every doc)
+QUALITY_GPTQ_CONFIGS = "gptq_int4_g128,gptq_mixed48"
+QUALITY_PPL_RATIO = 0.1       # trained fp32 ppl / untrained, at most
+QUALITY_CARD_CPU_RTOL = 1e-4  # held-out ppl and the decode gate's
+                              # reference logprob, card against the CPU
+QUALITY_CARD_CPU_SAMPLES = 16
+QUALITY_W8A8_RTOL = 0.01      # INT8 ppl with W8A8 against fp32
+# the kernels the phase must launch; every activation is float32: K1 and K4
+# by their TF32 route, K3 by its CUDA-core route (head dim 32)
+PATH_KERNELS["quality"] = ("K1", "K2", "K2 bf16", "K3", "K4", *K5_FUSED,
+                           *W8A8)
+PATH_ABSENT["quality"] = ("K6", "K6 int4", *K7_FUSED, "K8", "K8 int4")
+PATH_ROUTES["quality"] = {"K1": "tf32x2", "K3": "fma", "K4": "tf32x2"}
+K2_SPLIT_PATHS += ("quality",)
+
+
+def quality_ppl_card_vs_cpu(cfg, block_dir, ds) -> dict:
+    """The trained block model's held-out ppl on QUALITY_CARD_CPU_SAMPLES
+    samples, card against CPU (plain versions): fp32 (K3's CUDA-core
+    route, float32 matmuls), INT8 under ``w8a8_disabled()`` (K1 by its TF32
+    route) and INT4 g128 (K4 by its TF32 route); each within
+    QUALITY_CARD_CPU_RTOL relative. Returns {name: (card, cpu)}."""
+    step = ckpt.find_latest_checkpoint(block_dir)
+    out = {}
+    trees = {dev: ckpt.restore_params(block_dir, step, device=dev)
+             for dev in (CARD, "cpu")}
+    for name, kw in (("fp32", None), ("int8", dict(bits=8)),
+                     ("int4 g128", dict(bits=4, group_size=128))):
+        got = []
+        for dev in (CARD, "cpu"):
+            tree = trees[dev] if kw is None else \
+                quant.quantize_block_transformer(trees[dev], **kw)
+            with linear_ops.w8a8_disabled():
+                got.append(quality_run.heldout_ppl_block(
+                    tree, cfg, ds, QUALITY_CARD_CPU_SAMPLES,
+                    QUALITY_CARD_CPU_SAMPLES))
+        rel = abs(got[0] - got[1]) / got[1]
+        log(f"quality: held-out ppl {name} on the card {got[0]:.6f}, on the "
+            f"CPU {got[1]:.6f}: {rel:.3e} relative (limit "
+            f"{QUALITY_CARD_CPU_RTOL})")
+        if not rel <= QUALITY_CARD_CPU_RTOL:
+            raise AssertionError(f"quality: {name} ppl card {got[0]} / CPU "
+                                 f"{got[1]}")
+        out[name] = got
+    return out
+
+
+def quality_gate_rescore(cfg, block_dir, holdout, report) -> float:
+    """The decode gate's reference decode (fp32 weights, bf16 KV, W8A8 off)
+    again on the card, scored on the card (the report's reference again)
+    and rescored on the CPU over the card's tokens, each within
+    QUALITY_CARD_CPU_RTOL. Returns the CPU's logprob."""
+    step = ckpt.find_latest_checkpoint(block_dir)
+    prompts = decode_gate.sample_prompts(holdout, report["batch"],
+                                         report["prompt_len"],
+                                         report["prompt_seed"])
+    n = report["gen_tokens"]
+    params = ckpt.restore_params(block_dir, step, device=CARD)
+    toks = decode_gate.run_variant(params, cfg, prompts, "bf16", n)
+    card = decode_gate.fp32_scorer(params, cfg, prompts, n)(toks)
+    del params
+    cpu = decode_gate.fp32_scorer(ckpt.restore_params(
+        block_dir, step, device="cpu"), cfg, prompts, n)(toks)
+    ref = report["fp32_mean_logprob_ref"]
+    log(f"quality: decode gate reference logprob {ref:.7f}; the card's "
+        f"decode again, scored on the card {card:.7f}, rescored on the CPU "
+        f"{cpu:.7f} ({abs(cpu - card) / abs(card):.3e} relative, limit "
+        f"{QUALITY_CARD_CPU_RTOL})")
+    if abs(card - ref) > QUALITY_CARD_CPU_RTOL * abs(ref) or \
+            abs(cpu - card) > QUALITY_CARD_CPU_RTOL * abs(card):
+        raise AssertionError(f"quality: decode gate reference {ref}, card "
+                             f"again {card}, CPU {cpu}")
+    return cpu
+
+
+def quality_kernel_rows(rows, cfg, vcfg) -> None:
+    """Kernel rows at the quality path's shapes (``block_main_b4_5``: hidden
+    256, 8 heads of 32; all float32): K3 by its CUDA-core route at the
+    held-out scoring of the baseline (B = 16, Q = K = 1024, causal) and of
+    the block decoder (B = 16, 256 blocks, block-causal); the decode gate's
+    step at B = 384: K1 and K4 (g128) by their TF32 route at the block
+    decoder's qkv (M = 384, K = 256, N = 768), W8A8-q / -mm there, K2 over
+    its INT8 and its float32 global cache (80 slots), and K5 fused at its
+    write."""
+    g = torch.Generator(device=CARD).manual_seed(20)
+    bcfg, path = cfg.block_decoder, "quality"
+    B, H, D = QUALITY_EVAL_BATCH, vcfg.num_heads, vcfg.head_dim
+    S = vcfg.max_position_embeddings
+    qkv = [tuple(torch.randn((B, H, S, D), generator=g, device=CARD)
+                 for _ in range(3)) for _ in range(2)]
+    mask = masks.decode_mask(0, S, S, torch.ones((B, S), dtype=torch.int32,
+                                                 device=CARD), device=CARD)
+    k3_row(rows, f"float32 baseline scoring B={B} H={H} Q=K={S} D={D} "
+           f"causal", qkv, mask, 10, 3, path=path, route="fma",
+           peak=TF32X3_FLOPS, tol=K3_F32_TOL)
+    N = S // cfg.block_length
+    qkv = [tuple(torch.randn((B, H, N, D), generator=g, device=CARD)
+                 for _ in range(3)) for _ in range(3)]
+    mask = masks.block_decoder_train_mask(
+        torch.ones((B, N), dtype=torch.int32, device=CARD),
+        cfg.n_embedding_tokens)
+    k3_row(rows, f"float32 block decoder scoring B={B} H={H} Q=K={N} "
+           f"D={D} block-causal", qkv, mask, 20, 5, path=path, route="fma",
+           peak=TF32X3_FLOPS, tol=K3_F32_TOL)
+    del qkv
+    M, h, L = QUALITY_GATE_BATCH, bcfg.hidden_size, bcfg.num_layers
+    k1_row(rows, g, f"float32 decode gate qkv M={M} K={h} N={3 * h}", M, h,
+           3 * h, L, path=path, dtype=torch.float32)
+    k4_f32_row(rows, g, f"float32 decode gate qkv M={M} K={h} N={3 * h}",
+               M, h, 3 * h, L, path, 50, 10, group=128)
+    w8a8_rows(rows, g, "float32 decode gate qkv", M, h, 3 * h, L, path,
+              dtype=torch.float32)
+    cap = QUALITY_GATE_CAP
+    Hb, Db = bcfg.num_heads, bcfg.head_dim
+    valid = torch.ones((M, cap), dtype=torch.int32, device=CARD)
+    valid[:, cap - 8:] = 0                       # blocks not decoded yet
+    mask = masks.block_decode_mask(cap - 9, cap, 1, valid)
+    q = torch.randn((M, Hb, 1, Db), generator=g, device=CARD)
+    k2_row(rows, f"float32 decode gate B={M} H={Hb} S=1 D={Db} cap={cap}",
+           int8_layers(g, L, M, Hb, cap, Db), q, mask, 50, path=path,
+           tol=K3_F32_TOL)
+    kv = tuple(torch.randn((L, M, Hb, cap, Db), generator=g, device=CARD)
+               for _ in range(2))
+    k2_row(rows, f"float32 cache, decode gate B={M} H={Hb} S=1 D={Db} "
+           f"cap={cap}", kv, q, mask, 50, path=path, tol=K3_F32_TOL)
+    del kv
+    k5_fused_row(rows, g, path, L, M, Hb, Db, cap, cap - 9,
+                 dtype=torch.float32)
+
+
+QUALITY_EVAL_BATCH = 16       # quality_run --eval_batch
+QUALITY_GATE_BATCH = 384      # decode_gate --batch
+QUALITY_GATE_CAP = 80         # its global cache: 64 prompt + 16 new blocks
+
+
+def phase_quality(rows, smi) -> dict:
+    """The port's quantization-quality scripts through their ``main(argv)``
+    at full width (``block_main_b4_5``, byte vocab, max length 1024) under
+    a temporary directory of ``build/``, with the launch counts set to 0
+    just before the first script and read (the ``quality`` path: every
+    kernel of it launched) just after the last: (a) ``build_byte_corpus``
+    over this Python's stdlib; (b) ``quality_run --gptq`` (trains the
+    block model and the ``vanilla_31`` baseline, then every phase); (c)
+    ``decode_gate --w8a8 --gptq`` at its defaults (batch 384, prompt 256,
+    64 new tokens: decode M reaches the W8A8 window); (d) ``qat_finetune
+    --recipe mixed48 --distill`` and ``qat_ppl_gate``; (e) ``gptq_gate``
+    with two configurations; (f) ``kv_quality_cpu``,
+    ``longctx_quality_cpu`` and ``real_task_eval``; the corpus, steps and
+    samples cut for time (each cut logged). Then, outside that window,
+    raises unless the trained fp32 ppl is at most QUALITY_PPL_RATIO of the
+    untrained parameters', the card's ppl matches the CPU's (fp32, INT8
+    under ``w8a8_disabled``, INT4 g128), the INT8 ppl with W8A8 is within
+    QUALITY_W8A8_RTOL of fp32 and the decode gate's reference rescored on
+    the CPU matches. Then kernel rows at its shapes
+    (``quality_kernel_rows``).
+    Returns {"quality": launches}."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_quality_",
+                            dir=os.path.join(ROOT, "build"))
+    log(f"quality: cuts for time: build_byte_corpus --max_mb "
+        f"{QUALITY_CORPUS_MB} (default 200); quality_run --steps "
+        f"{QUALITY_STEPS} (default 3000), --eval_samples "
+        f"{QUALITY_EVAL_SAMPLES} (default 256), --calib_samples "
+        f"{QUALITY_CALIB} (default 256); qat_finetune --steps "
+        f"{QUALITY_QAT_STEPS} (default 1000); qat_ppl_gate and gptq_gate "
+        f"--eval_samples {QUALITY_EVAL_SAMPLES} (default 256); gptq_gate "
+        f"--calib_samples {QUALITY_CALIB} (default 64), --configs "
+        f"{QUALITY_GPTQ_CONFIGS} (default: all five); real_task_eval --limit "
+        f"{QUALITY_LIMIT} (default: every doc); the decode gate at its "
+        f"defaults")
+    secs = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        log(f"quality: {name} {secs[name]:.1f} s")
+        return out
+
+    try:
+        prefix = os.path.join(work, "corpus", "pybytes")
+        out = os.path.join(work, "quality")
+        block_dir = os.path.join(out, "block_main_b4_5")
+        gate_out = os.path.join(work, "decode_gate.json")
+        qat_dir = os.path.join(work, "qat")
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        # the launch window holds the scripts' main() calls and nothing
+        # else; the phase's own checks run after the counts are read
+        reset_launches()
+        corpus = step("build_byte_corpus", lambda: build_byte_corpus.main(
+            ["--out", prefix, "--max_mb", str(QUALITY_CORPUS_MB)]))
+        report = step("quality_run", lambda: quality_run.main([
+            "--corpus", prefix, "--out", out, "--steps", str(QUALITY_STEPS),
+            "--eval_samples", str(QUALITY_EVAL_SAMPLES), "--calib_samples",
+            str(QUALITY_CALIB), "--gptq"]))
+        gate = step("decode_gate", lambda: decode_gate.main([
+            "--model_dir", block_dir, "--corpus", prefix + "_holdout",
+            "--train_corpus", prefix, "--w8a8", "--gptq", "--out",
+            gate_out]))
+        qat = step("qat_finetune", lambda: qat_finetune.main([
+            "--model_dir", block_dir, "--corpus", prefix, "--recipe",
+            "mixed48", "--distill", "--steps", str(QUALITY_QAT_STEPS),
+            "--out_dir", qat_dir]))
+        qat_ppl = step("qat_ppl_gate", lambda: qat_ppl_gate.main([
+            "--qat_dir", qat_dir, "--baseline_dir", block_dir, "--corpus",
+            prefix, "--eval_samples", str(QUALITY_EVAL_SAMPLES), "--out",
+            os.path.join(work, "qat_ppl.json")]))
+        gq = step("gptq_gate", lambda: gptq_gate.main([
+            "--model_dir", block_dir, "--corpus", prefix, "--out",
+            os.path.join(work, "gptq_gate.json"), "--configs",
+            QUALITY_GPTQ_CONFIGS, "--eval_samples",
+            str(QUALITY_EVAL_SAMPLES), "--calib_samples",
+            str(QUALITY_CALIB)]))
+        kvq = step("kv_quality_cpu", lambda: kv_quality_cpu.main([
+            "--out", out, "--corpus", prefix]))
+        lc = step("longctx_quality_cpu", lambda: longctx_quality_cpu.main([
+            "--out", out, "--corpus", prefix]))
+        rt = step("real_task_eval", lambda: real_task_eval.main([
+            "--model_dir", block_dir, "--out", os.path.join(work, "real"),
+            "--limit", str(QUALITY_LIMIT)]))
+        torch.cuda.synchronize()
+        scripts_s = time.perf_counter() - started
+        launches = read_launches("quality")
+        log("quality launches " + json.dumps({
+            "K1": launches["K1"], "K4": launches["K4"],
+            "W8A8-q": launches["W8A8-q"], "W8A8-mm": launches["W8A8-mm"],
+            "K2 by form": {"int8": launches["K2"],
+                           "bf16 warp": launches["K2 bf16 warp"],
+                           "bf16 split": launches["K2 bf16 split"]},
+            "K3 by route": dict(k3.flash_attention.route_launches),
+            "K5 fused": launches["K5 fused"]}))
+
+        cfg = config.get_config("block_main_b4_5",
+                                vocab_size=quality_run.VOCAB,
+                                max_length=1024)
+        vcfg = config.get_vanilla_config(
+            "vanilla_31", vocab_size=quality_run.VOCAB,
+            max_position_embeddings=1024)
+        ds = quality_run.make_dataset(quality_run.load_corpus(
+            prefix + "_holdout"), 1024, cfg.block_length, seed=7)
+        # the trainer's initial parameters (its seed, 42) on the same slice
+        untrained = step("untrained ppl", lambda: quality_run.
+                         heldout_ppl_block(bt.init_block_transformer_params(
+                             42, cfg, dtype=torch.float32, device=CARD),
+                             cfg, ds, QUALITY_EVAL_SAMPLES,
+                             QUALITY_EVAL_BATCH))
+        p = report["ppl"]
+        log(json.dumps({"quality_corpus": corpus}))
+        log(json.dumps({"quality_run": {"ppl": p, "untrained_fp32_ppl":
+                                        untrained,
+                                        "decode_agreement":
+                                        report["decode_agreement"],
+                                        "harness": report["harness"]},
+                        "card": smi}))
+        log(json.dumps({"decode_gate": {
+            "fp32_mean_logprob_ref": gate["fp32_mean_logprob_ref"],
+            "variants": {n: {k: v[k] for k in (
+                "fp32_logprob_delta_pct", "gate", "greedy_agreement")}
+                for n, v in gate["variants"].items()}}, "card": smi}))
+        log(json.dumps({"qat": {k: qat[k] for k in (
+            "recipe", "distill", "steps", "train_s", "losses_per_100")},
+            "qat_ppl_gate": qat_ppl}))
+        log(json.dumps({"gptq_gate": gq}))
+        log(json.dumps({"kv_quality": kvq, "longctx": {
+            k: v for k, v in lc.items() if not k.endswith("every_64")},
+            "real_tasks": rt["gates_vs_fp32"]}))
+        ratio = p["block_fp32"] / untrained
+        log(f"quality: trained fp32 ppl {p['block_fp32']:.4f}, untrained "
+            f"{untrained:.4f}: ratio {ratio:.4f} (limit "
+            f"{QUALITY_PPL_RATIO}); INT8 with W8A8 {p['int8_delta_pct']:+.4f}"
+            f"% (limit {100 * QUALITY_W8A8_RTOL}%)")
+        if not ratio <= QUALITY_PPL_RATIO:
+            raise AssertionError(f"quality: trained ppl {p['block_fp32']} "
+                                 f"not below {QUALITY_PPL_RATIO} x "
+                                 f"{untrained}")
+        if not abs(p["int8_delta_pct"]) <= 100 * QUALITY_W8A8_RTOL:
+            raise AssertionError(f"quality: INT8 (W8A8) ppl "
+                                 f"{p['block_int8']} against fp32 "
+                                 f"{p['block_fp32']}")
+        step("card vs CPU ppl", lambda: quality_ppl_card_vs_cpu(
+            cfg, block_dir, ds))
+        step("decode gate rescored on the CPU", lambda: quality_gate_rescore(
+            cfg, block_dir, prefix + "_holdout", gate))
+        torch.cuda.synchronize()
+        phase_s = time.perf_counter() - started
+        log(json.dumps({"quality_phase_s": phase_s, "scripts_s": scripts_s,
+                        "steps_s": secs, "card": smi}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    quality_kernel_rows(rows, cfg, vcfg)
+    return {"quality": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4572,6 +4918,7 @@ def main() -> None:
     phase_train_quantize(config.get_config(MODEL))
     phase_trainer(smi)
     launches.update(phase_eval(rows, smi))
+    launches.update(phase_quality(rows, smi))
     log("block/vanilla generated tokens per second at B=8 p2048/d128, "
         "INT8 KV (smoke figures, not a benchmark): " + ", ".join(
             f"{q} {tok_s[(q, 'int8')] / tok_s['vanilla']:.3f}"

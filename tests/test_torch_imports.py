@@ -96,3 +96,15 @@ def test_the_walk_finds_the_training_loop_modules(module):
 def test_the_walk_finds_the_eval_and_utils_modules(module):
     names = {f.relative_to(ROOT).as_posix() for f in FILES}
     assert f"{PORT}/{module}" in names
+
+
+@pytest.mark.parametrize("module", [
+    "scripts/__init__.py", "scripts/build_byte_corpus.py",
+    "scripts/quality_run.py", "scripts/decode_gate.py",
+    "scripts/gate_seed_summary.py", "scripts/gptq_gate.py",
+    "scripts/qat_finetune.py", "scripts/qat_ppl_gate.py",
+    "scripts/kv_quality_cpu.py", "scripts/longctx_quality_cpu.py",
+    "scripts/real_task_eval.py"])
+def test_the_walk_finds_the_quality_scripts(module):
+    names = {f.relative_to(ROOT).as_posix() for f in FILES}
+    assert f"{PORT}/{module}" in names

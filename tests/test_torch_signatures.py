@@ -8,6 +8,12 @@ parameters. The JAX ``ops/{dequant_matmul,decode_attention,
 flash_attention,paged_attention}.py`` (the Pallas kernels) are the port's
 ``kernels/``. Names the port adds are free. The deliberate differences are
 listed below, each with its reason; anything else fails.
+
+The JAX package's ``scripts/`` are walked the same way: each ported script
+(``block_transformer_tpu_torch/scripts/``, or the package's top level for
+the entry points ported there) binds every public top-level name of its
+JAX script and a ``main(argv=None)``; the scripts not ported yet are an
+explicit set.
 """
 
 import ast
@@ -125,3 +131,80 @@ def test_public_names_and_parameters_match_jax(module):
             if j != p:
                 faults.append(f"{name}: JAX {j}, port {p}")
     assert not faults, f"{module}: " + "; ".join(faults)
+
+
+# ---------------------------------------------------------------------------
+# scripts/: each JAX script beside its port
+# ---------------------------------------------------------------------------
+
+JAX_SCRIPTS = ROOT / "scripts"
+PORT_SCRIPTS = PORT_PKG / "scripts"
+# the JAX scripts whose port sits at the package's top level
+TOP_LEVEL_SCRIPTS = {"pretrain_block_transformer.py",
+                     "pretrain_vanilla_transformer.py",
+                     "eval_zero_shot_task.py", "eval_longctx.py",
+                     "export_checkpoint.py"}
+# the repository's documentation linter (tests/test_doc_lint.py runs it):
+# a tool of the repository, not of the system, so it has no port
+REPO_TOOLS = {"doc_lint.py"}
+# the scripts still to port (ROADMAP Queue 1 item 6), in its order: the
+# perf probes, then the rest; the two essay builders wait for the essays
+UNPORTED_SCRIPTS = {
+    "kernel_microbench.py", "prefill_profile.py", "w8a8_probe.py",
+    "w8a8_probe2.py", "w8a8_probe3.py", "w8a8_decode_gate.py",
+    "int4kv_probe.py", "kv_scheme_probe.py", "mixed48_stage_probe.py",
+    "paged_admit_probe.py", "engine_cpu_ratio.py", "bench_packer.py",
+    "longctx_85m.py", "train_mfu.py", "train_ckpt.py", "inference_demo.py",
+    "measure_generation_time.py", "retokenize_corpus.py",
+    "build_longctx_assets.py", "build_pg_corpus.py",
+    "build_real_task_fixtures.py"}
+# the JAX decode gate decodes each variant in a subprocess (its WORKER
+# source and the npz its trees travel in); the port runs them in-process
+SCRIPT_ONLY_NAMES = {"decode_gate.py": {"WORKER", "save_tree_npz"}}
+
+
+def _script_names(path: Path, with_imports: bool) -> set:
+    """The public names a script binds at its top level: functions,
+    classes, assigned names and (``with_imports``) names imported from a
+    module."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.ImportFrom) and with_imports:
+            out |= {a.asname or a.name for a in node.names}
+    return {n for n in out if not n.startswith("_")}
+
+
+def _port_script(name: str) -> Path:
+    return PORT_PKG / name if name in TOP_LEVEL_SCRIPTS else \
+        PORT_SCRIPTS / name
+
+
+def test_every_unported_script_is_a_listed_gap():
+    scripts = {p.name for p in JAX_SCRIPTS.glob("*.py")}
+    missing = {s for s in scripts - REPO_TOOLS if not _port_script(s).exists()}
+    assert missing == UNPORTED_SCRIPTS
+    # and the port has no script the JAX package lacks
+    assert {p.name for p in PORT_SCRIPTS.glob("*.py")} - {"__init__.py"} \
+        <= scripts
+
+
+PORTED_SCRIPTS = sorted({p.name for p in JAX_SCRIPTS.glob("*.py")}
+                        - REPO_TOOLS - UNPORTED_SCRIPTS)
+
+
+@pytest.mark.parametrize("script", PORTED_SCRIPTS)
+def test_script_public_names_and_main_match_jax(script):
+    want = _script_names(JAX_SCRIPTS / script, False) - SCRIPT_ONLY_NAMES.get(
+        script, set())
+    got = _script_names(_port_script(script), True)
+    assert "main" in want and "main" in got
+    assert not want - got, f"{script}: missing {sorted(want - got)}"
+    tree = ast.parse(_port_script(script).read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                and n.name == "main")
+    assert [a.arg for a in main.args.args] == ["argv"], script
+    assert [ast.literal_eval(d) for d in main.args.defaults] == [None]

@@ -459,13 +459,17 @@ def neox_stack(params, x: torch.Tensor, *, cfg: NeoXConfig,
 
 
 def _stack(params, x, *, cfg: NeoXConfig, mask, positions, cache=None,
-           write_pos=None, remat: bool = False, qkv=layer_qkv,
+           write_pos=None, remat: bool = False, qkv=None,
            finish=layer_finish):
     """``neox_stack`` with its layer's two halves given: ``qkv`` (LN1, the
     QKV linear, RoPE) and ``finish`` (the output projection, the MLP and
     the residual). The tensor-parallel stack (``parallel/tp_decode.py``)
     gives its own: head-major QKV columns, and one all-reduce of the two
-    row-parallel partial sums."""
+    row-parallel partial sums. ``qkv=None`` is this module's
+    ``layer_qkv``, looked up at each call, as the JAX package calls it by
+    name: a patch of ``neox.layer_qkv`` reaches every stack
+    (``scripts/kv_scheme_probe.py`` fake-quantizes K/V there)."""
+    qkv = qkv or layer_qkv
     max_pos = cfg.max_position_embeddings
     if cache is not None:
         cap = cache.k.shape[3]
@@ -525,7 +529,7 @@ def _stack(params, x, *, cfg: NeoXConfig, mask, positions, cache=None,
 
 
 def _paged_stack(params, x, *, cfg: NeoXConfig, mask, positions,
-                 cache: PagedKVCache, write_pos, cos, sin, qkv=layer_qkv,
+                 cache: PagedKVCache, write_pos, cos, sin, qkv,
                  finish=layer_finish):
     """The stack over the paged pool. Position ``write_pos[b] + s`` of row b
     goes to page ``page_table[b, pos // ps]`` at ``pos % ps`` (page -1,
@@ -642,8 +646,9 @@ def neox_prefill_fresh(params, x: torch.Tensor, *, cfg: NeoXConfig,
 
 
 def _prefill_fresh(params, x, *, cfg: NeoXConfig, mask, positions, cache,
-                   q_tile: int, qkv=layer_qkv, finish=layer_finish):
+                   q_tile: int, qkv=None, finish=layer_finish):
     """``neox_prefill_fresh`` with its layer's halves given, as ``_stack``."""
+    qkv = qkv or layer_qkv
     B, S, _ = x.shape
     _check_room(cache, S, 0)
     cos, sin = rope_tables(cfg, max(cfg.max_position_embeddings,

@@ -51,7 +51,8 @@ import os
 import numpy as np
 import torch
 
-from block_transformer_tpu_torch.scripts.quality_run import load_params
+from block_transformer_tpu_torch.scripts.quality_run import (
+    add_ignored_optimizer_flags, load_params)
 
 W8A8_DECODE_M = 384     # the --w8a8 rows' floor (JAX: BT_W8A8_M_MIN=384)
 
@@ -148,6 +149,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt_len", type=int, default=256)
     ap.add_argument("--gen_tokens", type=int, default=64)
     ap.add_argument("--max_length", type=int, default=1024)
+    add_ignored_optimizer_flags(ap, steps=10000)
     ap.add_argument("--w8a8", action="store_true",
                     help="include the two W8A8-decode rows (W8A8 runs on "
                     "the card only)")

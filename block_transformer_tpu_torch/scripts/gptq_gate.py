@@ -21,6 +21,9 @@ import json
 import os
 import time
 
+from block_transformer_tpu_torch.scripts.quality_run import (
+    add_ignored_optimizer_flags)
+
 
 def main(argv=None) -> dict:
     """Run the ladder; returns the report written to ``--out``."""
@@ -29,6 +32,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--corpus", default="results/corpus/pybytes")
     ap.add_argument("--out", default="results/gptq_gate.json")
     ap.add_argument("--max_length", type=int, default=1024)
+    add_ignored_optimizer_flags(ap, steps=10000)
     ap.add_argument("--calib_samples", type=int, default=64)
     ap.add_argument("--calib_batch", type=int, default=8)
     ap.add_argument("--eval_samples", type=int, default=256)

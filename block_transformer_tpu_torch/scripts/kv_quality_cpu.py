@@ -17,6 +17,9 @@ import argparse
 import json
 import os
 
+from block_transformer_tpu_torch.scripts.quality_run import (
+    add_ignored_optimizer_flags)
+
 
 def main(argv=None) -> dict:
     """Returns the agreement dict written to the report."""
@@ -24,6 +27,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default="results/quality")
     ap.add_argument("--corpus", default="results/corpus/pybytes")
     ap.add_argument("--max_length", type=int, default=1024)
+    add_ignored_optimizer_flags(ap, steps=3000)
     ap.add_argument("--int4_group", type=int, default=128)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")

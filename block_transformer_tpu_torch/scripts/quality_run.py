@@ -87,6 +87,18 @@ def load_params(out_dir: str, device):
     return ckpt.restore_params(out_dir, step, device=device), step
 
 
+def add_ignored_optimizer_flags(ap, steps: int, lr: float = 6e-4) -> None:
+    """``--lr`` and ``--steps``, which the JAX scripts take to rebuild the
+    optimizer state a checkpoint is restored into: accepted, so a JAX
+    command line runs unchanged, and ignored, since ``load_params``
+    restores the parameters alone (``utils/checkpoint.restore_params``)."""
+    why = ("accepted and ignored: the JAX script rebuilds the optimizer "
+           "state to restore into; the port restores the parameters alone "
+           "(utils/checkpoint.restore_params)")
+    ap.add_argument("--lr", type=float, default=lr, help=why)
+    ap.add_argument("--steps", type=int, default=steps, help=why)
+
+
 # ---------------------------------------------------------------------------
 # Phase 1+2: training
 # ---------------------------------------------------------------------------

@@ -28,6 +28,9 @@ import time
 
 import numpy as np
 
+from block_transformer_tpu_torch.scripts.quality_run import (
+    add_ignored_optimizer_flags)
+
 VOCAB = 512
 OFFSET = 3
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -73,6 +76,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default="results/real_tasks")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--max_length", type=int, default=1024)
+    add_ignored_optimizer_flags(ap, steps=3000)
     ap.add_argument("--int4_group", type=int, default=32)
     ap.add_argument("--limit", type=int, default=None)
     ap.add_argument("--cpu", action="store_true",

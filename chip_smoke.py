@@ -193,14 +193,15 @@ one process (and, for step 12, two more on the same card) it:
    each rank's all-reduces (count, mean host and device us) from a trace
    of two more blocks.
 
-13. trains over a mesh (``phase_tp_train``, after step 12) at full width,
-   bf16 parameters from seed 0, two steps on one batch of 4 x 2048
-   tokens, remat: (a) one rank in this process over NCCL, mesh (data 1,
-   model 1), ``make_sharded_grad_and_apply`` against
+13. trains over a mesh (``phase_tp_train``, after step 12) at full width
+   and 6 layers a stack (``TP_TRAIN_LAYERS``), bf16 parameters from seed
+   0, two steps on one batch of 4 x 2048 tokens, remat: (a) one rank in
+   this process over NCCL, mesh (data 1, model 1),
+   ``make_sharded_grad_and_apply`` against
    ``make_grad_and_apply`` on the same state and batches (loss, grad norm
    and the state equal bit for bit after each step); (b) two processes it
    spawns on the one card over gloo with CUDA tensors: gloo's all-gather
-   (bf16, float32) and its all-reduce rate on 1 and 2 GiB, then (data 2)
+   (bf16, float32) and its all-reduce rate on 1 GiB, then (data 2)
    with ZeRO moments, (data 1, model 2) and the pipeline over (pipe 2)
    with 4 micro-batches, each two steps, each step's loss and grad norm
    within TP_TRAIN_RTOL of (a)'s (step 2 reads the sharded update), the
@@ -216,7 +217,7 @@ one process (and, for step 12, two more on the same card) it:
    11) through their ``main(argv)`` at full width (``block_main_b4_5``,
    byte vocab, max length 1024, float32) under a temporary directory of
    ``build/``: ``build_byte_corpus`` over this Python's stdlib (20 MB),
-   ``quality_run --gptq`` (300 steps of the block model and of
+   ``quality_run --gptq`` (150 steps of the block model and of
    ``vanilla_31``, then held-out ppl at fp32, INT8 with W8A8, INT4, mixed48
    and the INT4 gate recipe, the byte harness tasks and the decode
    agreement), ``decode_gate --w8a8 --gptq`` at batch 384, prompt 256 and
@@ -231,7 +232,25 @@ one process (and, for step 12, two more on the same card) it:
    card's held-out ppl within 1e-4 relative of the CPU's (fp32, INT8 under
    ``w8a8_disabled``: K1, INT4 g128: K4), INT8 with W8A8 within 1% of
    fp32 and the decode gate's reference decode rescored on the CPU within
-   1e-4; then kernel rows at its shapes.
+   1e-4; then ``kv_scheme_probe`` on the trained checkpoint (four schemes,
+   K3 by its CUDA-core route, K2 bf16 by both routes, in a launch window
+   of its own); then kernel rows at its shapes.
+
+15. runs the entry scripts (``phase_scripts``) through their
+   ``main(argv)`` on the card under a temporary directory of ``build/``,
+   each in a launch window of its own (K2 bf16 by route and K3 by route
+   logged and asserted; none of K1, K2 INT8, K4, W8A8 or the serving
+   kernels: bf16 weights and caches): ``inference_demo`` at
+   ``block_main_b4_1.2b`` (B = 32, p512 to 640), ``measure_generation_time``
+   at ``block_main_b4_1.2b`` and ``vanilla_410`` (B = 8, p128/d64, 2
+   repeats), then ``--batch auto`` (the batch it chose logged, peak memory
+   at most the card's), ``train_mfu`` at ``block_main_b4_1.2b`` (B = 2 x
+   2048, vocab 50304, float32: no kernel launch), ``train_ckpt`` at
+   ``block_main_b4_85`` for 4 steps on a 2 MB ``build_byte_corpus``
+   corpus, ``longctx_85m`` on that checkpoint at a context of 8192 (2
+   docs, depths 0, 50, 100) and ``bench_packer`` on 20,000 documents (the
+   native and numpy batches equal); each cut and each script's seconds
+   logged.
 
 Every timed full-width run of steps 5-9 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
@@ -288,15 +307,22 @@ from block_transformer_tpu_torch.data import native as native_packer  # noqa: E4
 from block_transformer_tpu_torch.data import mmap_dataset  # noqa: E402
 from block_transformer_tpu_torch.data import packing  # noqa: E402
 from block_transformer_tpu_torch import profile_generate as pg  # noqa: E402
+from block_transformer_tpu_torch.scripts import bench_packer  # noqa: E402
 from block_transformer_tpu_torch.scripts import build_byte_corpus  # noqa: E402
 from block_transformer_tpu_torch.scripts import decode_gate  # noqa: E402
 from block_transformer_tpu_torch.scripts import gptq_gate  # noqa: E402
+from block_transformer_tpu_torch.scripts import inference_demo  # noqa: E402
 from block_transformer_tpu_torch.scripts import kv_quality_cpu  # noqa: E402
+from block_transformer_tpu_torch.scripts import kv_scheme_probe  # noqa: E402
+from block_transformer_tpu_torch.scripts import longctx_85m  # noqa: E402
 from block_transformer_tpu_torch.scripts import longctx_quality_cpu  # noqa: E402
+from block_transformer_tpu_torch.scripts import measure_generation_time  # noqa: E402
 from block_transformer_tpu_torch.scripts import qat_finetune  # noqa: E402
 from block_transformer_tpu_torch.scripts import qat_ppl_gate  # noqa: E402
 from block_transformer_tpu_torch.scripts import quality_run  # noqa: E402
 from block_transformer_tpu_torch.scripts import real_task_eval  # noqa: E402
+from block_transformer_tpu_torch.scripts import train_ckpt  # noqa: E402
+from block_transformer_tpu_torch.scripts import train_mfu  # noqa: E402
 from block_transformer_tpu_torch.config import NeoXConfig  # noqa: E402
 from block_transformer_tpu_torch.inference import generate as gen  # noqa: E402
 from block_transformer_tpu_torch.kernels import build  # noqa: E402
@@ -317,6 +343,7 @@ from block_transformer_tpu_torch.train import optimizer as opt  # noqa: E402
 from block_transformer_tpu_torch.train import train_step as ts  # noqa: E402
 from block_transformer_tpu_torch.train import trainer as trainer_lib  # noqa: E402
 from block_transformer_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
+from block_transformer_tpu_torch.utils import hbm  # noqa: E402
 from block_transformer_tpu_torch.utils import profiling  # noqa: E402
 from block_transformer_tpu_torch.utils import roofline  # noqa: E402
 from block_transformer_tpu_torch.utils import torch_export  # noqa: E402
@@ -463,6 +490,9 @@ PATH_ABSENT = {
 }
 # the paths whose bf16 global cache (capacity > 32) takes K2 bf16's split
 # route; every other path runs it on the token decoder's local cache alone
+# the paths that run K2 bf16 with no token decoder (a vanilla bf16 cache):
+# no warp route
+K2_NO_LOCAL_CACHE = ()
 K2_SPLIT_PATHS = ("generation kv bf16", "eval generate",
                   "eval longctx needle")
 
@@ -2061,9 +2091,10 @@ def read_launches(path: str) -> dict:
     # only the bf16 global cache by the split route
     k2_routes = dict(k2.decode_attention_stacked.route_launches)
     log(f"K2 bf16 by route in the timed {path} run: {json.dumps(k2_routes)}")
-    if "K2 bf16" in PATH_KERNELS[path] and k2_routes["warp"] <= 0:
-        raise AssertionError(f"K2 bf16 did not take the warp route on the "
-                             f"local cache of the {path} path: {k2_routes}")
+    if "K2 bf16" in PATH_KERNELS[path] and (k2_routes["warp"] > 0) == (
+            path in K2_NO_LOCAL_CACHE):
+        raise AssertionError(f"K2 bf16's warp route (the token decoder's "
+                             f"local cache) on the {path} path: {k2_routes}")
     if (k2_routes["split"] > 0) != (path in K2_SPLIT_PATHS):
         raise AssertionError(f"K2 bf16's split route on the {path} path: "
                              f"{k2_routes}")
@@ -3638,7 +3669,7 @@ def phase_eval(rows, smi) -> dict:
 
 # the quality phase's cuts of the scripts' defaults, for time
 QUALITY_CORPUS_MB = 20        # build_byte_corpus --max_mb (default 200)
-QUALITY_STEPS = 300           # quality_run --steps (default 3000)
+QUALITY_STEPS = 150           # quality_run --steps (default 3000)
 QUALITY_EVAL_SAMPLES = 64     # --eval_samples (default 256)
 QUALITY_CALIB = 32            # quality_run / gptq_gate --calib_samples
 QUALITY_QAT_STEPS = 50        # qat_finetune --steps (default 1000)
@@ -3772,6 +3803,41 @@ def quality_kernel_rows(rows, cfg, vcfg) -> None:
                  dtype=torch.float32)
 
 
+KV_PROBE_SCHEMES = "bf16,sym8,sym4,k8v4"   # kv_scheme_probe --schemes
+                                           # (default: all eight)
+PATH_KERNELS["script kv_scheme_probe"] = ("K2 bf16", "K3")
+PATH_ABSENT["script kv_scheme_probe"] = ("K1", "K2", "K4", *W8A8, *SERVING)
+PATH_ROUTES["script kv_scheme_probe"] = {"K3": "fma"}
+K2_SPLIT_PATHS += ("script kv_scheme_probe",)
+
+
+def quality_kv_scheme_probe(block_dir, holdout, work, smi) -> dict:
+    """``kv_scheme_probe`` on the phase's trained checkpoint (float32,
+    heads of 32: K3 by its CUDA-core route; the bf16 global cache, 76
+    blocks, by K2 bf16's split route, the local cache by its warp route),
+    its own launch window; raises unless the reference and every scheme
+    scored a finite logprob and some scheme moved it."""
+    log(f"kv_scheme_probe: cut for time: --schemes {KV_PROBE_SCHEMES} "
+        f"(default: all eight)")
+    torch.cuda.synchronize()
+    reset_launches()
+    report = kv_scheme_probe.main([
+        "--model_dir", block_dir, "--corpus", holdout, "--schemes",
+        KV_PROBE_SCHEMES, "--out", os.path.join(work, "kv_scheme.json")])
+    torch.cuda.synchronize()
+    read_launches("script kv_scheme_probe")
+    log(json.dumps({"kv_scheme_probe": report, "card": smi}))
+    lps = [report["fp32_mean_logprob_ref"]] + [
+        v["fp32_mean_logprob"] for v in report["schemes"].values()]
+    if not all(math.isfinite(x) for x in lps) or sorted(
+            report["schemes"]) != sorted(KV_PROBE_SCHEMES.split(",")[1:]):
+        raise AssertionError(f"kv_scheme_probe: {report}")
+    if all(x == report["fp32_mean_logprob_ref"] for x in lps[1:]):
+        raise AssertionError("kv_scheme_probe: every scheme decoded as bf16 "
+                             "did: the layer_qkv patch reached nothing")
+    return report
+
+
 QUALITY_EVAL_BATCH = 16       # quality_run --eval_batch
 QUALITY_GATE_BATCH = 384      # decode_gate --batch
 QUALITY_GATE_CAP = 80         # its global cache: 64 prompt + 16 new blocks
@@ -3795,7 +3861,9 @@ def phase_quality(rows, smi) -> dict:
     untrained parameters', the card's ppl matches the CPU's (fp32, INT8
     under ``w8a8_disabled``, INT4 g128), the INT8 ppl with W8A8 is within
     QUALITY_W8A8_RTOL of fp32 and the decode gate's reference rescored on
-    the CPU matches. Then kernel rows at its shapes
+    the CPU matches, then runs ``kv_scheme_probe`` on the trained
+    checkpoint in a launch window of its own
+    (``quality_kv_scheme_probe``). Then kernel rows at its shapes
     (``quality_kernel_rows``).
     Returns {"quality": launches}."""
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -3925,6 +3993,8 @@ def phase_quality(rows, smi) -> dict:
                                  f"{p['block_fp32']}")
         step("card vs CPU ppl", lambda: quality_ppl_card_vs_cpu(
             cfg, block_dir, ds))
+        step("kv_scheme_probe", lambda: quality_kv_scheme_probe(
+            block_dir, prefix + "_holdout", work, smi))
         step("decode gate rescored on the CPU", lambda: quality_gate_rescore(
             cfg, block_dir, prefix + "_holdout", gate))
         torch.cuda.synchronize()
@@ -3935,6 +4005,190 @@ def phase_quality(rows, smi) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     quality_kernel_rows(rows, cfg, vcfg)
     return {"quality": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase_scripts: the entry scripts and the packer benchmark
+# (block_transformer_tpu_torch/scripts/)
+# ---------------------------------------------------------------------------
+
+SCRIPTS_DEMO = ["--batch", "32", "--prompt_len", "512", "--max_length", "640"]
+SCRIPTS_BATCH = 8             # measure_generation_time --batch (default auto)
+SCRIPTS_PREFILL = 128         # its --prefill (default 1)
+SCRIPTS_DECODE = 64           # its --decode (default 2048)
+SCRIPTS_REPS = 2              # its --n_rep (default 5)
+SCRIPTS_MFU = ["--batch", "2", "--max_length", "2048", "--vocab", "50304",
+               "--warmup", "1", "--steps", "2", "--corpus", ""]
+SCRIPTS_CORPUS_MB = 2         # build_byte_corpus --max_mb (default 200),
+SCRIPTS_HOLDOUT_EVERY = 5     # --holdout_every (default 100): the holdout
+                              # must hold two contexts of 8192
+SCRIPTS_CKPT_STEPS = 4        # train_ckpt --steps (default 5000)
+SCRIPTS_CKPTS = 2             # its --n_checkpoints (default 5)
+SCRIPTS_LONGCTX = ["--context", "8192", "--max_docs", "2", "--depths",
+                   "0,50,100"]    # defaults: 16 docs, 11 depths
+SCRIPTS_PACKER_DOCS = 20000   # bench_packer --n_docs (default 200000)
+# bf16 weights (no K1, K4 or W8A8) and the bf16 global cache (over 32
+# blocks: K2 bf16's split route; the local cache: its warp route); K3 on
+# the tensor cores (heads of 128 or 64)
+for _path in ("script inference_demo", "script measure_generation_time",
+              "script measure_generation_time auto", "script longctx_85m",
+              "script measure_generation_time vanilla"):
+    PATH_KERNELS[_path] = ("K2 bf16", "K3")
+    PATH_ABSENT[_path] = ("K1", "K2", "K4", *W8A8, *SERVING)
+    K2_SPLIT_PATHS += (_path,)
+K2_NO_LOCAL_CACHE += ("script measure_generation_time vanilla",)
+
+
+def script_step(secs: dict, name: str, fn, argv, path=None):
+    """``fn(argv)`` (a script's ``main``) between device synchronizations,
+    its seconds into ``secs[name]``: with ``path``, in a launch window of
+    its own read as ``path`` (every kernel of it launched, none it must
+    not); without, no kernel may launch (training: autograd). Returns
+    (report, launches or None)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    report = fn([str(a) for a in argv])
+    torch.cuda.synchronize()
+    secs[name] = time.perf_counter() - t0
+    log(f"scripts: {name} {secs[name]:.1f} s")
+    if path is None:
+        assert_no_launch(before, name)
+        return report, None
+    return report, read_launches(path)
+
+
+def finite(what: str, *xs) -> None:
+    if not all(math.isfinite(float(x)) for x in xs):
+        raise AssertionError(f"{what}: not finite: {xs}")
+
+
+def phase_scripts(smi) -> dict:
+    """The entry scripts through their ``main(argv)`` on the card under a
+    temporary directory of ``build/``, each in a launch window of its own
+    (K2 bf16 and K3 by route logged and asserted): ``inference_demo`` at
+    ``block_main_b4_1.2b`` (bf16, B = 32, p512 to 640); ``measure_
+    generation_time`` at ``block_main_b4_1.2b`` and ``vanilla_410`` at a
+    fixed batch, then at ``block_main_b4_1.2b`` with ``--batch auto``
+    (peak memory at most ``hbm_bytes_limit()``); ``train_mfu`` at
+    ``block_main_b4_1.2b`` (float32, B = 2 x 2048, no kernel under
+    autograd); ``train_ckpt`` at ``block_main_b4_85`` on a small
+    ``build_byte_corpus`` corpus; ``longctx_85m`` on that checkpoint at a
+    context of 8192 (2 docs, 3 depths); ``bench_packer`` at a cut corpus.
+    Raises on any failure: non-finite figures, tokens out of the vocab, a
+    missing checkpoint, packers that disagree. Returns {path: launches}."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_scripts_",
+                            dir=os.path.join(ROOT, "build"))
+    log(f"scripts: cuts for time: inference_demo {' '.join(SCRIPTS_DEMO)}; "
+        f"measure_generation_time --batch {SCRIPTS_BATCH} and auto (default "
+        f"auto), --prefill {SCRIPTS_PREFILL} (default 1), --decode "
+        f"{SCRIPTS_DECODE} (default 2048), --n_rep {SCRIPTS_REPS} (default "
+        f"5); train_mfu {' '.join(SCRIPTS_MFU[:-2])} (defaults: batch 16, "
+        f"1024 tokens, vocab 512, 3 + 30 steps), synthetic batches; "
+        f"build_byte_corpus --max_mb {SCRIPTS_CORPUS_MB} (default 200), "
+        f"--holdout_every {SCRIPTS_HOLDOUT_EVERY} (default 100); "
+        f"train_ckpt --steps {SCRIPTS_CKPT_STEPS} (default 5000), "
+        f"--n_checkpoints {SCRIPTS_CKPTS} (default 5); longctx_85m "
+        f"{' '.join(SCRIPTS_LONGCTX)} (defaults 16 docs, 11 depths), no "
+        f"vanilla pairing; bench_packer --n_docs {SCRIPTS_PACKER_DOCS} "
+        f"(default 200000)")
+    secs, launches = {}, {}
+    started = time.perf_counter()
+    try:
+        demo, launches["script inference_demo"] = script_step(
+            secs, "inference_demo", inference_demo.main,
+            ["--model", MODEL, *SCRIPTS_DEMO], "script inference_demo")
+        toks = demo["tokens"]
+        if toks.shape != (32, 640) or toks.min() < 0 or \
+                toks.max() >= config.get_config(MODEL).vocab_size:
+            raise AssertionError(f"inference_demo tokens {toks.shape} "
+                                 f"[{toks.min()}, {toks.max()}]")
+        finite("inference_demo", demo["tokens_per_sec"])
+        log(json.dumps({"inference_demo": {
+            k: v for k, v in demo.items() if k != "tokens"}, "card": smi}))
+
+        rows = []
+        for name, model, batch, path in (
+                ("measure_generation_time", MODEL, SCRIPTS_BATCH,
+                 "script measure_generation_time"),
+                ("measure_generation_time vanilla", VANILLA_MODEL,
+                 SCRIPTS_BATCH, "script measure_generation_time vanilla"),
+                ("measure_generation_time auto", MODEL, "auto",
+                 "script measure_generation_time auto")):
+            torch.cuda.reset_peak_memory_stats()
+            row, launches[path] = script_step(
+                secs, name, measure_generation_time.main, [
+                    "--model", model, "--batch", batch, "--prefill",
+                    SCRIPTS_PREFILL, "--decode", SCRIPTS_DECODE, "--n_rep",
+                    SCRIPTS_REPS, "--out", os.path.join(work, "gen")], path)
+            peak = torch.cuda.max_memory_allocated()
+            finite(name, row["mean_ms"], row["tokens_per_sec"])
+            rows.append({**row, "peak_bytes": peak})
+        limit = hbm.hbm_bytes_limit()
+        log(f"scripts: --batch auto chose batch {rows[-1]['batch']} at "
+            f"p{SCRIPTS_PREFILL}/d{SCRIPTS_DECODE}; peak "
+            f"{rows[-1]['peak_bytes'] / 2**30:.2f} GiB of "
+            f"hbm_bytes_limit() {limit / 2**30:.2f} GiB")
+        if not rows[-1]["peak_bytes"] <= limit:
+            raise AssertionError(f"--batch auto: peak {rows[-1]['peak_bytes']}"
+                                 f" over the card's {limit} bytes")
+        log(json.dumps({"measure_generation_time": rows, "card": smi}))
+
+        mfu, _ = script_step(secs, "train_mfu", train_mfu.main,
+                             ["--model", MODEL, *SCRIPTS_MFU])
+        finite("train_mfu", mfu["loss_first"], mfu["loss_last"],
+               mfu["train_mfu_best"])
+        log(json.dumps({"train_mfu": mfu, "card": smi}))
+
+        prefix = os.path.join(work, "corpus", "pybytes")
+        corpus, _ = script_step(secs, "build_byte_corpus",
+                                build_byte_corpus.main,
+                                ["--out", prefix, "--max_mb",
+                                 SCRIPTS_CORPUS_MB, "--holdout_every",
+                                 SCRIPTS_HOLDOUT_EVERY])
+        run, _ = script_step(secs, "train_ckpt", train_ckpt.main, [
+            "--model", "block_main_b4_85", "--corpus", prefix, "--out",
+            os.path.join(work, "scale85"), "--steps", SCRIPTS_CKPT_STEPS,
+            "--n_checkpoints", SCRIPTS_CKPTS])
+        recs = metrics_records(run["out"])
+        finite_records(recs, "train_ckpt")
+        every = SCRIPTS_CKPT_STEPS // SCRIPTS_CKPTS
+        if run["checkpoint_steps"] != list(range(
+                every, SCRIPTS_CKPT_STEPS + 1, every)):
+            raise AssertionError(f"train_ckpt checkpoints "
+                                 f"{run['checkpoint_steps']}")
+        log(json.dumps({"build_byte_corpus": corpus, "train_ckpt": {
+            **run, "records": [{k: r[k] for k in (
+                "step", "loss", "grad_norm", "wall_time_s")} for r in recs]},
+            "card": smi}))
+
+        lc, launches["script longctx_85m"] = script_step(
+            secs, "longctx_85m", longctx_85m.main, [
+                "--model", "block_main_b4_85", "--model_dir", run["out"],
+                "--corpus", prefix + "_holdout", *SCRIPTS_LONGCTX,
+                "--haystack", HAYSTACK, "--out",
+                os.path.join(work, "longctx_85m.json")],
+            "script longctx_85m")
+        finite("longctx_85m", *lc["block_pos_loss_every_256"],
+               lc["block_loss_beyond_1024_mean"])
+        if lc["n_chunks"] < 1 or lc["needle_samples"] != 6:
+            raise AssertionError(f"longctx_85m: {lc}")
+        log(json.dumps({"longctx_85m": lc, "card": smi}))
+
+        packer, _ = script_step(secs, "bench_packer", bench_packer.main,
+                                ["--n_docs", SCRIPTS_PACKER_DOCS])
+        if not packer.get("equal"):
+            raise AssertionError(f"bench_packer: the routes differ or the "
+                                 f"native one did not build: {packer}")
+        log(json.dumps({"bench_packer": packer, "card": smi}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(json.dumps({"scripts_phase_s": time.perf_counter() - started,
+                    "steps_s": secs, "card": smi}))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4387,7 +4641,10 @@ TP_TRAIN_SHAPES = {"data 2": dict(n_data=2, n_model=1),
                    "model 2": dict(n_data=1, n_model=2),
                    "pipe 2": ((1, 2), ("data", "pipe"))}
 TP_TRAINER_LAYERS = 1   # (c)'s depth a stack (full width)
-GLOO_RATE_GIB = (1, 2)  # float32 CUDA tensors all-reduced over gloo
+TP_TRAIN_LAYERS = 6     # the phase's depth a stack (full width): gloo's
+                        # all-reduce of the float32 gradient sets (b)'s
+                        # step time, so half the depth halves it
+GLOO_RATE_GIB = (1,)    # float32 CUDA tensors all-reduced over gloo
 
 
 def _sync(card: str) -> None:
@@ -4649,8 +4906,9 @@ def tp_train_rank(rank: int, store: str, out: str, card: str, cfg) -> None:
 
 
 def phase_tp_train(smi: str, cfg=None) -> None:
-    """Training over a mesh at full width (``MODEL``, bf16 parameters from
-    seed 0, TP_TRAIN_SEQS x TRAIN_TOKENS tokens a step, remat). (a) One
+    """Training over a mesh with ``cfg`` (``MODEL`` by default; ``main``
+    gives it at full width and TP_TRAIN_LAYERS a stack), bf16 parameters
+    from seed 0, TP_TRAIN_SEQS x TRAIN_TOKENS tokens a step, remat). (a) One
     rank in this process, NCCL, mesh (data 1, model 1): two steps of
     ``make_sharded_grad_and_apply`` against ``make_grad_and_apply`` on the
     same parameters and batches: the loss, the grad norm and the checksums
@@ -4849,6 +5107,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    phase_s, lap_start = {}, [started]
+
+    def lap(name: str) -> None:      # each phase's seconds, for the budget
+        now = time.perf_counter()
+        phase_s[name], lap_start[0] = now - lap_start[0], now
+
     t0 = time.perf_counter()
     took = build.build_all(["dequant_matmul", "decode_attention",
                             "flash_attention", "paged_attention", "w8a8"])
@@ -4862,6 +5126,7 @@ def main() -> None:
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name} {entry}: {line.strip()}")
 
+    lap("build")
     cfg = config.get_config(MODEL)
     vcfg = config.get_vanilla_config(VANILLA_MODEL)
     rows = []
@@ -4880,12 +5145,14 @@ def main() -> None:
     phase_family_kernels(rows)
     floor = launch_floor_ms()
     log(json.dumps({"launch_floor_ms": floor, "card": smi}))
+    lap("kernel rows")
     phase_small_reference()
     phase_small_quantized()
     phase_small_engine()
     phase_small_w8a8()
     phase_small_train_gptq()
     phase_small_families()
+    lap("small checks")
     launches, tok_s, tokens = {}, {}, {}
     for quantize in ("int8", "int4", "mixed48"):
         t0 = time.perf_counter()
@@ -4912,13 +5179,23 @@ def main() -> None:
     del vparams
     log(json.dumps({"device_launches_per_run": device_launches,
                     "card": smi}))
+    lap("generation, engines, vanilla")
     launches.update(phase_tp(rows, smi))
-    phase_tp_train(smi)
+    lap("tp")
+    phase_tp_train(smi, cut_depth(config.get_config(MODEL), TP_TRAIN_LAYERS))
+    lap("tp_train")
     launches.update(phase_families(smi))
+    lap("families")
     phase_train_quantize(config.get_config(MODEL))
+    lap("train_quantize")
     phase_trainer(smi)
+    lap("trainer")
     launches.update(phase_eval(rows, smi))
+    lap("eval")
     launches.update(phase_quality(rows, smi))
+    lap("quality")
+    launches.update(phase_scripts(smi))
+    lap("scripts")
     log("block/vanilla generated tokens per second at B=8 p2048/d128, "
         "INT8 KV (smoke figures, not a benchmark): " + ", ".join(
             f"{q} {tok_s[(q, 'int8')] / tok_s['vanilla']:.3f}"
@@ -4931,6 +5208,7 @@ def main() -> None:
                 f"K2 bf16 {row['decode_route']}"]
     log(f"timing windows timed again behind a longer spin: {len(retimed)} "
         f"({sum(retimed):.1f} s of host time at first)")
+    log(json.dumps({"phase_s": phase_s, "card": smi}))
     log(f"chip_smoke.py total {time.perf_counter() - started:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -4,7 +4,8 @@ Every ``.py`` file of ``block_transformer_tpu_torch/`` and ``chip_smoke.py``
 is parsed with ``ast`` (nothing is imported), and each ``import`` and
 ``from ... import`` statement anywhere in it, at any depth, is checked: no
 ``jax`` or ``jaxlib`` module, no ``block_transformer_tpu`` module other
-than the port's own package, and no ``safetensors`` module (the card has
+than the port's own package, nothing of the JAX package's ``scripts/``
+(the port keeps its own copies), and no ``safetensors`` module (the card has
 no such package: the port reads and writes the format itself).
 """
 
@@ -21,7 +22,7 @@ PORT = "block_transformer_tpu_torch"
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "safetensors") or (
+    return top in ("jax", "jaxlib", "safetensors", "scripts") or (
         top.startswith("block_transformer_tpu") and top != PORT)
 
 
@@ -45,9 +46,12 @@ def test_the_walk_finds_the_port():
 def test_the_check_catches_what_it_forbids():
     tree = ast.parse("import os\nif x:\n    import jax.numpy as jnp\n"
                      "def f():\n    from block_transformer_tpu.ops import q\n"
-                     "from block_transformer_tpu_torch import bridge\n")
+                     "from block_transformer_tpu_torch import bridge\n"
+                     "from scripts.build_real_task_fixtures import x\n"
+                     "from block_transformer_tpu_torch.scripts import y\n")
     bad = [m for _, m in _imports(tree) if _forbidden(m)]
-    assert bad == ["jax.numpy", "block_transformer_tpu.ops"]
+    assert sorted(bad) == ["block_transformer_tpu.ops", "jax.numpy",
+                           "scripts.build_real_task_fixtures"]
 
 
 def test_the_check_catches_safetensors():
@@ -106,5 +110,17 @@ def test_the_walk_finds_the_eval_and_utils_modules(module):
     "scripts/kv_quality_cpu.py", "scripts/longctx_quality_cpu.py",
     "scripts/real_task_eval.py"])
 def test_the_walk_finds_the_quality_scripts(module):
+    names = {f.relative_to(ROOT).as_posix() for f in FILES}
+    assert f"{PORT}/{module}" in names
+
+
+@pytest.mark.parametrize("module", [
+    "scripts/inference_demo.py", "scripts/measure_generation_time.py",
+    "scripts/train_mfu.py", "scripts/train_ckpt.py",
+    "scripts/longctx_85m.py", "scripts/kv_scheme_probe.py",
+    "scripts/bench_packer.py", "scripts/retokenize_corpus.py",
+    "scripts/build_longctx_assets.py", "scripts/build_real_task_fixtures.py",
+    "scripts/build_pg_corpus.py"])
+def test_the_walk_finds_the_entry_scripts(module):
     names = {f.relative_to(ROOT).as_posix() for f in FILES}
     assert f"{PORT}/{module}" in names

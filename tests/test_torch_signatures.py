@@ -13,7 +13,9 @@ The JAX package's ``scripts/`` are walked the same way: each ported script
 (``block_transformer_tpu_torch/scripts/``, or the package's top level for
 the entry points ported there) binds every public top-level name of its
 JAX script and a ``main(argv=None)``; the scripts not ported yet are an
-explicit set.
+explicit set. Each ported script's command line takes every flag of its
+JAX script's (``add_argument`` calls, read by ``ast``); the flags only the
+port takes are listed by name.
 """
 
 import ast
@@ -147,17 +149,15 @@ TOP_LEVEL_SCRIPTS = {"pretrain_block_transformer.py",
 # the repository's documentation linter (tests/test_doc_lint.py runs it):
 # a tool of the repository, not of the system, so it has no port
 REPO_TOOLS = {"doc_lint.py"}
-# the scripts still to port (ROADMAP Queue 1 item 6), in its order: the
-# perf probes, then the rest; the two essay builders wait for the essays
+# the scripts still to port (ROADMAP Queue 1 item 6): the ten speed probes.
+# They are to be cut to what the port's benchmark (Queue 1 item 1) and
+# chip_smoke.py do not already measure, so they wait until the benchmark
+# exists
 UNPORTED_SCRIPTS = {
     "kernel_microbench.py", "prefill_profile.py", "w8a8_probe.py",
     "w8a8_probe2.py", "w8a8_probe3.py", "w8a8_decode_gate.py",
-    "int4kv_probe.py", "kv_scheme_probe.py", "mixed48_stage_probe.py",
-    "paged_admit_probe.py", "engine_cpu_ratio.py", "bench_packer.py",
-    "longctx_85m.py", "train_mfu.py", "train_ckpt.py", "inference_demo.py",
-    "measure_generation_time.py", "retokenize_corpus.py",
-    "build_longctx_assets.py", "build_pg_corpus.py",
-    "build_real_task_fixtures.py"}
+    "int4kv_probe.py", "mixed48_stage_probe.py", "paged_admit_probe.py",
+    "engine_cpu_ratio.py"}
 # the JAX decode gate decodes each variant in a subprocess (its WORKER
 # source and the npz its trees travel in); the port runs them in-process
 SCRIPT_ONLY_NAMES = {"decode_gate.py": {"WORKER", "save_tree_npz"}}
@@ -208,3 +208,88 @@ def test_script_public_names_and_main_match_jax(script):
                 and n.name == "main")
     assert [a.arg for a in main.args.args] == ["argv"], script
     assert [ast.literal_eval(d) for d in main.args.defaults] == [None]
+
+
+# flags only the port's scripts take: ``--cpu`` (the port runs on the card
+# unless asked; the JAX scripts pick the device with JAX's platform, and
+# inference_demo / measure_generation_time read --cpu from sys.argv), and
+# per script the JAX script's inputs that the port made flags
+PORT_ONLY_FLAGS = {"--cpu"}
+PORT_ONLY_FLAGS_BY_SCRIPT = {
+    # JAX's fixes these at the quality run's layout; the port takes them
+    "longctx_quality_cpu.py": {"--context_length", "--corpus", "--haystack",
+                               "--out"},
+}
+# the port's helpers that add flags to a parser (name -> its module)
+FLAG_HELPERS = {"add_ignored_optimizer_flags": PORT_SCRIPTS / "quality_run.py"}
+# the scripts that take --lr / --steps and ignore them, with the reason in
+# their help: JAX rebuilds the optimizer state a checkpoint is restored
+# into, the port restores the parameters alone (restore_params)
+IGNORED_OPTIMIZER_FLAGS = ["decode_gate", "gptq_gate", "kv_quality_cpu",
+                           "real_task_eval"]
+
+
+def _add_argument_flags(tree) -> set:
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(
+                node.func, ast.Attribute) and node.func.attr == "add_argument":
+            out |= {a.value for a in node.args if isinstance(a, ast.Constant)
+                    and isinstance(a.value, str) and a.value.startswith("-")}
+    return out
+
+
+def _helper_flags(name: str) -> set:
+    tree = ast.parse(FLAG_HELPERS[name].read_text())
+    return _add_argument_flags(next(
+        n for n in tree.body if isinstance(n, ast.FunctionDef)
+        and n.name == name))
+
+
+def _flags(path: Path) -> set:
+    """The option strings of every ``add_argument`` call in ``path``, and
+    of every ``FLAG_HELPERS`` helper it calls."""
+    tree = ast.parse(path.read_text())
+    out = _add_argument_flags(tree)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) \
+                and node.func.id in FLAG_HELPERS:
+            out |= _helper_flags(node.func.id)
+    return out
+
+
+@pytest.mark.parametrize("script", PORTED_SCRIPTS)
+def test_script_takes_every_jax_flag(script):
+    want = _flags(JAX_SCRIPTS / script)
+    got = _flags(_port_script(script))
+    assert not want - got, f"{script}: missing {sorted(want - got)}"
+    extra = got - want - PORT_ONLY_FLAGS
+    assert extra == PORT_ONLY_FLAGS_BY_SCRIPT.get(script, set()), \
+        f"{script}: port-only flags {sorted(extra)}"
+
+
+def test_the_flag_walk_catches_a_missing_flag(tmp_path):
+    jax_like = tmp_path / "jax.py"
+    jax_like.write_text("ap.add_argument('--lr', type=float)\n"
+                        "ap.add_argument('--steps', type=int)\n")
+    port_like = tmp_path / "port.py"
+    port_like.write_text("ap.add_argument('--steps', type=int)\n")
+    assert _flags(jax_like) - _flags(port_like) == {"--lr"}
+    port_like.write_text("add_ignored_optimizer_flags(ap, steps=3)\n")
+    assert _flags(jax_like) <= _flags(port_like)
+
+
+@pytest.mark.parametrize("script", IGNORED_OPTIMIZER_FLAGS)
+def test_a_jax_command_line_with_lr_and_steps_parses(script, capsys):
+    """The repaired scripts take JAX's ``--lr`` / ``--steps`` (argparse
+    itself, through ``--help``, which exits before any work), and their
+    help says why they are ignored."""
+    import importlib
+    module = importlib.import_module(
+        f"block_transformer_tpu_torch.scripts.{script}")
+    with pytest.raises(SystemExit) as exit_:
+        module.main(["--lr", "3e-4", "--steps", "5000", "--help"])
+    assert exit_.value.code == 0
+    help_text = " ".join(capsys.readouterr().out.split())
+    assert "--lr LR" in help_text and "--steps STEPS" in help_text
+    assert "ignored" in help_text and "restore_params" in help_text

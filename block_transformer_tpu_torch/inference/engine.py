@@ -57,6 +57,8 @@ paged caches. ``overlap_streams`` without a mesh is ignored, as in JAX.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -102,6 +104,24 @@ class EngineStats:
     # positions decoded past a request's EOS / max_new_tokens inside its
     # final block (paid but not emitted)
     tokens_wasted: int = 0
+
+
+_PAGED_PROBE_NOCOPY = contextvars.ContextVar("bt_paged_probe_nocopy",
+                                             default=False)
+
+
+@contextlib.contextmanager
+def paged_probe_nocopy():
+    """A timing probe's switch (``scripts/paged_admit_probe.py`` alone; the
+    JAX engine's ``BT_PAGED_PROBE_NOCOPY=1``): admissions inside skip the
+    page copy (K8) that places a prefilled prompt's pages in the pool, so
+    that its cost can be isolated. The pool is then WRONG: the admitted
+    slots decode from pages that hold no prompt. Off by default."""
+    tok = _PAGED_PROBE_NOCOPY.set(True)
+    try:
+        yield
+    finally:
+        _PAGED_PROBE_NOCOPY.reset(tok)
 
 
 def _round_up(x, m):
@@ -348,7 +368,7 @@ class ContinuousBatchingEngine:
             if row is not None:
                 own.setdefault(row, j)
         c = self.cache
-        if isinstance(c, neox.PagedKVCache):
+        if isinstance(c, neox.PagedKVCache) and not _PAGED_PROBE_NOCOPY.get():
             # row Bl of the table: zeros, the null page
             table = torch.cat([c.page_table, c.page_table.new_zeros(
                 (1, self.n_virt))])

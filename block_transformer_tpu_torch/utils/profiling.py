@@ -6,6 +6,12 @@ reference's CUDA events + torch.profiler machinery, SURVEY.md §5.1).
   one, the CUDA card, written to ``<dir>/trace.json`` (Chrome/Perfetto).
 - ``timed(fn)``: wall time of calls whose CUDA results are waited for with
   ``torch.cuda.synchronize()`` (the JAX package's ``block_until_ready``).
+- ``event_timed(run, device)``: the best of a few timings of ``run()``, by
+  CUDA events behind a spin of the card (device time) and by the host
+  clock between synchronizations (wall time); the speed probes of
+  ``scripts/`` time their host-issued loops with it.
+- ``card_label(device)``: the card's name and power limit as ``nvidia-smi``
+  gives them, beside every figure taken on it.
 - ``device_memory_stats``: ``torch.cuda.memory_stats()`` of the card.
 - ``decompose_generation``: per-phase timing of the two-level decode
   (block-decoder vs token-decoder split, the reference's
@@ -17,8 +23,9 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -64,6 +71,64 @@ def timed(fn: Callable, *args, n_rep: int = 1, **kwargs):
     for _ in range(n_rep):
         result = block_until_ready(fn(*args, **kwargs))
     return result, (time.perf_counter() - t0) / n_rep
+
+
+SM_HZ = 1.98e9           # the H100's top SM clock: torch.cuda._sleep's unit
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def event_timed(run: Callable, device, reps: int = 1, spin: bool = True
+                ) -> Tuple[Optional[float], float]:
+    """(device s, wall s) of ``run()``: each the best of ``reps`` timed calls
+    after one untimed call. Wall: between synchronizations, by the host
+    clock. Device (None off the card): CUDA events around a second call
+    queued behind a spin of the card twice as long as the first took the
+    host to issue, so that the host's launch cost is left out of it (unless
+    ``run`` itself waits for the card). With ``spin`` False the events
+    bracket the wall-timed call itself: one call a rep, and where the host
+    issues slower than the card runs, the device time is the call's span
+    on the card, host gaps included."""
+    cuda = torch.device(device).type == "cuda"
+    run()
+    best_dev = best_wall = float("inf")
+    for _ in range(reps):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+        _sync(device)
+        t0 = time.perf_counter()
+        if cuda and not spin:
+            start.record()
+        run()
+        issue = time.perf_counter() - t0
+        if cuda and not spin:
+            end.record()
+        _sync(device)
+        best_wall = min(best_wall, time.perf_counter() - t0)
+        if cuda and spin:
+            torch.cuda._sleep(int(2 * issue * SM_HZ) + 2_000_000)
+            start.record()
+            run()
+            end.record()
+        if cuda:
+            end.synchronize()
+            best_dev = min(best_dev, start.elapsed_time(end) / 1e3)
+    return (best_dev if cuda else None), best_wall
+
+
+def card_label(device) -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` of
+    the card (its first line), or "cpu"."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout
+    return out.strip().splitlines()[0]
 
 
 def device_memory_stats() -> Dict[str, int]:

@@ -251,6 +251,20 @@ one process (and, for step 12, two more on the same card) it:
    docs, depths 0, 50, 100) and ``bench_packer`` on 20,000 documents (the
    native and numpy batches equal); each cut and each script's seconds
    logged.
+16. runs the ten speed probes (``phase_probes``; ``w8a8_decode_gate`` in
+   step 14 on its trained checkpoint): first each probe's kernels against
+   their plain versions on its inputs at its shapes (W8A8-q / W8A8-mm and
+   K5 fused bit for bit, ``int8_pure_body``'s shift within the float32
+   rounding of sums past 2^24, the rest within TOL), then each ``main``
+   in a launch window of its own (every kernel of it launched, none it
+   must not, routes asserted): ``w8a8_probe{,2,3}`` at M = 32768,
+   ``int4kv_probe`` (B = 128, cap 640), ``kernel_microbench`` (K1 / K4 at
+   M = 256, K2 INT8 at B = 256 and 64, K3 causal at Q = 2048),
+   ``prefill_profile`` (1.2b, batch cut to 64), ``mixed48_stage_probe``
+   (batch 128, 4 iterations a stage), ``paged_admit_probe`` (16 slots,
+   p2048, 16 new tokens, one timed admit) and
+   ``engine_cpu_ratio`` (``block_main_b4_5``, 16 slots); finite figures
+   asserted, each cut and each probe's seconds logged.
 
 Every timed full-width run of steps 5-9 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
@@ -310,6 +324,12 @@ from block_transformer_tpu_torch import profile_generate as pg  # noqa: E402
 from block_transformer_tpu_torch.scripts import bench_packer  # noqa: E402
 from block_transformer_tpu_torch.scripts import build_byte_corpus  # noqa: E402
 from block_transformer_tpu_torch.scripts import decode_gate  # noqa: E402
+from block_transformer_tpu_torch.scripts import engine_cpu_ratio  # noqa: E402
+from block_transformer_tpu_torch.scripts import int4kv_probe  # noqa: E402
+from block_transformer_tpu_torch.scripts import kernel_microbench  # noqa: E402
+from block_transformer_tpu_torch.scripts import mixed48_stage_probe  # noqa: E402
+from block_transformer_tpu_torch.scripts import paged_admit_probe  # noqa: E402
+from block_transformer_tpu_torch.scripts import prefill_profile  # noqa: E402
 from block_transformer_tpu_torch.scripts import gptq_gate  # noqa: E402
 from block_transformer_tpu_torch.scripts import inference_demo  # noqa: E402
 from block_transformer_tpu_torch.scripts import kv_quality_cpu  # noqa: E402
@@ -323,6 +343,10 @@ from block_transformer_tpu_torch.scripts import quality_run  # noqa: E402
 from block_transformer_tpu_torch.scripts import real_task_eval  # noqa: E402
 from block_transformer_tpu_torch.scripts import train_ckpt  # noqa: E402
 from block_transformer_tpu_torch.scripts import train_mfu  # noqa: E402
+from block_transformer_tpu_torch.scripts import w8a8_decode_gate  # noqa: E402
+from block_transformer_tpu_torch.scripts import w8a8_probe  # noqa: E402
+from block_transformer_tpu_torch.scripts import w8a8_probe2  # noqa: E402
+from block_transformer_tpu_torch.scripts import w8a8_probe3  # noqa: E402
 from block_transformer_tpu_torch.config import NeoXConfig  # noqa: E402
 from block_transformer_tpu_torch.inference import generate as gen  # noqa: E402
 from block_transformer_tpu_torch.kernels import build  # noqa: E402
@@ -3863,7 +3887,8 @@ def phase_quality(rows, smi) -> dict:
     QUALITY_W8A8_RTOL of fp32 and the decode gate's reference rescored on
     the CPU matches, then runs ``kv_scheme_probe`` on the trained
     checkpoint in a launch window of its own
-    (``quality_kv_scheme_probe``). Then kernel rows at its shapes
+    (``quality_kv_scheme_probe``), and ``w8a8_decode_gate`` in one more
+    (``quality_w8a8_decode_gate``). Then kernel rows at its shapes
     (``quality_kernel_rows``).
     Returns {"quality": launches}."""
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
@@ -3994,6 +4019,8 @@ def phase_quality(rows, smi) -> dict:
         step("card vs CPU ppl", lambda: quality_ppl_card_vs_cpu(
             cfg, block_dir, ds))
         step("kv_scheme_probe", lambda: quality_kv_scheme_probe(
+            block_dir, prefix + "_holdout", work, smi))
+        step("w8a8_decode_gate", lambda: quality_w8a8_decode_gate(
             block_dir, prefix + "_holdout", work, smi))
         step("decode gate rescored on the CPU", lambda: quality_gate_rescore(
             cfg, block_dir, prefix + "_holdout", gate))
@@ -4189,6 +4216,385 @@ def phase_scripts(smi) -> dict:
     log(json.dumps({"scripts_phase_s": time.perf_counter() - started,
                     "steps_s": secs, "card": smi}))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase_probes: the ten speed probes (block_transformer_tpu_torch/scripts/)
+# ---------------------------------------------------------------------------
+
+# the probes' cuts for time (their defaults in the logged line)
+PROBE_MICROBENCH = ["--iters", "16"]          # default 32
+PROBE_PREFILL = ["--batch", "64"]             # default 256
+PROBE_ADMIT = ["--reps", "1", "--decode", "16"]   # defaults 3, 64
+PROBE_MIXED48_ITERS = 4       # mixed48_stage_probe.ITERS (default 32)
+PROBE_RATIO = ["--reps", "2"]                 # default 3
+W8A8_GATE_BATCH = 384                         # w8a8_decode_gate --batch
+# the kernels each probe's run must launch, and those it must not
+_NOT_W8A8 = ("K2", "K2 bf16", "K3", "K4", *SERVING)
+for _path, _must, _absent in (
+        ("probe w8a8_probe", ("K1", *W8A8), _NOT_W8A8),
+        ("probe w8a8_probe2", W8A8, ("K1", *_NOT_W8A8)),
+        ("probe w8a8_probe3", ("K1", *W8A8), _NOT_W8A8),
+        # the INT4 cache's step attends on the plain path (one query row)
+        ("probe int4kv_probe", ("K2", "K2 bf16", *K5_FUSED),
+         ("K1", "K3", "K4", *W8A8, "K6", "K6 int4", *K7_FUSED, "K8",
+          "K8 int4")),
+        ("probe kernel_microbench", ("K1", "K2", "K3", "K4"),
+         ("K2 bf16", *W8A8, *SERVING)),
+        # prompt-shaped writes (S > 8) are not fused; no decode step
+        ("probe prefill_profile", ("K3", *W8A8),
+         ("K2", "K2 bf16", "K4", *SERVING)),
+        ("probe mixed48_stage_probe", ("K1", "K2 bf16", "K3", "K4", *W8A8),
+         ("K2", *SERVING)),
+        ("probe paged_admit_probe", ("K1", "K2", "K2 bf16", "K3", *K5_FUSED,
+                                     "K6", *K7_FUSED, "K8", *W8A8),
+         ("K4", "K6 int4", "K8 int4")),
+        # bf16 weights (no K1, K4, W8A8); heads of 32: K3 by its fma route
+        ("probe engine_cpu_ratio", ("K2", "K2 bf16", "K3", *K5_FUSED),
+         ("K1", "K4", *W8A8, "K6", "K6 int4", *K7_FUSED, "K8", "K8 int4")),
+        # the trained float32 block_main_b4_5: K1 by tf32x2, K3 by fma
+        ("probe w8a8_decode_gate", ("K1", "K2", "K2 bf16", "K3", *K5_FUSED,
+                                    *W8A8),
+         ("K4", "K6", "K6 int4", *K7_FUSED, "K8", "K8 int4"))):
+    PATH_KERNELS[_path], PATH_ABSENT[_path] = _must, _absent
+K2_NO_LOCAL_CACHE += ("probe int4kv_probe",)
+K2_SPLIT_PATHS += ("probe int4kv_probe",)
+PATH_ROUTES["probe engine_cpu_ratio"] = {"K3": "fma"}
+PATH_ROUTES["probe w8a8_decode_gate"] = {"K1": "tf32x2", "K3": "fma"}
+probe_secs = {}                 # every probe's main() seconds
+probe_launches = {}             # its launches by kernel
+
+
+def probe_pair(what: str, got, want, exact_: bool = False) -> float:
+    """A probe's kernel output against its plain version at the probe's
+    shape: bit for bit (``exact_``), else within TOL of max|plain| (bf16).
+    Logs and returns the error."""
+    if exact_:
+        exact_pair(what, got if isinstance(got, (tuple, list)) else (got,),
+                   want if isinstance(want, (tuple, list)) else (want,))
+        err, note = 0.0, "bit for bit"
+    else:
+        err, pmax = compare(what, got, want)
+        note = f"max|plain| {pmax:.3e}"
+    log(f"probes: {what}: max |kernel - plain| {err:.3e} ({note})")
+    return err
+
+
+def probe_checks_w8a8():
+    """W8A8-q / W8A8-mm bit for bit and K1 within TOL at the three W8A8
+    probes' shapes; ``int8_pure_body``'s shift against the exact int32
+    sum: equal where |sum| < 2^24, one apart at most above it."""
+    x, _, w_q, s = w8a8_probe.inputs(CARD)
+    probe_pair("w8a8_probe K1 M=32768 K=2048 N=8192",
+               w8a8_probe.convert_body(x, w_q, s),
+               k1.int8_matmul_stacked_plain(x, w_q[None], s[None], 0))
+    probe_pair("w8a8_probe W8A8-q", w8a8.w8a8_quant(x),
+               w8a8.w8a8_quant_plain(x), True)
+    xq, sx = w8a8.w8a8_quant_plain(x)
+    probe_pair("w8a8_probe W8A8-mm",
+               w8a8.w8a8_matmul_stacked(xq, sx, w_q[None], s[None], 0,
+                                        x.dtype),
+               w8a8.w8a8_matmul_stacked_plain(xq, sx, w_q[None], s[None], 0,
+                                              x.dtype), True)
+    del x, w_q, s, xq, sx
+    x, _, w_q, xq = w8a8_probe2.inputs(CARD)
+    probe_pair("w8a8_probe2 W8A8 M=32768 K=N=4096",
+               w8a8_probe2.w8a8_body(x, w_q),
+               w8a8.w8a8_matmul_stacked_plain(
+                   *w8a8.w8a8_quant_plain(x), w_q[None],
+                   w8a8_probe2._col_scale(w_q, 0.001), 0, x.dtype), True)
+    got = w8a8_probe2.int8_pure_body(xq, w_q)
+    acc = w8a8.int_product(xq, w_q)
+    want = (acc >> 8).to(torch.int8)
+    off = (got.to(torch.int32) - want.to(torch.int32)) % 256
+    off = torch.minimum(off, 256 - off)            # int8 wraps
+    big = acc.abs() >= 2 ** 24
+    if int(off.max()) > 1 or bool((off[~big] != 0).any()):
+        raise AssertionError("w8a8_probe2 int8_pure_body: the shift moved "
+                             "by more than the float32 rounding of the sum")
+    log(f"probes: w8a8_probe2 int8_pure_body (W8A8-mm, unit scales, floor) "
+        f"against int_product >> 8: {int((off != 0).sum())} of "
+        f"{off.numel()} one apart, all at |sum| >= 2^24 "
+        f"({int(big.sum())} such sums)")
+    del x, w_q, xq, got, acc, want, off, big
+    for name, K, N in w8a8_probe3.SHAPES:
+        x, _, w_q, s = w8a8_probe3.inputs(K, N, CARD)
+        probe_pair(f"w8a8_probe3 K1 {name}", w8a8_probe3.convert_body(
+            x, w_q, s), k1.int8_matmul_stacked_plain(x, w_q[None], s[None],
+                                                     0))
+        probe_pair(f"w8a8_probe3 W8A8 {name}",
+                   w8a8_probe3.w8a8_body(x, w_q, s),
+                   w8a8.w8a8_matmul_stacked_plain(
+                       *w8a8.w8a8_quant_plain(x), w_q[None], s[None], 0,
+                       x.dtype), True)
+        del x, w_q, s
+
+
+def probe_checks_int4kv(smi):
+    """One step of the bf16 and INT8 caches at int4kv_probe's shape: K2
+    bf16 and K2 INT8 within TOL, K5 fused bit for bit; then K2 of each
+    cache timed beside its plain version and SDPA on the (dequantized)
+    cache, and the fused K5 beside its plain version and the unfused
+    sequence, each with its bound, as one JSON line."""
+    q, Kf, Vf, scales, (k8, v8), _ = int4kv_probe.inputs(CARD)
+    mask = int4kv_probe._full_mask(1, int4kv_probe.CAP, CARD)
+    probe_pair("int4kv_probe K2 bf16 B=128 H=16 cap=640",
+               k2.decode_attention_stacked(q, Kf[None], Vf[None], 0, mask),
+               k2.decode_attention_stacked_plain(q, Kf[None], Vf[None], 0,
+                                                 mask))
+    newk = q[:, :, 0, :] * 0.5
+    pools = [k8[None].clone(), scales[None].clone()]
+    got = kp.paged_quantize_write_int8(pools[0], pools[1], pools[0],
+                                       pools[1], 0, None, 5, newk, newk)
+    plain = [k8[None].clone(), scales[None].clone()]
+    want = kp.paged_quantize_write_int8_plain(plain[0], plain[1], plain[0],
+                                              plain[1], 0, None, 5, newk,
+                                              newk)
+    probe_pair("int4kv_probe K5 fused (K's buffers twice)", got, want, True)
+    probe_pair("int4kv_probe K2 INT8",
+               k2.decode_attention_int8_stacked(q, pools[0], pools[1],
+                                                v8[None], scales[None], 0,
+                                                mask),
+               k2.decode_attention_int8_stacked_plain(
+                   q, pools[0], pools[1], v8[None], scales[None], 0, mask))
+    B, H, cap, D = Kf.shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kd, vd = (quant.dequantize_kv(t, scales, q.dtype) for t in (k8, v8))
+    ops = 4 * B * H * cap * D
+    rows_ = {}
+    for name, fn, plain, lib, row_bytes in (
+            ("K2 bf16", lambda: k2.decode_attention_stacked(
+                q, Kf[None], Vf[None], 0, mask),
+             lambda: k2.decode_attention_stacked_plain(
+                 q, Kf[None], Vf[None], 0, mask),
+             lambda: sdpa(q, Kf, Vf), 2 * D),
+            ("K2 INT8", lambda: k2.decode_attention_int8_stacked(
+                q, k8[None], scales[None], v8[None], scales[None], 0, mask),
+             lambda: k2.decode_attention_int8_stacked_plain(
+                 q, k8[None], scales[None], v8[None], scales[None], 0, mask),
+             lambda: sdpa(q, kd, vd), D + 4)):
+        rows_[name] = {"ms": time_ms(fn, 20), "plain_ms": time_ms(plain, 5),
+                       "library_ms": time_ms(lib, 20), "bound": bound(
+                           2 * B * H * cap * row_bytes
+                           + 2 * q.numel() * q.element_size(), ops)}
+    k5_args = (k8[None], scales[None], k8[None], scales[None], 0, None, 5,
+               newk, newk)
+    rows_["K5 fused"] = {
+        "ms": time_ms(lambda: kp.paged_quantize_write_int8(*k5_args), 20),
+        "plain_ms": time_ms(lambda: kp.paged_quantize_write_int8_plain(
+            *k5_args), 5),
+        "library_ms": None,
+        "unfused_ms": time_ms(lambda: unfused_k5(k5_args[:4], 0, None, 5,
+                                                 newk, newk), UNFUSED_ITERS),
+        "bound": bound(*quantize_bound(B, H, D, newk.element_size(), B),
+                       FP32_FLOPS)}
+    log(json.dumps({"int4kv_probe_rows": rows_, "shape": [B, H, cap, D],
+                    "card": smi}))
+
+
+def probe_checks_microbench():
+    """Each kernel of kernel_microbench against its plain version on the
+    probe's own inputs: K1 / K4 at its five M = 256 shapes, K2 INT8 at B =
+    256 and 64, K3 causal at Q = 2048."""
+    mb = kernel_microbench
+    for L, M, K, N in ((12, 256, 2048, 6144), (12, 256, 2048, 2048),
+                       (12, 256, 2048, 8192), (12, 256, 8192, 2048),
+                       (1, 256, 2048, 50304)):
+        for kind, inputs, variants in (
+                ("K1", mb.int8_matmul_inputs, mb.int8_matmul_variants),
+                ("K4", mb.int4_matmul_inputs, mb.int4_matmul_variants)):
+            x, w, s = inputs(L, M, K, N, torch.bfloat16, CARD)
+            v = variants(x, w, s)
+            last = w.shape[0] - 1
+            probe_pair(f"kernel_microbench {kind} M{M} K{K} N{N}",
+                       v["kernel"](x, last), v["plain"](x, last))
+            del x, w, s, v
+    for B in (256, 64):
+        q, kq, ks, vq, vs, mask = mb.decode_attention_inputs(
+            12, B, 16, 640, 128, 1, torch.bfloat16, CARD)
+        last = kq.shape[0] - 1
+        probe_pair(f"kernel_microbench K2 INT8 B{B} cap640",
+                   k2.decode_attention_int8_stacked(q, kq, ks, vq, vs, last,
+                                                    mask),
+                   k2.decode_attention_int8_stacked_plain(q, kq, ks, vq, vs,
+                                                          last, mask))
+        del q, kq, ks, vq, vs
+    q, k, v, mask = mb.flash_prefill_inputs(8, 16, 2048, 128, torch.bfloat16,
+                                            CARD)
+    probe_pair("kernel_microbench K3 causal B8 Q2048",
+               k3.flash_attention(q, k, v, mask),
+               k3.flash_attention_plain(q, k, v, mask))
+    torch.cuda.empty_cache()
+
+
+def probe_checks_models(cfg):
+    """The model probes' kernels at their shapes, random data: W8A8 bit
+    for bit at prefill_profile's M (64 x 128 rows) and mixed48's prefill
+    (128 x 512), K3 at prefill_profile's fresh query tile (128 of 512
+    blocks, block-causal), K1 and K4 (g128) at mixed48's decode M = 128, K8
+    bit for bit at paged_admit_probe's admission (16 rows of 3 pages of
+    256: the engine shape), K2 INT8 at engine_cpu_ratio's cache (16 rows,
+    8 heads of 32, 82 slots)."""
+    g = torch.Generator(device=CARD).manual_seed(22)
+    H, D = cfg.block_decoder.num_heads, cfg.block_decoder.head_dim
+    ph = cfg.embedder.projection_hidden_size
+    for label, M in (("prefill_profile", 64 * 128),
+                     ("mixed48_stage_probe prefill", 128 * 512)):
+        x = torch.randn((M, ph), generator=g, device=CARD).to(torch.bfloat16)
+        w_q, scale = quant.quantize_int8(torch.randn(
+            (1, ph, 3 * ph), generator=g, device=CARD))
+        probe_pair(f"{label} W8A8 qkv M={M}", w8a8_pair(x, w_q, scale, 0),
+                   w8a8.w8a8_matmul_stacked_plain(
+                       *w8a8.w8a8_quant_plain(x), w_q, scale, 0, x.dtype),
+                   True)
+        del x, w_q, scale
+    B, S, T = 64, 512, 128
+    qkv = torch.randn((3, B, H, S, D), generator=g, device=CARD).to(
+        torch.bfloat16)
+    full = masks.block_decode_mask(0, S, S, torch.ones(
+        (B, S), dtype=torch.int32, device=CARD), cfg.n_embedding_tokens)
+    tile = masks.AttnMask(full.q_idx[S - T:], full.kv_idx, full.kv_valid)
+    probe_pair(f"prefill_profile K3 B={B} Q={T} of K={S}",
+               k3.flash_attention(qkv[0][:, :, S - T:].contiguous(), qkv[1],
+                                  qkv[2], tile),
+               k3.flash_attention_plain(qkv[0][:, :, S - T:], qkv[1], qkv[2],
+                                        tile))
+    del qkv
+    x = torch.randn((128, ph), generator=g, device=CARD).to(torch.bfloat16)
+    w = torch.randn((1, ph, 4 * ph), generator=g, device=CARD) * 0.02
+    w_q, scale = quant.quantize_int8(w)
+    probe_pair("mixed48_stage_probe K1 mlp_up M=128",
+               k1.int8_matmul_stacked(x, w_q, scale, 0),
+               k1.int8_matmul_stacked_plain(x, w_q, scale, 0))
+    w_p, s4 = quant.quantize_int4(w, group_size=GROUP_SIZE)
+    probe_pair("mixed48_stage_probe K4 mlp_up M=128 g128",
+               k1.int4_matmul_stacked(x, w_p, s4, 0),
+               k1.int4_matmul_stacked_plain(x, w_p, s4, 0))
+    del x, w, w_q, scale, w_p, s4
+    pools, pt, (L, B, H, D, ps, n_virt, P) = engine_pool_case(g, cfg)
+    src = random_pools(g, L, B, H, n_virt * ps, D)
+    exact("paged_admit_probe K8", kp.paged_page_copy_int8(
+        *clones(pools), pt, *src), kp.paged_page_copy_int8_plain(
+        *clones(pools), pt, *src), skip_page0=True)
+    log("probes: paged_admit_probe K8 G=16 nv=3 ps=256: bit for bit")
+    del pools, src
+    small = config.get_config("block_main_b4_5").block_decoder
+    cache = int8_layers(g, small.num_layers, 16, small.num_heads, 82,
+                        small.head_dim)
+    q = torch.randn((16, small.num_heads, 1, small.head_dim), generator=g,
+                    device=CARD).to(torch.bfloat16)
+    mask = masks.decode_mask(80, 82, 1, device=CARD)
+    probe_pair("engine_cpu_ratio K2 INT8 B=16 H=8 D=32 cap=82",
+               k2.decode_attention_int8_stacked(q, *cache, 0, mask),
+               k2.decode_attention_int8_stacked_plain(q, *cache, 0, mask))
+    torch.cuda.empty_cache()
+
+
+def probe_step(name: str, fn, argv):
+    """A probe's ``main(argv)`` in a launch window of its own (``script_
+    step``), its seconds and launches kept for the phase's line."""
+    report, launches = script_step(probe_secs, name, fn, argv,
+                                   f"probe {name}")
+    probe_launches[name] = {k: v for k, v in launches.items() if v}
+    log(json.dumps({"probe": name, "launches": probe_launches[name],
+                    "routes": {t: dict(f.route_launches) for t, (f, _)
+                               in ROUTED.items() if launches[t]}}))
+    return report
+
+
+def quality_w8a8_decode_gate(block_dir, holdout, work, smi) -> dict:
+    """``w8a8_decode_gate`` on ``phase_quality``'s trained checkpoint at its
+    defaults (batch 384: decode M reaches the W8A8 window), a launch window
+    of its own; raises unless both variants scored finite logprobs. Its
+    kernels' shapes are ``quality_kernel_rows``' decode-gate rows (W8A8-mm
+    bit for bit at M = 384)."""
+    report = probe_step("w8a8_decode_gate", w8a8_decode_gate.main, [
+        "--model_dir", block_dir, "--corpus", holdout, "--batch",
+        W8A8_GATE_BATCH, "--out", os.path.join(work, "w8a8_gate.json")])
+    log(json.dumps({"w8a8_decode_gate": report, "card": smi}))
+    finite("w8a8_decode_gate", report["fp32_mean_logprob_w8a8_on"],
+           report["fp32_mean_logprob_w8a8_off"])
+    return report
+
+
+def phase_probes(smi) -> dict:
+    """The speed probes through their ``main(argv)`` on the card at the
+    1.2b widths (``w8a8_decode_gate`` runs in ``phase_quality`` on its
+    trained checkpoint), each first held against the plain versions at its
+    shapes (``probe_checks_*``, outside the launch windows), then run in a
+    launch window of its own (``probe_step``: every kernel of the probe
+    launched, none it must not); finite figures asserted. Returns {path:
+    launches}."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_probes_",
+                            dir=os.path.join(ROOT, "build"))
+    log(f"probes: cuts for time: kernel_microbench "
+        f"{' '.join(PROBE_MICROBENCH)} (default 32); prefill_profile "
+        f"{' '.join(PROBE_PREFILL)} (default 256); mixed48_stage_probe "
+        f"ITERS {PROBE_MIXED48_ITERS} (default 32); paged_admit_probe "
+        f"{' '.join(PROBE_ADMIT)} (defaults 3, 64); engine_cpu_ratio "
+        f"{' '.join(PROBE_RATIO)} (default 3); the rest at their defaults")
+    started = time.perf_counter()
+    cfg = config.get_config(MODEL)
+    try:
+        t0 = time.perf_counter()
+        probe_checks_w8a8()
+        probe_checks_int4kv(smi)
+        probe_checks_microbench()
+        probe_checks_models(cfg)
+        torch.cuda.synchronize()
+        checks_s = time.perf_counter() - t0
+        rows = {}
+        for name, mod in (("w8a8_probe", w8a8_probe),
+                          ("w8a8_probe2", w8a8_probe2),
+                          ("w8a8_probe3", w8a8_probe3),
+                          ("int4kv_probe", int4kv_probe)):
+            rows[name] = probe_step(name, mod.main, [])
+        for r in (*rows["w8a8_probe"], *rows["w8a8_probe2"],
+                  *rows["int4kv_probe"]):
+            finite(str(r), r["ms_per_iter" if "ms_per_iter" in r
+                             else "ms_per_step"])
+        for r in rows["w8a8_probe3"]:
+            finite(r["shape"], *(r[k]["ms_per_iter"] for k in (
+                "bf16", "int8w_convert", "w8a8")))
+        mb = probe_step("kernel_microbench", kernel_microbench.main, [
+            *PROBE_MICROBENCH, "--out", os.path.join(work, "mb.json")])
+        finite("kernel_microbench", *(r["us"] for r in mb["results"]))
+        pf = probe_step("prefill_profile", prefill_profile.main,
+                        PROBE_PREFILL)
+        finite("prefill_profile", *(v["device_s"] for v in
+                                    pf["stages"].values()))
+        if pf["matmul_floor_route"] != "W8A8-mm":
+            raise AssertionError(f"prefill_profile's matmul floor took "
+                                 f"{pf['matmul_floor_route']}, not W8A8")
+        iters, mixed48_stage_probe.ITERS = (mixed48_stage_probe.ITERS,
+                                            PROBE_MIXED48_ITERS)
+        try:
+            m48 = probe_step("mixed48_stage_probe", mixed48_stage_probe.main,
+                             [])
+        finally:
+            mixed48_stage_probe.ITERS = iters
+        finite("mixed48_stage_probe", *(v for d in (m48["int8"],
+                                                    m48["mixed48"])
+                                        for v in d.values()))
+        adm = probe_step("paged_admit_probe", paged_admit_probe.main, [
+            *PROBE_ADMIT, "--out", os.path.join(work, "admit.json")])
+        finite("paged_admit_probe", adm["page_copy_s"],
+               adm["paged"]["window_fit"]["fixed_per_dispatch_s"])
+        ratio = probe_step("engine_cpu_ratio", engine_cpu_ratio.main, [
+            *PROBE_RATIO, "--out", os.path.join(work, "ratio.json")])
+        finite("engine_cpu_ratio", ratio["engine_pct_of_static"])
+        log(json.dumps({"probes": {
+            **rows, "kernel_microbench": mb, "prefill_profile": pf,
+            "mixed48_stage_probe": m48, "paged_admit_probe": adm,
+            "engine_cpu_ratio": ratio}, "card": smi}))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(json.dumps({"probes_phase_s": time.perf_counter() - started,
+                    "checks_s": checks_s, "steps_s": probe_secs,
+                    "launches": probe_launches, "card": smi}))
+    return {f"probe {n}": v for n, v in probe_launches.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -5196,6 +5602,8 @@ def main() -> None:
     lap("quality")
     launches.update(phase_scripts(smi))
     lap("scripts")
+    launches.update(phase_probes(smi))
+    lap("probes")
     log("block/vanilla generated tokens per second at B=8 p2048/d128, "
         "INT8 KV (smoke figures, not a benchmark): " + ", ".join(
             f"{q} {tok_s[(q, 'int8')] / tok_s['vanilla']:.3f}"

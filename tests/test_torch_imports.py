@@ -5,7 +5,8 @@ is parsed with ``ast`` (nothing is imported), and each ``import`` and
 ``from ... import`` statement anywhere in it, at any depth, is checked: no
 ``jax`` or ``jaxlib`` module, no ``block_transformer_tpu`` module other
 than the port's own package, nothing of the JAX package's ``scripts/``
-(the port keeps its own copies), and no ``safetensors`` module (the card has
+or of its benchmark ``bench.py`` (the port keeps its own copies), and no
+``safetensors`` module (the card has
 no such package: the port reads and writes the format itself).
 """
 
@@ -22,7 +23,7 @@ PORT = "block_transformer_tpu_torch"
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "safetensors", "scripts") or (
+    return top in ("jax", "jaxlib", "safetensors", "scripts", "bench") or (
         top.startswith("block_transformer_tpu") and top != PORT)
 
 
@@ -48,9 +49,10 @@ def test_the_check_catches_what_it_forbids():
                      "def f():\n    from block_transformer_tpu.ops import q\n"
                      "from block_transformer_tpu_torch import bridge\n"
                      "from scripts.build_real_task_fixtures import x\n"
-                     "from block_transformer_tpu_torch.scripts import y\n")
+                     "from block_transformer_tpu_torch.scripts import y\n"
+                     "import bench as B\nimport benchmarks\n")
     bad = [m for _, m in _imports(tree) if _forbidden(m)]
-    assert sorted(bad) == ["block_transformer_tpu.ops", "jax.numpy",
+    assert sorted(bad) == ["bench", "block_transformer_tpu.ops", "jax.numpy",
                            "scripts.build_real_task_fixtures"]
 
 
@@ -122,5 +124,16 @@ def test_the_walk_finds_the_quality_scripts(module):
     "scripts/build_longctx_assets.py", "scripts/build_real_task_fixtures.py",
     "scripts/build_pg_corpus.py"])
 def test_the_walk_finds_the_entry_scripts(module):
+    names = {f.relative_to(ROOT).as_posix() for f in FILES}
+    assert f"{PORT}/{module}" in names
+
+
+@pytest.mark.parametrize("module", [
+    "scripts/w8a8_probe.py", "scripts/w8a8_probe2.py",
+    "scripts/w8a8_probe3.py", "scripts/int4kv_probe.py",
+    "scripts/w8a8_decode_gate.py", "scripts/kernel_microbench.py",
+    "scripts/prefill_profile.py", "scripts/mixed48_stage_probe.py",
+    "scripts/paged_admit_probe.py", "scripts/engine_cpu_ratio.py"])
+def test_the_walk_finds_the_speed_probes(module):
     names = {f.relative_to(ROOT).as_posix() for f in FILES}
     assert f"{PORT}/{module}" in names

@@ -149,18 +149,14 @@ TOP_LEVEL_SCRIPTS = {"pretrain_block_transformer.py",
 # the repository's documentation linter (tests/test_doc_lint.py runs it):
 # a tool of the repository, not of the system, so it has no port
 REPO_TOOLS = {"doc_lint.py"}
-# the scripts still to port (ROADMAP Queue 1 item 6): the ten speed probes.
-# They are to be cut to what the port's benchmark (Queue 1 item 1) and
-# chip_smoke.py do not already measure, so they wait until the benchmark
-# exists
-UNPORTED_SCRIPTS = {
-    "kernel_microbench.py", "prefill_profile.py", "w8a8_probe.py",
-    "w8a8_probe2.py", "w8a8_probe3.py", "w8a8_decode_gate.py",
-    "int4kv_probe.py", "mixed48_stage_probe.py", "paged_admit_probe.py",
-    "engine_cpu_ratio.py"}
-# the JAX decode gate decodes each variant in a subprocess (its WORKER
+# every script of the JAX package is ported (ROADMAP Queue 1 item 6 closed
+# with the ten speed probes); only bench.py, the JAX benchmark, waits for
+# the port's benchmark (Queue 1 item 1) and is not a script of scripts/
+UNPORTED_SCRIPTS = set()
+# the JAX decode gates decode each variant in a subprocess (its WORKER
 # source and the npz its trees travel in); the port runs them in-process
-SCRIPT_ONLY_NAMES = {"decode_gate.py": {"WORKER", "save_tree_npz"}}
+SCRIPT_ONLY_NAMES = {"decode_gate.py": {"WORKER", "save_tree_npz"},
+                     "w8a8_decode_gate.py": {"WORKER"}}
 
 
 def _script_names(path: Path, with_imports: bool) -> set:
@@ -226,7 +222,7 @@ FLAG_HELPERS = {"add_ignored_optimizer_flags": PORT_SCRIPTS / "quality_run.py"}
 # their help: JAX rebuilds the optimizer state a checkpoint is restored
 # into, the port restores the parameters alone (restore_params)
 IGNORED_OPTIMIZER_FLAGS = ["decode_gate", "gptq_gate", "kv_quality_cpu",
-                           "real_task_eval"]
+                           "real_task_eval", "w8a8_decode_gate"]
 
 
 def _add_argument_flags(tree) -> set:

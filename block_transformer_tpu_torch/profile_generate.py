@@ -104,12 +104,14 @@ def vanilla_model(seed: int = 0, model: str = VANILLA_MODEL,
                                             group_size=GROUP_SIZE)
 
 
-def vanilla_generate(params, cfg, ids: torch.Tensor, new_tokens: int):
-    """Greedy baseline generation with an INT8 KV cache for prompts ids
-    [B, P]: prefill, then ``new_tokens`` decode steps. Returns the tokens
-    [B, new_tokens + 1] (the prefill's, then one per step)."""
+def vanilla_generate(params, cfg, ids: torch.Tensor, new_tokens: int,
+                     kv_cache: str = "int8", dtype=torch.bfloat16):
+    """Greedy baseline generation with a ``kv_cache`` KV cache (INT8 by
+    default; a bf16 one holds ``dtype``) for prompts ids [B, P]: prefill,
+    then ``new_tokens`` decode steps. Returns the tokens [B, new_tokens + 1]
+    (the prefill's, then one per step)."""
     B, P = ids.shape
-    cache = neox.make_kv_cache(cfg, B, P + new_tokens, "int8",
+    cache = neox.make_kv_cache(cfg, B, P + new_tokens, kv_cache, dtype=dtype,
                                device=ids.device)
     logits, cache = vanilla.vanilla_prefill(params, cfg, ids, cache)
     out = torch.empty((B, new_tokens + 1), dtype=torch.int32,
@@ -153,22 +155,28 @@ def engine_requests(cfg, traffic=ENGINE_TRAFFIC, seed: int = 0):
             for count, prompt, new in traffic for _ in range(count)]
 
 
+def full_pool_pages(cfg, n_slots: int, max_blocks: int,
+                    page_size: int = ENGINE_PAGE_SIZE) -> int:
+    """Pages of a pool that holds every slot at full length (the capacity
+    rounded up to 128 rows, then to whole pages), and the null page."""
+    cap = max_blocks * cfg.n_embedding_tokens
+    cap = -(-cap // 128) * 128 if cap >= 128 else cap
+    return n_slots * -(-cap // min(page_size, cap)) + 1
+
+
 def make_engine(params, cfg, kv_cache: str, *, n_slots: int = ENGINE_SLOTS,
                 max_blocks: int = ENGINE_MAX_BLOCKS,
                 bucket_blocks: int = ENGINE_BUCKET_BLOCKS,
                 page_size: int = ENGINE_PAGE_SIZE, device="cuda", mesh=None):
-    """The smoke's engine. A paged pool holds n_slots * n_virt + 1 pages,
-    enough for every slot at full length (as ``bench.py`` sizes it).
-    ``mesh``: serve over it with ``mesh_impl="shard_map"``."""
-    cap = max_blocks * cfg.n_embedding_tokens
-    cap = -(-cap // 128) * 128 if cap >= 128 else cap
-    ps = min(page_size, cap)
-    n_virt = -(-cap // ps)
+    """The smoke's engine. A paged pool holds every slot at full length
+    (``full_pool_pages``, as ``bench.py`` sizes it). ``mesh``: serve over it
+    with ``mesh_impl="shard_map"``."""
     return engine_lib.ContinuousBatchingEngine(
         params, cfg, n_slots=n_slots, max_blocks=max_blocks,
         kv_cache=kv_cache, bucket_blocks=bucket_blocks,
         sync_blocks=ENGINE_SYNC_BLOCKS, page_size=page_size,
-        pool_pages=n_slots * n_virt + 1, device=device, mesh=mesh,
+        pool_pages=full_pool_pages(cfg, n_slots, max_blocks, page_size),
+        device=device, mesh=mesh,
         mesh_impl="shard_map")
 
 

@@ -81,40 +81,33 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def event_timed(run: Callable, device, reps: int = 1, spin: bool = True
+def event_timed(run: Callable, device, reps: int = 1
                 ) -> Tuple[Optional[float], float]:
     """(device s, wall s) of ``run()``: each the best of ``reps`` timed calls
     after one untimed call. Wall: between synchronizations, by the host
     clock. Device (None off the card): CUDA events around a second call
     queued behind a spin of the card twice as long as the first took the
-    host to issue, so that the host's launch cost is left out of it (unless
-    ``run`` itself waits for the card). With ``spin`` False the events
-    bracket the wall-timed call itself: one call a rep, and where the host
-    issues slower than the card runs, the device time is the call's span
-    on the card, host gaps included."""
+    host to issue, so that the host's launch cost is left out of it, unless
+    ``run`` waits for the card before its end or issues more launches than
+    the card's launch queue holds: the host then waits out the spin, and
+    the events take in its issue gaps from there on."""
     cuda = torch.device(device).type == "cuda"
     run()
     best_dev = best_wall = float("inf")
     for _ in range(reps):
+        _sync(device)
+        t0 = time.perf_counter()
+        run()
+        issue = time.perf_counter() - t0
+        _sync(device)
+        best_wall = min(best_wall, time.perf_counter() - t0)
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-        _sync(device)
-        t0 = time.perf_counter()
-        if cuda and not spin:
-            start.record()
-        run()
-        issue = time.perf_counter() - t0
-        if cuda and not spin:
-            end.record()
-        _sync(device)
-        best_wall = min(best_wall, time.perf_counter() - t0)
-        if cuda and spin:
             torch.cuda._sleep(int(2 * issue * SM_HZ) + 2_000_000)
             start.record()
             run()
             end.record()
-        if cuda:
             end.synchronize()
             best_dev = min(best_dev, start.elapsed_time(end) / 1e3)
     return (best_dev if cuda else None), best_wall

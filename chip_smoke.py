@@ -48,6 +48,11 @@ one process (and, for step 12, two more on the same card) it:
    at its local cache (capacity 9, warp route), K2 INT8 at
    ``block_megabyte_b4_85``'s decode step (capacity 640) and K1 at its
    token decoder's qkv (M = 32, K = 512, N = 1536);
+   then the kernels of step 17's path at its batch (B = 16): K1 at decode
+   M = 16, W8A8 at both prefills (M = 8192 and 32768), K2 INT8 and K3 as
+   above, K2's warp route at the token decoder's local cache and the fused
+   K5 at both decode writes (K2's split of the cache and K3's grid follow
+   B x H);
    then an empty kernel's launch, timed the same way, printed on its own
    line as ``launch_floor_ms`` beside the card's name and power limit;
 4. checks the port on the card against the same port on the CPU (plain
@@ -265,6 +270,18 @@ one process (and, for step 12, two more on the same card) it:
    p2048, 16 new tokens, one timed admit) and
    ``engine_cpu_ratio`` (``block_main_b4_5``, 16 slots); finite figures
    asserted, each cut and each probe's seconds logged.
+17. runs the port's benchmark (``phase_bench``): ``bench.main`` at
+   ``block_main_b4_1.2b`` against ``vanilla_410``, B = 16, p2048/d128,
+   INT8 weights and KV, with the engine (16 slots, both its rows),
+   ``BT_BENCH_REPS`` = 2, the stage decomposition's ``ITERS`` cut to 16,
+   the detail written to ``build/BENCH_DETAIL.json``,
+   in a launch window of its own (K1, W8A8, K2 INT8, K2 bf16 by its warp
+   route, K3 and the fused K5 launched; K4 and the paged kernels not); it
+   asserts the JSON line's metric (the JAX benchmark's string for this
+   command line), finite positive ``value`` and ``vs_baseline``, the
+   detail's keys (the stage decomposition at B = 16 among them) and every
+   engine request of every rep served its 128 tokens; the line, the detail
+   and the phase's seconds logged.
 
 Every timed full-width run of steps 5-9 asserts that W8A8-q and W8A8-mm
 launched once for each INT8 linear that took W8A8 and K1 once for each
@@ -307,6 +324,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from block_transformer_tpu_torch import bench  # noqa: E402
 from block_transformer_tpu_torch import config  # noqa: E402
 from block_transformer_tpu_torch import config_yaml  # noqa: E402
 from block_transformer_tpu_torch import eval_longctx  # noqa: E402
@@ -1004,15 +1022,16 @@ def k2_row(rows, label, cache, q, mask, iters, path=None, tol=TOL):
     del layers
 
 
-def phase_k2(rows, cfg, vcfg):
-    """K2 at the block decoder's decode step (B=8, H=16, S=1, D=128, a
-    12-layer cache of capacity 640 filled to 530 slots, some rows finished,
-    some left-padded) and at the baseline's (B=8, H=16, S=1, D=64, a
-    24-layer cache of capacity 2176 filled to 2100); in each, one row has
-    no allowed key."""
+def phase_k2(rows, cfg, vcfg, B=BATCH, path=None):
+    """K2 at the block decoder's decode step (B rows, 8 by default, H=16,
+    S=1, D=128, a 12-layer cache of capacity 640 filled to 530 slots, some
+    rows finished, some left-padded) and at the baseline's (H=16, S=1,
+    D=64, a 24-layer cache of capacity 2176 filled to 2100); in each, one
+    row has no allowed key. ``path``: the main path both rows report (by
+    default generation's and the baseline's)."""
     dev, bf16 = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(2)
-    B, H, D = BATCH, cfg.block_decoder.num_heads, cfg.block_decoder.head_dim
+    H, D = cfg.block_decoder.num_heads, cfg.block_decoder.head_dim
     cap, filled = 640, 530
     cache = int8_layers(g, 12, B, H, cap, D)
     q = torch.randn((B, H, 1, D), generator=g, device=dev, dtype=bf16)
@@ -1022,7 +1041,8 @@ def phase_k2(rows, cfg, vcfg):
     valid[B - 2:, filled - 4:filled] = 0       # finished rows
     valid[0] = 0                               # a row with no allowed key
     mask = masks.block_decode_mask(filled - 1, cap, 1, valid)
-    k2_row(rows, "B=8 H=16 S=1 D=128 cap=640", cache, q, mask, 100)
+    k2_row(rows, f"B={B} H={H} S=1 D={D} cap={cap}", cache, q, mask, 100,
+           path=path)
     del cache
 
     H, D = vcfg.num_heads, vcfg.head_dim
@@ -1032,8 +1052,8 @@ def phase_k2(rows, cfg, vcfg):
     valid = torch.ones((B, cap), dtype=torch.int32, device=dev)
     valid[1] = 0                               # a row with no allowed key
     mask = masks.decode_mask(filled - 1, cap, 1, valid, device=dev)
-    k2_row(rows, f"baseline B=8 H={H} S=1 D={D} cap={cap}", cache, q, mask,
-           100, path="vanilla")
+    k2_row(rows, f"baseline B={B} H={H} S=1 D={D} cap={cap}", cache, q,
+           mask, 100, path=path or "vanilla")
     del cache
 
 
@@ -1075,6 +1095,49 @@ def phase_k2_bf16(rows, cfg):
     mask = masks.decode_mask(0, cap, S, device=dev)
     k2_row(rows, f"token decoder's local cache, prefix step B=8 H={H} "
            f"S={S} D={D} cap={cap}", (k, v), q, mask, 50, path="generation")
+
+
+def phase_bench_kernels(rows, cfg, vcfg):
+    """The kernels of ``phase_bench``'s path at its batch (BENCH_BATCH =
+    16 rows, where the rows above take 8; K1's and W8A8-mm's plans follow
+    M, K2's split of the cache and K3's grid B x H), each row reporting
+    the ``bench`` path's launches: K1 at the decode step's linears (M =
+    16: the block and token decoders' qkv and mlp_down, the head, the
+    baseline's qkv), W8A8 at both prefills' qkv (M = 16 x 512 blocks, 16
+    x 2048 tokens), K2 INT8 and K3 (``phase_k2``, ``phase_k3``), K2's warp
+    route at the token decoder's local cache (token step and prefix step)
+    and the fused K5 at both decode writes (one int offset)."""
+    B, path = BENCH_BATCH, "bench"
+    g = torch.Generator(device="cuda").manual_seed(17)
+    h, m = cfg.block_decoder.hidden_size, cfg.block_decoder.intermediate_size
+    vh, L = vcfg.hidden_size, 12
+    for label, K, N, layers in (("qkv", h, 3 * h, L), ("mlp_down", m, h, L),
+                                ("lm_head", h, cfg.vocab_size, 1),
+                                ("baseline qkv", vh, 3 * vh, L)):
+        k1_row(rows, g, f"{label} M={B}", B, K, N, layers, path=path)
+    Mb = B * PROMPT_TOKENS // cfg.block_length * cfg.n_embedding_tokens
+    for label, M, K in (("qkv", Mb, h), ("baseline qkv", B * PROMPT_TOKENS,
+                                         vh)):
+        w8a8_rows(rows, g, label, M, K, 3 * K, L, path)
+    phase_k2(rows, cfg, vcfg, B, path)
+    phase_k3(rows, cfg, vcfg, B, path)
+    tcfg, dev, bf16 = cfg.token_decoder.neox, "cuda", torch.bfloat16
+    H, D, cap = tcfg.num_heads, tcfg.head_dim, cfg.n_expanded_emb + \
+        cfg.block_length
+    k, v = (torch.randn((tcfg.num_layers, B, H, cap, D), generator=g,
+                        device=dev, dtype=bf16) for _ in range(2))
+    for S, pos, what in ((1, cap - 2, ""), (cfg.n_expanded_emb, 0,
+                                            ", prefix step")):
+        q = torch.randn((B, H, S, D), generator=g, device=dev, dtype=bf16)
+        k2_row(rows, f"token decoder's local cache{what} B={B} H={H} S={S} "
+               f"D={D} cap={cap}", (k, v), q,
+               masks.decode_mask(pos, cap, S, device=dev), 50, path=path)
+    del k, v
+    for L_, cfg_, cap, off in (
+            (L, cfg.block_decoder, 640, 517),
+            (vcfg.num_layers, vcfg, PROMPT_TOKENS + NEW_TOKENS, 2100)):
+        k5_fused_row(rows, g, path, L_, B, cfg_.num_heads, cfg_.head_dim,
+                     cap, off)
 
 
 def launch_floor_ms(iters: int = 200) -> float:
@@ -1140,16 +1203,16 @@ def k3_row(rows, label, qkv, mask, iters, plain_iters, path=None,
            ops, path=path, peak=peak, extra=extra, plain_max=pmax)
 
 
-def phase_k3(rows, cfg, vcfg):
-    """K3 at the fresh prefill's first and last query tiles (B=8, H=16, 128
-    queries against the 512 prompt blocks, D=128, block-causal, with
-    left-padded rows whose first queries have no allowed key) and at the
-    baseline's prompt (B=8, H=16, Q=2048 against the 2176-slot cache, D=64,
-    causal: slots from 2048 on carry indices past every query, as
-    ``vanilla_prefill`` builds it)."""
+def phase_k3(rows, cfg, vcfg, B=BATCH, path=None):
+    """K3 at the fresh prefill's first and last query tiles (B rows, 8 by
+    default, H=16, 128 queries against the 512 prompt blocks, D=128,
+    block-causal, with left-padded rows whose first queries have no allowed
+    key) and at the baseline's prompt (H=16, Q=2048 against the 2176-slot
+    cache, D=64, causal: slots from 2048 on carry indices past every query,
+    as ``vanilla_prefill`` builds it). ``path``: as ``phase_k2``'s."""
     dev, bf16 = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(3)
-    B, H, D = BATCH, cfg.block_decoder.num_heads, cfg.block_decoder.head_dim
+    H, D = cfg.block_decoder.num_heads, cfg.block_decoder.head_dim
     Q, K = 128, PROMPT_TOKENS // cfg.block_length
     qkv = [torch.randn((3, B, H, K, D), generator=g, device=dev, dtype=bf16)
            for _ in range(4)]
@@ -1162,8 +1225,8 @@ def phase_k3(rows, cfg, vcfg):
                               full.kv_valid)
         tiles = [(t[0, :, :, t0:t0 + Q].contiguous(), t[1], t[2])
                  for t in qkv]
-        k3_row(rows, f"{label} tile B=8 H=16 Q={Q} K={K} D={D}", tiles,
-               mask, 50, 20)
+        k3_row(rows, f"{label} tile B={B} H={H} Q={Q} K={K} D={D}", tiles,
+               mask, 50, 20, path=path)
     del qkv, tiles
 
     H, D = vcfg.num_heads, vcfg.head_dim
@@ -1174,8 +1237,8 @@ def phase_k3(rows, cfg, vcfg):
            for _ in range(2)]
     mask = masks.decode_mask(0, K, Q, torch.ones((B, K), dtype=torch.int32,
                                                  device=dev), device=dev)
-    k3_row(rows, f"baseline B=8 H={H} Q={Q} K={K} D={D} causal", qkv, mask,
-           20, 2, path="vanilla")
+    k3_row(rows, f"baseline B={B} H={H} Q={Q} K={K} D={D} causal", qkv,
+           mask, 20, 2, path=path or "vanilla")
     del qkv
 
 
@@ -4226,7 +4289,7 @@ def phase_scripts(smi) -> dict:
 PROBE_MICROBENCH = ["--iters", "16"]          # default 32
 PROBE_PREFILL = ["--batch", "64"]             # default 256
 PROBE_ADMIT = ["--reps", "1", "--decode", "16"]   # defaults 3, 64
-PROBE_MIXED48_ITERS = 4       # mixed48_stage_probe.ITERS (default 32)
+PROBE_MIXED48_ITERS = 4       # bench.ITERS in mixed48_stage_probe (32)
 PROBE_RATIO = ["--reps", "2"]                 # default 3
 W8A8_GATE_BATCH = 384                         # w8a8_decode_gate --batch
 # the kernels each probe's run must launch, and those it must not
@@ -4567,13 +4630,12 @@ def phase_probes(smi) -> dict:
         if pf["matmul_floor_route"] != "W8A8-mm":
             raise AssertionError(f"prefill_profile's matmul floor took "
                                  f"{pf['matmul_floor_route']}, not W8A8")
-        iters, mixed48_stage_probe.ITERS = (mixed48_stage_probe.ITERS,
-                                            PROBE_MIXED48_ITERS)
+        iters, bench.ITERS = bench.ITERS, PROBE_MIXED48_ITERS
         try:
             m48 = probe_step("mixed48_stage_probe", mixed48_stage_probe.main,
                              [])
         finally:
-            mixed48_stage_probe.ITERS = iters
+            bench.ITERS = iters
         finite("mixed48_stage_probe", *(v for d in (m48["int8"],
                                                     m48["mixed48"])
                                         for v in d.values()))
@@ -4595,6 +4657,121 @@ def phase_probes(smi) -> dict:
                     "checks_s": checks_s, "steps_s": probe_secs,
                     "launches": probe_launches, "card": smi}))
     return {f"probe {n}": v for n, v in probe_launches.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase_bench: the port's benchmark (block_transformer_tpu_torch/bench.py)
+# ---------------------------------------------------------------------------
+
+BENCH_BATCH, BENCH_PREFILL, BENCH_DECODE = 16, 2048, 128
+BENCH_REPS = 2                # BT_BENCH_REPS (default 5)
+BENCH_ITERS = 16              # bench.ITERS, the decomposition's (32)
+BENCH_ARGV = ["--model", MODEL, "--vanilla", VANILLA_MODEL,
+              "--batch", BENCH_BATCH, "--vanilla_batch", BENCH_BATCH,
+              "--prefill", BENCH_PREFILL, "--decode", BENCH_DECODE,
+              "--quantize", "int8", "--kv", "int8", "--engine",
+              "--engine_slots", BENCH_BATCH,
+              "--detail_out", os.path.join(ROOT, "build", "BENCH_DETAIL.json")]
+# the JAX benchmark's metric for this command line
+BENCH_METRIC = (f"decode_tokens_per_sec[{MODEL}-int8-kv8 b{BENCH_BATCH} "
+                f"p{BENCH_PREFILL}/d{BENCH_DECODE} vs {VANILLA_MODEL}-int8-kv8 "
+                f"b{BENCH_BATCH}]")
+BENCH_DETAIL_KEYS = {"block", "vanilla", "engine", "block_tok_per_s",
+                     "vanilla_tok_per_s", "block_batch", "vanilla_batch",
+                     "regime"}
+BENCH_STAGES = ("prefill_ms", "token_decoder_ms_per_block_step",
+                "block_decoder_ms_per_block_step")
+# INT8 weights and caches throughout (the block model, its decomposition,
+# the contiguous INT8 engine, the baseline): no INT4 weight, no paged pool,
+# no bf16 global cache
+PATH_KERNELS["bench"] = ("K1", "K2", "K2 bf16", "K3", *K5_FUSED, *W8A8)
+PATH_ABSENT["bench"] = ("K4", "K6", "K6 int4", *K7_FUSED, "K8", "K8 int4")
+
+
+def check_bench_engines(engines, rows, vocab: int) -> None:
+    """Every request of every rep of both engine rows (and the warm-ups)
+    served in full, with tokens in [0, vocab); each rep produced the same
+    count."""
+    for (kw, eng), row in zip(engines, rows):
+        reqs = eng.completed
+        if len(reqs) != BENCH_BATCH * (1 + BENCH_REPS):
+            raise AssertionError(f"bench engine {kw}: {len(reqs)} requests "
+                                 f"completed")
+        for r in reqs:
+            if r.error or not r.done or len(r.generated) != BENCH_DECODE:
+                raise AssertionError(
+                    f"bench engine: request {r.uid} served "
+                    f"{len(r.generated)} of {BENCH_DECODE} tokens (error "
+                    f"{r.error!r})")
+            if min(r.generated) < 0 or max(r.generated) >= vocab:
+                raise AssertionError("bench engine: tokens out of [0, vocab)")
+        if row["engine_tokens"] != BENCH_BATCH * BENCH_DECODE or \
+                row["latency"]["completed"] != BENCH_BATCH:
+            raise AssertionError(f"bench engine: a rep produced "
+                                 f"{row['engine_tokens']} tokens for "
+                                 f"{row['latency']['completed']} requests")
+
+
+def phase_bench(smi) -> dict:
+    """``bench.main`` at ``block_main_b4_1.2b`` / ``vanilla_410`` width, B =
+    16, p2048/d128, INT8 weights and KV, with the engine (16 slots),
+    ``BT_BENCH_REPS`` = 2 and ``bench.ITERS`` = 16, in a launch window of its own (every kernel of
+    the path launched, none it must not); its JSON line and detail file
+    checked against the JAX benchmark's metric and keys, the engine's
+    requests served in full. Returns {"bench": launches}."""
+    started = time.perf_counter()
+    log(f"bench: cuts for time: BT_BENCH_REPS {BENCH_REPS} (default 5), "
+        f"the decomposition's ITERS {BENCH_ITERS} (default {bench.ITERS})")
+    saved = os.environ.get("BT_BENCH_REPS")
+    os.environ["BT_BENCH_REPS"] = str(BENCH_REPS)
+    iters, bench.ITERS = bench.ITERS, BENCH_ITERS
+    real = bench.engine_lib.ContinuousBatchingEngine
+    engines = []
+
+    class Engine(real):         # keeps the engines main builds
+        def __init__(self, *args, **kw):
+            engines.append((kw, self))
+            super().__init__(*args, **kw)
+
+    bench.engine_lib.ContinuousBatchingEngine = Engine
+    try:
+        record, launches = script_step({}, "bench", bench.main,
+                                       BENCH_ARGV, "bench")
+    finally:
+        bench.engine_lib.ContinuousBatchingEngine = real
+        bench.ITERS = iters
+        if saved is None:
+            os.environ.pop("BT_BENCH_REPS")
+        else:
+            os.environ["BT_BENCH_REPS"] = saved
+    line = record["line"]
+    with open(BENCH_ARGV[-1]) as f:
+        detail = json.load(f)
+    if line["metric"] != BENCH_METRIC or line["unit"] != "tok/s":
+        raise AssertionError(f"bench line {line}")
+    finite("bench", line["value"], line["vs_baseline"])
+    if not (line["value"] > 0 and line["vs_baseline"] > 0):
+        raise AssertionError(f"bench line {line}")
+    if set(detail) != BENCH_DETAIL_KEYS or detail != json.loads(
+            json.dumps(record["detail"])):
+        raise AssertionError(f"bench detail keys {sorted(detail)}")
+    block, engine = detail["block"], detail["engine"]
+    if block.get("decomposition_batch") != BENCH_BATCH or any(
+            k not in block for k in BENCH_STAGES):
+        raise AssertionError(f"bench decomposition: {block}")
+    finite("bench decomposition", *(block[k] for k in BENCH_STAGES))
+    if "latency_mode_row" not in engine or "median_s" not in \
+            detail["vanilla"]:
+        raise AssertionError(f"bench engine / vanilla detail: "
+                             f"{sorted(engine)} / {sorted(detail['vanilla'])}")
+    check_bench_engines(engines, (engine, engine["latency_mode_row"]),
+                        config.get_config(MODEL).vocab_size)
+    torch.cuda.empty_cache()
+    log(json.dumps({"bench": line, "detail": detail,
+                    "launches": {k: v for k, v in launches.items() if v},
+                    "bench_phase_s": time.perf_counter() - started,
+                    "card": smi}))
+    return {"bench": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -5549,6 +5726,7 @@ def main() -> None:
     phase_k8(rows, cfg)
     phase_k8(rows, cfg, int4=True)
     phase_family_kernels(rows)
+    phase_bench_kernels(rows, cfg, vcfg)
     floor = launch_floor_ms()
     log(json.dumps({"launch_floor_ms": floor, "card": smi}))
     lap("kernel rows")
@@ -5604,6 +5782,8 @@ def main() -> None:
     lap("scripts")
     launches.update(phase_probes(smi))
     lap("probes")
+    launches.update(phase_bench(smi))
+    lap("bench")
     log("block/vanilla generated tokens per second at B=8 p2048/d128, "
         "INT8 KV (smoke figures, not a benchmark): " + ", ".join(
             f"{q} {tok_s[(q, 'int8')] / tok_s['vanilla']:.3f}"

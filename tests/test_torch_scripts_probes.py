@@ -31,7 +31,8 @@ Tolerances:
   within 1e-4 of max|JAX| in float32 (the INT8 cache's quantization may
   move a value by one step where it sits on a rounding boundary); the bf16
   KV stage and the matmul floor, bf16 on both sides, within 2^-6.
-- ``mixed48_stage_probe``: ``_two_level_decomposition`` has ``bench.py``'s
+- ``mixed48_stage_probe``: the port's benchmark's
+  ``_two_level_decomposition`` (which the probe runs) has ``bench.py``'s
   keys; each stage's outputs (read by spies) equal JAX's: the token
   stage's sum of greedy tokens exactly, the block and prefill stages
   within 1e-4 relative.
@@ -64,6 +65,7 @@ from block_transformer_tpu.ops import dequant_matmul as jax_dm
 from block_transformer_tpu.ops import flash_attention as jax_fa
 from block_transformer_tpu.ops import masks as jax_masks
 from block_transformer_tpu.ops import quant as jax_quant
+from block_transformer_tpu_torch import bench as torch_bench
 from block_transformer_tpu_torch import bridge
 from block_transformer_tpu_torch import config as torch_config
 from block_transformer_tpu_torch.inference import engine as torch_engine
@@ -71,8 +73,8 @@ from block_transformer_tpu_torch.inference import generate as gen
 from block_transformer_tpu_torch.models import block_transformer as bt
 from block_transformer_tpu_torch.ops import quant
 from block_transformer_tpu_torch.scripts import (
-    engine_cpu_ratio, int4kv_probe, kernel_microbench, mixed48_stage_probe,
-    paged_admit_probe, prefill_profile, w8a8_decode_gate)
+    engine_cpu_ratio, int4kv_probe, kernel_microbench, paged_admit_probe,
+    prefill_profile, w8a8_decode_gate)
 from block_transformer_tpu_torch.utils import profiling, roofline
 from tests.test_torch_scripts_gates import (  # noqa: F401 (fixtures)
     GEN_TOKENS, PROMPT_LEN, checkpoints, corpus, jax_decode, jax_fp32_lp,
@@ -485,7 +487,7 @@ def test_two_level_decomposition_equals_jax(monkeypatch):
             qj, cfg_j, *args, jnp.float32, "int4", iters=2)
     monkeypatch.setattr(profiling, "block_until_ready",
                         lambda x: rec_t.append(real_t(x).numpy()) or x)
-    got = mixed48_stage_probe._two_level_decomposition(
+    got = torch_bench._two_level_decomposition(
         qt, cfg_t, *args, torch.float32, "int4", iters=2)
     assert sorted(got) == sorted(want)
     assert all(np.isfinite(v) for v in got.values())

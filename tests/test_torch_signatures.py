@@ -150,8 +150,9 @@ TOP_LEVEL_SCRIPTS = {"pretrain_block_transformer.py",
 # a tool of the repository, not of the system, so it has no port
 REPO_TOOLS = {"doc_lint.py"}
 # every script of the JAX package is ported (ROADMAP Queue 1 item 6 closed
-# with the ten speed probes); only bench.py, the JAX benchmark, waits for
-# the port's benchmark (Queue 1 item 1) and is not a script of scripts/
+# with the ten speed probes); the JAX benchmark ``bench.py`` (the repository's
+# root, not scripts/) is ported as ``block_transformer_tpu_torch/bench.py``
+# and held by the cases at the end of this file
 UNPORTED_SCRIPTS = set()
 # the JAX decode gates decode each variant in a subprocess (its WORKER
 # source and the npz its trees travel in); the port runs them in-process
@@ -289,3 +290,50 @@ def test_a_jax_command_line_with_lr_and_steps_parses(script, capsys):
     help_text = " ".join(capsys.readouterr().out.split())
     assert "--lr LR" in help_text and "--steps STEPS" in help_text
     assert "ignored" in help_text and "restore_params" in help_text
+
+
+# ---------------------------------------------------------------------------
+# bench.py: the JAX benchmark beside block_transformer_tpu_torch/bench.py
+# ---------------------------------------------------------------------------
+
+JAX_BENCH = ROOT / "bench.py"
+PORT_BENCH = PORT_PKG / "bench.py"
+# the benchmark's private helpers that the port keeps under their names
+BENCH_PRIVATE = ("_quant_kwargs", "_two_level_decomposition")
+
+
+def _bench_functions(path: Path) -> dict:
+    return {n.name: n.args for n in ast.parse(path.read_text()).body
+            if isinstance(n, ast.FunctionDef)}
+
+
+def test_bench_names_and_parameters_match_jax():
+    """Every public function of ``bench.py`` but ``main`` (and the helpers
+    ``BENCH_PRIVATE``) in the port's benchmark, with the same parameters;
+    ``device`` is the port's only extra one."""
+    want, got = _bench_functions(JAX_BENCH), _bench_functions(PORT_BENCH)
+    names = [n for n in want if not n.startswith("_") and n != "main"]
+    assert names and set(names) <= set(_public(JAX_BENCH))
+    faults = []
+    for name in names + list(BENCH_PRIVATE):
+        if name not in got:
+            faults.append(f"{name} is missing")
+            continue
+        j, p = _params(want[name], name, True), _params(got[name], name,
+                                                        False)
+        if j != p:
+            faults.append(f"{name}: JAX {j}, port {p}")
+    assert not faults, "; ".join(faults)
+
+
+def test_bench_main_takes_argv():
+    main = _bench_functions(PORT_BENCH)["main"]
+    assert [a.arg for a in main.args] == ["argv"]
+    assert [ast.literal_eval(d) for d in main.defaults] == [None]
+    assert not main.kwonlyargs and not main.vararg and not main.kwarg
+
+
+def test_bench_takes_every_jax_flag():
+    want, got = _flags(JAX_BENCH), _flags(PORT_BENCH)
+    assert "--detail_out" in want and not want - got, sorted(want - got)
+    assert got - want == PORT_ONLY_FLAGS
